@@ -18,7 +18,32 @@ no result, without them.  Phases (each raises on failure):
 4. each kernel against its plain version at the main path's shapes (f32,
    1e-4), and times of both with CUDA events, beside the least time the card
    could take (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
-5. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+5. SSD and FA against their plain versions on the sweeps of
+   ``tests/test_kernels_ssd.py`` and ``tests/test_kernels_attention.py``,
+   and SSD at Mamba-2-2.7B's chunk (L=128, P=64, N=128: the kernel's
+   other shared-memory layout): f32 within 1e-4 of max |ref|; bf16 inputs
+   within 5e-4 for SSD (its outputs are f32 on both sides) and 2e-2 for
+   FA (its output is rounded to bf16);
+6. Zamba2-2.7B at full width and depth (54 layers, d_model 2560, random
+   weights from a seed) in f32 with TF32 off: forward logits of B=2 x
+   S=256 tokens (two SSD chunks) against 256 decode steps from empty
+   caches, within 5e-3 of max |logit|;
+7. the LM main path, bf16: ``make_prefill_fn`` at B=2, S=8,192 (the
+   ``prefill_32k`` shape cut to one card), one warm call and the median of
+   3 in prefill tokens/s; every call must launch SSD 54 times and FA 9
+   times (counts set to 0 before each call), and give finite logits;
+8. ``make_decode_fn`` at B=8 against 8,192-slot caches, 64 greedy steps
+   after 2 warm ones, in decode tokens/s; decode runs no kernel, so the
+   counts must stay 0;
+9. SSD and FA at the prefill's shapes against their plain versions, in
+   f32 (1e-4) and in bf16 (SSD 5e-4; FA 5e-3, about one bf16 ulp of its
+   largest output), timed in bf16 beside the plain versions and, for FA,
+   the library
+   call ``scaled_dot_product_attention`` (a yardstick the port never
+   calls), and the least time the card could take (bytes at 3.35 TB/s or
+   contraction flops at the bf16 dense peak of 989 TFLOP/s);
+10. the card's name and power limit, one ``{"kernels": [...]}`` line with
+    all four kernels, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -31,6 +56,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM, bf16 dense tensor cores
 KERNELS = {
     "nep_atom_pass": dict(
         source="src/repro_torch/kernels/nep/csrc/nep_atom_pass.cu",
@@ -38,7 +64,43 @@ KERNELS = {
     "nep_force_pass": dict(
         source="src/repro_torch/kernels/nep/csrc/nep_force_pass.cu",
         replaces="src/repro/kernels/nep/kernel.py:379"),
+    "ssd_chunks": dict(
+        source="src/repro_torch/kernels/ssd/csrc/ssd_chunks.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:62"),
+    "flash_attention_fwd": dict(
+        source="src/repro_torch/kernels/attention/csrc/flash_attention_fwd.cu",
+        replaces="src/repro/kernels/attention/kernel.py:68"),
 }
+# the sweeps of tests/test_kernels_ssd.py:10 and tests/test_kernels_attention.py:9
+SSD_SWEEP = [   # bs, s, h, p, g, n, chunk, dtype
+    (2, 64, 4, 8, 2, 16, 16, "float32"),
+    (1, 48, 2, 16, 1, 8, 16, "float32"),
+    (1, 128, 8, 8, 1, 32, 32, "float32"),
+    (2, 64, 4, 8, 4, 16, 16, "float32"),
+    (1, 64, 4, 8, 2, 16, 16, "bfloat16"),
+    # Mamba-2-2.7B's chunk: N = 128 sends the kernel down its unpadded
+    # shared-memory layout (230,400 of 232,448 bytes)
+    (1, 256, 8, 64, 1, 128, 128, "float32"),
+]
+FA_SWEEP = [    # b, s, t, h, hkv, d, dv, causal, window, dtype
+    (2, 64, 64, 4, 2, 32, 32, True, 0, "float32"),
+    (1, 48, 80, 4, 4, 16, 16, True, 16, "float32"),
+    (2, 32, 64, 2, 1, 32, 32, False, 0, "float32"),
+    (1, 40, 40, 8, 2, 64, 64, True, 0, "float32"),
+    (1, 64, 64, 4, 1, 32, 16, True, 0, "float32"),
+    (2, 64, 64, 4, 2, 32, 32, True, 0, "bfloat16"),
+]
+# of max |ref|.  SSD's outputs are f32 on both sides, so bf16 inputs change
+# nothing but the inputs; FA rounds its output to bf16 (the sweep keeps the
+# reference suite's 2e-2; at the main shapes 5e-3 is about one bf16 ulp of
+# the largest output)
+SSD_BAR = {"float32": 1e-4, "bfloat16": 5e-4}
+FA_BAR = {"float32": 1e-4, "bfloat16": 2e-2}
+FA_MAIN_BF16_BAR = 5e-3
+LM_ARCH = "zamba2-2.7b"
+PREFILL_B, PREFILL_S = 2, 8192       # prefill_32k cut to one card
+DECODE_B, DECODE_T, DECODE_STEPS = 8, 8192, 64
+PARITY_B, PARITY_S = 2, 256          # two SSD chunks
 
 
 def log(*args):
@@ -107,6 +169,339 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: Zamba2-2.7B through the SSD and flash-attention kernels
+# ---------------------------------------------------------------------------
+
+def lm_counters():
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    return ssd.ssd_chunks, fa.flash_attention_fwd
+
+
+def reset_lm_counters():
+    for fn in lm_counters():
+        fn.launches = 0
+
+
+def read_lm_counters():
+    return tuple(fn.launches for fn in lm_counters())
+
+
+def lm_sweeps(torch, dev):
+    """Phase 5: each LM kernel against its plain version on the sweeps of
+    the reference's kernel tests.  Returns the worst error per dtype."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    worst = {"ssd_chunks": {}, "flash_attention_fwd": {}}
+    for i, (bs, s, h, p, g, n, chunk, dtype) in enumerate(SSD_SWEEP):
+        dt_ = getattr(torch, dtype)
+        x = rnd(bs, s, h, p).to(dt_)
+        dtv = torch.nn.functional.softplus(rnd(bs, s, h))
+        a = -torch.exp(rnd(h) * 0.5)
+        b = (rnd(bs, s, g, n) * 0.3).to(dt_)
+        c = (rnd(bs, s, g, n) * 0.3).to(dt_)
+        got = ssd.ssd_chunks(x, dtv, a, b, c, chunk=chunk)
+        want = ssd.ssd_chunks_plain(x, dtv, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        err = max(check(f"SSD sweep {i} {o} {dtype}", u, w, SSD_BAR[dtype])
+                  for o, u, w in zip(("y_intra", "states", "cum"), got, want))
+        w = worst["ssd_chunks"]
+        w[dtype] = max(w.get(dtype, 0.0), err)
+    for i, (b, s, t, h, hkv, d, dv, causal, win, dtype) in enumerate(
+            FA_SWEEP):
+        dt_ = getattr(torch, dtype)
+        q, k, v = (rnd(b, s, h, d).to(dt_), rnd(b, t, hkv, d).to(dt_),
+                   rnd(b, t, hkv, dv).to(dt_))
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        err = check(f"FA sweep {i} {dtype}", got.float(), want.float(),
+                    FA_BAR[dtype])
+        w = worst["flash_attention_fwd"]
+        w[dtype] = max(w.get(dtype, 0.0), err)
+    return worst
+
+
+def lm_parity(torch, dev, cfg):
+    """Phase 6: full-width f32 forward logits against token-by-token decode
+    from empty caches (the forward path runs both kernels, decode none)."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = lm.init_params(cfg32, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_B, PARITY_S), generator=gen,
+                           device=dev)
+    t0 = time.perf_counter()
+    h, logits_fn = tfm.forward(cfg32, params, tokens)
+    full = logits_fn(h).float()
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("f32 forward logits are not finite")
+    caches = tfm.init_caches(cfg32, PARITY_B, PARITY_S, torch.float32, dev)
+    decode = lm.make_decode_fn(cfg32)
+    err = torch.zeros((), device=dev)
+    t0 = time.perf_counter()
+    for i in range(PARITY_S):
+        pos = torch.full((PARITY_B,), i, dtype=torch.int32, device=dev)
+        logits, caches = decode(params, caches,
+                                {"token": tokens[:, i:i + 1], "position": pos})
+        err = torch.maximum(err, (logits - full[:, i]).abs().max())
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    rel = float(err) / float(full.abs().max())
+    log(f"  f32 forward {fwd_s:.2f} s, {PARITY_S} decode steps {dec_s:.2f} s;"
+        f" max |decode - forward| / max |forward| = {rel:.3e} (bar 5e-3)")
+    if not rel < 5e-3:
+        raise AssertionError(f"decode vs prefill relative error {rel:.3e}")
+    return rel
+
+
+def lm_prefill(torch, dev, cfg, params):
+    """Phase 7: timed bf16 prefill; every call must launch SSD once per
+    Mamba-2 block and FA once per shared-block invocation."""
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import padded_vocab
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=dev)
+    prefill = lm.make_prefill_fn(cfg)
+    expect = (cfg.n_layers, cfg.n_layers // cfg.shared_every)
+    secs, counts = [], None
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(4):
+        torch.cuda.synchronize()
+        reset_lm_counters()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = read_lm_counters()
+        if counts != expect:
+            raise AssertionError(f"prefill call {i} launched (SSD, FA) = "
+                                 f"{counts}, expected {expect}")
+    if tuple(logits.shape) != (PREFILL_B, padded_vocab(cfg.vocab)) or not \
+            bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    med = sorted(secs[1:])[1]
+    tps = PREFILL_B * PREFILL_S / med
+    log(f"  prefill B={PREFILL_B} S={PREFILL_S}: warm {secs[0]:.3f} s, "
+        f"calls {[round(s, 4) for s in secs[1:]]} s, median {med:.4f} s = "
+        f"{tps:.1f} prefill tokens/s; launches in the last call (SSD, FA) "
+        f"= {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return {"tokens_per_s": tps, "median_s": med, "launches": counts}
+
+
+def lm_decode(torch, dev, cfg, params):
+    """Phase 8: timed bf16 greedy decode against caches of DECODE_T slots;
+    decode runs no kernel, so the counters must not move."""
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(3)
+    caches = tfm.init_caches(cfg, DECODE_B, DECODE_T, torch.bfloat16, dev)
+    decode = lm.make_decode_fn(cfg)
+    tok = torch.randint(0, cfg.vocab, (DECODE_B, 1), generator=gen,
+                        device=dev)
+    reset_lm_counters()
+
+    def step(i, tok):
+        pos = torch.full((DECODE_B,), i, dtype=torch.int32, device=dev)
+        logits, _ = decode(params, caches, {"token": tok, "position": pos})
+        return logits, logits.argmax(-1, keepdim=True)
+
+    for i in range(2):                       # warm
+        logits, tok = step(i, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 2 + DECODE_STEPS):
+        logits, tok = step(i, tok)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if read_lm_counters() != (0, 0):
+        raise AssertionError(f"decode launched (SSD, FA) = "
+                             f"{read_lm_counters()}, expected none")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode logits are not finite")
+    tps = DECODE_B * DECODE_STEPS / secs
+    log(f"  decode B={DECODE_B} against {DECODE_T}-slot caches: "
+        f"{DECODE_STEPS} steps in {secs:.3f} s = {1e3 * secs / DECODE_STEPS:.2f}"
+        f" ms/step = {tps:.1f} decode tokens/s; no kernel launched")
+    return {"tokens_per_s": tps, "ms_per_step": 1e3 * secs / DECODE_STEPS}
+
+
+def ssd_names(tag):
+    return [f"SSD main {o} {tag}" for o in ("y_intra", "states", "cum")]
+
+
+def compare_main(torch, names, kernel, plain, args, bar, **kw):
+    """One kernel against its plain version on ``args``, one name per
+    output; returns the worst relative and absolute errors."""
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    rel = max(check(name, u.float(), w.float(), bar)
+              for name, u, w in zip(names, got, want))
+    return rel, max(float((u.float() - w.float()).abs().max())
+                    for u, w in zip(got, want))
+
+
+def lm_kernels_main(torch, dev, cfg, sweep_err, launches):
+    """Phase 9: each LM kernel at the prefill's shapes, against its plain
+    version in f32 and in bf16 (the config's dtype); timed in bf16 beside
+    the plain version, the library call where one exists, and the least
+    time the card could take."""
+    import math
+
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.models.ssm import ssm_dims
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16 = torch.bfloat16
+    B, S = PREFILL_B, PREFILL_S
+    rows = []
+
+    # SSD: x, B and C as the strided views of the conv output
+    s = cfg.ssm
+    d_in, H = ssm_dims(cfg)
+    G, N, P, L = s.n_groups, s.d_state, s.head_dim, s.chunk
+    xbc = torch.randn((B, S, d_in + 2 * G * N), generator=gen, device=dev,
+                      dtype=bf16)
+    x = xbc[..., :d_in].view(B, S, H, P)
+    b = xbc[..., d_in:d_in + G * N].view(B, S, G, N)
+    c = xbc[..., d_in + G * N:].view(B, S, G, N)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+    args = (x, dt, a, b, c)
+    xbc32 = xbc.float()
+    args32 = (xbc32[..., :d_in].view(B, S, H, P), dt, a,
+              xbc32[..., d_in:d_in + G * N].view(B, S, G, N),
+              xbc32[..., d_in + G * N:].view(B, S, G, N))
+    rel32, _ = compare_main(torch, ssd_names("f32"),
+                            ssd.ssd_chunks, ssd.ssd_chunks_plain, args32,
+                            SSD_BAR["float32"], chunk=L)
+    del xbc32, args32
+    rel, abs_err = compare_main(torch, ssd_names("bf16"),
+                                ssd.ssd_chunks, ssd.ssd_chunks_plain, args,
+                                SSD_BAR["bfloat16"], chunk=L)
+    nc = S // L
+    f32_out = 4 * B * nc * (L * H * P + H * N * P + L * H)
+    nbytes_ssd = nbytes(x, b, c, dt, a) + f32_out
+    tri = L * (L + 1) // 2
+    flops_ssd = 2.0 * B * nc * H * (tri * N + tri * P + L * N * P)
+    ms = time_ms(torch, lambda: ssd.ssd_chunks(*args, chunk=L), 20)
+    plain = time_ms(torch, lambda: ssd.ssd_chunks_plain(*args, chunk=L), 2)
+    rows.append(kernel_row(
+        "ssd_chunks", launches[0], abs_err, ms, plain, None, nbytes_ssd,
+        flops_ssd, {"max_rel_err_f32": max(
+                        rel32, sweep_err["ssd_chunks"]["float32"]),
+                    "max_rel_err_bf16": max(
+                        rel, sweep_err["ssd_chunks"]["bfloat16"])}))
+    del xbc, x, b, c, dt, args
+    torch.cuda.empty_cache()
+
+    # FA: the shared block's causal GQA prefill attention
+    Hq, Hkv, d = cfg.n_heads, cfg.kv_heads, cfg.hd
+    q = torch.randn((B, S, Hq, d), generator=gen, device=dev, dtype=bf16)
+    k = torch.randn((B, S, Hkv, d), generator=gen, device=dev, dtype=bf16)
+    v = torch.randn((B, S, Hkv, d), generator=gen, device=dev, dtype=bf16)
+    rel32, _ = compare_main(torch, ["FA main f32"], fa.flash_attention_fwd,
+                            fa.flash_attention_plain,
+                            tuple(t.float() for t in (q, k, v)),
+                            FA_BAR["float32"], causal=True)
+    torch.cuda.empty_cache()
+    rel, abs_err = compare_main(torch, ["FA main bf16"], fa.flash_attention_fwd,
+                                fa.flash_attention_plain, (q, k, v),
+                                FA_MAIN_BF16_BAR, causal=True)
+    nbytes_fa = nbytes(q, k, v) + B * S * Hq * d * q.element_size()
+    flops_fa = 2.0 * B * Hq * (S * (S + 1) // 2) * (d + d)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                 5)
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                            causal=True), 1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=1 / math.sqrt(d)), 20)
+    rows.append(kernel_row(
+        "flash_attention_fwd", launches[1], abs_err, ms, plain, lib,
+        nbytes_fa, flops_fa,
+        {"max_rel_err_f32": max(
+            rel32, sweep_err["flash_attention_fwd"]["float32"]),
+         "max_rel_err_bf16": max(
+             rel, sweep_err["flash_attention_fwd"]["bfloat16"])}))
+    return rows
+
+
+def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
+               flops, extra):
+    """One row of the kernels line for a bf16 LM kernel: the bound is the
+    larger of its bytes at 3.35 TB/s and its contraction flops at the bf16
+    dense tensor-core peak of 989 TFLOP/s."""
+    t_bytes = 1e3 * nbytes_ / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / BF16_FLOPS_PER_S
+    bound = max(t_bytes, t_ops)
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, library {lib}); "
+        f"{nbytes_ / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.2f} "
+        f"GFLOP -> {t_ops:.4f} ms at bf16 peak; bound {bound:.4f} ms = "
+        f"{100 * bound / ms:.2f}% of the kernel's time")
+    meta = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": launches,
+            "max_abs_err": abs_err, **extra, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
+            "library_ms": library_ms}
+
+
+def lm_phases(torch, dev):
+    """Phases 5-9 (the LM serving path); returns their kernel rows."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get(LM_ARCH)
+    log(f"phase 5: SSD and FA against their plain versions on the "
+        f"reference's sweeps")
+    sweep_err = lm_sweeps(torch, dev)
+    log(f"phase 6: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}) in f32: decode vs prefill, B={PARITY_B}, "
+        f"S={PARITY_S}")
+    lm_parity(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"phase 7: {cfg.name} bf16 prefill ({n_par / 1e9:.3f} B parameters, "
+        f"{sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB)")
+    pre = lm_prefill(torch, dev, cfg, params)
+    log("phase 8: bf16 decode")
+    lm_decode(torch, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    log("phase 9: SSD and FA at the prefill's shapes (f32 and bf16)")
+    return lm_kernels_main(torch, dev, cfg, sweep_err, pre["launches"])
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -148,7 +543,7 @@ def main() -> int:
     secs = _build.build()
     log(f"phase 1: built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per library: { {k: round(v, 1) for k, v in secs.items()} })")
-    for name in KERNELS:
+    for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix(".log").read_text()
         for line in report.splitlines():
             if "registers" in line or "stack frame" in line:
@@ -306,8 +701,8 @@ def main() -> int:
     }
     step_ms = 1e3 * run_s / steps
     rows = []
-    for name, meta in KERNELS.items():
-        b, f = work[name]
+    for name, (b, f) in work.items():
+        meta = KERNELS[name]
         t_bytes, t_ops = 1e3 * b / HBM_BYTES_PER_S, 1e3 * f / F32_FLOPS_PER_S
         bound = max(t_bytes, t_ops)
         log(f"  {name}: {ms[name]:.3f} ms (plain {plain_ms[name]:.1f} ms); "
@@ -326,6 +721,10 @@ def main() -> int:
         })
     log(f"  main path step {step_ms:.2f} ms, of which K1 + K2 "
         f"{ms['nep_atom_pass'] + ms['nep_force_pass']:.2f} ms per evaluation")
+    del eng, c, nbh, blocks, k1, p1, k2, p2, state, st, ff
+    torch.cuda.empty_cache()
+
+    rows += lm_phases(torch, dev)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

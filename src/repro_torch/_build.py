@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and bind them with ``ctypes``.
 
-Each ``.cu`` source under ``kernels/*/csrc/`` becomes its own shared library
+Each ``.cu`` source under ``kernels/*/csrc/`` (NEP K1 and K2, the SSD
+chunk step, flash attention) becomes its own shared library
 with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -28,6 +29,9 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 SOURCES = {
     "nep_atom_pass": PKG_DIR / "kernels" / "nep" / "csrc" / "nep_atom_pass.cu",
     "nep_force_pass": PKG_DIR / "kernels" / "nep" / "csrc" / "nep_force_pass.cu",
+    "ssd_chunks": PKG_DIR / "kernels" / "ssd" / "csrc" / "ssd_chunks.cu",
+    "flash_attention_fwd": (PKG_DIR / "kernels" / "attention" / "csrc"
+                            / "flash_attention_fwd.cu"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,132 @@
+"""Flash-attention forward: the hand-written Hopper kernel and its plain
+PyTorch version (port of
+``repro.kernels.attention.kernel.flash_attention_fwd``, and with the
+contract of ``repro.kernels.attention.ops.flash_attention``).
+
+``flash_attention_fwd`` dispatches on the device of its tensors: a CPU
+tensor goes to ``flash_attention_plain``; a CUDA tensor launches
+``csrc/flash_attention_fwd.cu`` on the current stream, or raises.  It counts
+its launches in ``flash_attention_fwd.launches``.
+
+Both read the model's layout, q (B,S,H,d) and k/v (B,T,Hkv,d/dv) ->
+(B,S,H,dv), where the reference kernel takes (B*H, S, d) after a transpose,
+so the reference's ``ops`` wrapper and its transposes have no counterpart.  Positions are the
+row indices 0..S-1 and 0..T-1: causal keeps k_pos <= q_pos, a window keeps
+k_pos > q_pos - window, and keys past T do not exist.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import _build
+
+NEG_INF = -1e30
+PLAIN_ROWS = 256        # query rows per step of the plain version
+MAX_DV = 128
+SMEM_MAX = 232448
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_P]
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0):
+    """Masked softmax attention in f32, ``PLAIN_ROWS`` query rows at a time
+    (no S x T block of the whole sequence).  Returns (B,S,H,dv) in q's
+    dtype."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(t, device=q.device)
+    out = torch.empty((b, s, h, v.shape[-1]), dtype=q.dtype, device=q.device)
+    for s0 in range(0, s, PLAIN_ROWS):
+        qb = q[:, s0:s0 + PLAIN_ROWS].float() * d ** -0.5
+        sb = qb.shape[1]
+        qb = qb.reshape(b, sb, hkv, rep, d)
+        sco = torch.einsum("bsgrd,btgd->bgrst", qb, kf)
+        q_pos = torch.arange(s0, s0 + sb, device=q.device)[:, None]
+        ok = torch.ones((sb, t), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window:
+            ok &= k_pos > q_pos - window
+        sco = torch.where(ok, sco, NEG_INF)
+        prob = torch.softmax(sco, dim=-1)
+        ob = torch.einsum("bgrst,btge->bsgre", prob, vf)
+        out[:, s0:s0 + sb] = ob.reshape(b, sb, h, -1).to(q.dtype)
+    return out
+
+
+def _entry(dtype):
+    fn = getattr(_build.load("flash_attention_fwd"),
+                 f"flash_attention_fwd_{_DTYPES[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _smem_bytes(d: int, dv: int) -> int:
+    dv16 = -(-dv // 16) * 16
+    return 4 * (2 * d * 68 + 64 * dv16 + 64 * 68)
+
+
+def _check(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be on {q.device} with dtype "
+                             f"{q.dtype}")
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be (B, T, Hkv, d)")
+    if q.dim() != 4:
+        raise ValueError("q must be (B, S, H, d)")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if h % k.shape[2]:
+        raise ValueError(f"heads {h} must be a multiple of kv heads "
+                         f"{k.shape[2]}")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("the last dimension of q, k and v must be "
+                         "contiguous")
+    dv = v.shape[3]
+    if dv > MAX_DV or _smem_bytes(d, dv) > SMEM_MAX:
+        raise ValueError(f"d {d}, dv {dv} exceed the kernel's limits "
+                         f"(dv <= {MAX_DV}, {SMEM_MAX} bytes of shared "
+                         "memory)")
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0):
+    """q (B,S,H,d), k (B,T,Hkv,d), v (B,T,Hkv,dv) -> (B,S,H,dv) in q's
+    dtype; f32 math."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v)
+    b, s, h, d = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = _entry(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, h, hkv, d, dv, int(bool(causal)), int(window),
+            d ** -0.5, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

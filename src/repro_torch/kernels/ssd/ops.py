@@ -1,0 +1,34 @@
+"""SSD through the chunk kernel (port of ``repro.kernels.ssd.ops``): the
+kernel's per-chunk work, then the short inter-chunk state recurrence in
+torch ops, as the reference keeps it in jnp."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd.kernel import ssd_chunks
+
+
+def ssd_chunked_kernel(x, dt, a, b, c, d_skip, chunk: int = 128):
+    """Same contract as ``models.ssm.ssd_chunked``: x (B,S,H,P), dt (B,S,H)
+    f32, a (H,) f32, b/c (B,S,G,N) -> y (B,S,H,P) in x's dtype.  A sequence
+    that is not a multiple of ``chunk`` raises."""
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    nc = s // chunk
+    y_intra, states, cum = ssd_chunks(x, dt, a, b, c, chunk=chunk)
+
+    # inter-chunk state recurrence (short, sequential)
+    chunk_decay = torch.exp(cum[:, :, -1, :])[..., None, None]  # (B,NC,H,1,1)
+    prev = torch.empty_like(states)
+    run = torch.zeros_like(states[:, 0])
+    for i in range(nc):
+        prev[:, i] = run
+        run = torch.addcmul(states[:, i], chunk_decay[:, i], run)
+
+    cg = c.float().reshape(bs, nc, chunk, g, n)
+    y_inter = torch.einsum("bclgn,bcgrnp->bclgrp", cg,
+                           prev.view(bs, nc, g, rep, n, p))
+    y_inter = y_inter.reshape(bs, nc, chunk, h, p) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bs, s, h, p).to(x.dtype)
+    return y + d_skip[None, None, :, None].to(x.dtype) * x

@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's LM serving path, on the card.
+
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_lm [--trace DIR]
+
+Builds the random-weight bf16 Zamba2-2.7B (seed 0), then profiles with
+``torch.profiler`` one prefill call at B=2, S=8,192 (after a warm call) and
+8 decode steps at B=8 against 8,192-slot caches (after 2 warm steps).  Each
+window runs twice, bare and under the profiler.  It prints the host wall
+time of both (ending in a synchronize), the summed device time of every
+kernel, the device's busy share (device time over the bare wall time), the
+device time by kind (SSD kernel, flash-attention
+kernel, cuBLAS matrix products, everything else) and the ten kernels with
+the most device time.  ``--trace DIR`` also writes a Chrome trace of each
+window there.  Needs one CUDA card; imports torch and the port only.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ARCH = "zamba2-2.7b"
+KINDS = (("ssd_chunks", ("ssd_chunk_kernel",)),
+         ("flash_attention_fwd", ("flash_fwd_kernel",)),
+         ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other (elementwise, reductions, copies)"
+
+
+def _wall(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile(torch, label, fn, trace_dir):
+    """Device time of ``fn``'s kernels (events on the card only: the CPU
+    ops' own device totals would count each kernel twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    bare = _wall(torch, fn)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = _wall(torch, fn)
+    rows = [(e.key, float(e.self_device_time_total), e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = [r for r in rows if r[1] > 0]
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    print(f"{label}: wall {1e3 * bare:.2f} ms unprofiled, "
+          f"{1e3 * wall:.2f} ms profiled; device {dev_ms:.2f} ms = busy "
+          f"{100 * dev_ms / (1e3 * bare):.1f} % of the unprofiled wall "
+          f"time; {sum(r[2] for r in rows)} kernel launches", flush=True)
+    if dev_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    by_kind = {}
+    for key, us, _ in rows:
+        by_kind[_kind(key)] = by_kind.get(_kind(key), 0.0) + us / 1e3
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:<42} {ms:10.3f} ms  {100 * ms / dev_ms:5.1f} %")
+    print("  top kernels by device time:")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"    {us / 1e3:10.3f} ms  x{n:<6} {key[:90]}")
+    if trace_dir:
+        Path(trace_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(trace_dir) / f"{label}.json"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_lm: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import _build, configs
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    _build.build(["ssd_chunks", "flash_attention_fwd"])
+    dev = torch.device("cuda")
+    cfg = configs.get(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+
+    tokens = torch.randint(0, cfg.vocab, (2, 8192), generator=gen,
+                           device=dev)
+    prefill = lm.make_prefill_fn(cfg)
+    prefill(params, {"tokens": tokens})
+    profile(torch, "prefill_B2_S8192",
+            lambda: prefill(params, {"tokens": tokens}), args.trace)
+
+    bsz = 8
+    caches = tfm.init_caches(cfg, bsz, 8192, torch.bfloat16, dev)
+    decode = lm.make_decode_fn(cfg)
+    tok = torch.randint(0, cfg.vocab, (bsz, 1), generator=gen, device=dev)
+    state = {"tok": tok, "pos": 0}
+
+    def steps(n):
+        for _ in range(n):
+            pos = torch.full((bsz,), state["pos"], dtype=torch.int32,
+                             device=dev)
+            logits, _ = decode(params, caches, {"token": state["tok"],
+                                                "position": pos})
+            state["tok"] = logits.argmax(-1, keepdim=True)
+            state["pos"] += 1
+
+    steps(2)
+    profile(torch, "decode_B8_T8192_8steps", lambda: steps(8), args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""Shared neural building blocks (port of ``repro.models.common``).
+
+Parameters are plain tensors; random ones are drawn from an explicit
+``torch.Generator``.  ``chunked_xent`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def normal(generator, shape, scale, dtype, device) -> torch.Tensor:
+    """``scale * N(0, 1)`` of ``shape``, drawn in f32 from ``generator`` and
+    cast to ``dtype``.  On the meta device only the shape is made."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (scale * x).to(dtype)
+
+
+def rmsnorm(x, w, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return x.to(dt) * w.to(dt)
+
+
+def layernorm(x, w, b, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return x.to(dt) * w.to(dt) + b.to(dt)
+
+
+def apply_norm(cfg, p, x):
+    """p is the dict produced by init_norm ({'_w'} or {'_w','_b'})."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["_w"], p["_b"])
+    return rmsnorm(x, p["_w"])
+
+
+def init_norm(cfg, d, dtype, device):
+    if cfg.norm == "layernorm":
+        return {"_w": torch.ones((d,), dtype=dtype, device=device),
+                "_b": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"_w": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+def act_fn(name: str):
+    if name == "swiglu":  # handled by caller (gated)
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")   # jax.nn.gelu
+    if name == "relu2":   # squared ReLU (nemotron/minitron)
+        return _relu2
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float) -> np.ndarray:
+    """Inverse frequencies in numpy float64, then cast to f32 (as the
+    reference computes them: f32 parity depends on it)."""
+    return (1.0 / (theta ** (np.arange(0, hd, 2) / hd))).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  Rotates interleaved pairs
+    (x[..., ::2], x[..., 1::2]), not the halves of HF's ``rotate_half``.
+    (The reference's partial ``rot_dim`` serves MLA, which waits.)"""
+    freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
+    ang = positions[..., None].float() * freqs              # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg, generator, d: int, dff: int, dtype, device):
+    s_in, s_out = (2.0 / d) ** 0.5, (2.0 / dff) ** 0.5
+    p = {"wi": normal(generator, (d, dff), s_in, dtype, device),
+         "wo": normal(generator, (dff, d), s_out, dtype, device)}
+    if cfg.act == "swiglu":
+        p["wg"] = normal(generator, (d, dff), s_in, dtype, device)
+    return p
+
+
+def apply_mlp(cfg, p, x):
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = act_fn(cfg.act)(x @ p["wi"])
+    return h @ p["wo"]

@@ -1,0 +1,106 @@
+"""Top-level LM serving API (port of ``repro.models.lm``): prefill and decode
+builders, parameter init and the key map from the reference's pytree.
+
+Parameters are a plain nested dict of tensors whose keys are the
+reference's pytree paths, so a JAX parameter tree converts key for key.
+The dry-run helpers (``input_specs``, ``cache_specs``, ``abstract_params``)
+and ``make_loss_fn`` wait for the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ArchConfig
+from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runnable, reason-if-not). long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k-token KV decode is "
+                       "quadratic-memory")
+    return True, ""
+
+
+def make_prefill_fn(cfg: ArchConfig):
+    """Prefill: full forward, returns last-position logits (f32)."""
+    def prefill(params, batch):
+        h, logits_fn = tfm.forward(cfg, params, batch["tokens"])
+        return logits_fn(h[:, -1]).float()
+    return prefill
+
+
+def make_decode_fn(cfg: ArchConfig):
+    """One decode step: ``decode(params, caches, {"token", "position"})``
+    -> (logits, caches), the caches updated in place."""
+    def decode(params, caches, batch):
+        return tfm.decode_step(cfg, params, caches, batch["token"],
+                               batch["position"])
+    return decode
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None, *,
+                tp: int = 16, dtype=None, device="cuda") -> dict:
+    """Random parameters drawn from ``generator`` (on ``device``); heads are
+    padded to a multiple of ``tp`` as in the reference.  ``device="meta"``
+    builds the shapes only (``generator`` may then be None)."""
+    dev = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    if generator is None and dev.type != "meta":
+        raise ValueError("init_params needs a generator off the meta device")
+    return tfm.init_lm(cfg, generator, tp, dtype, dev)
+
+
+def _leaf(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: reinterpret the bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(dev)
+
+
+def _keys(tree, prefix=""):
+    out = set()
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        out |= _keys(v, path) if isinstance(v, dict) else {path}
+    return out
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict, *, device="cuda") -> dict:
+    """The reference's parameter pytree (nested dicts of numpy arrays) as the
+    port's parameters, key for key, each leaf keeping its dtype (``a_log``,
+    ``dt_bias`` and ``d_skip`` stay f32 under a bf16 config).  Raises if the
+    keys differ from the port's layout for ``cfg``."""
+    dev = resolve_device(device)
+    want = _keys(init_params(cfg, None, device="meta"))
+    got = _keys(tree)
+    if want != got:
+        raise KeyError(f"parameter keys differ: missing "
+                       f"{sorted(want - got)}, unexpected {sorted(got - want)}")
+
+    def convert(t):
+        return {k: convert(v) if isinstance(v, dict) else _leaf(v, dev)
+                for k, v in t.items()}
+    return convert(tree)

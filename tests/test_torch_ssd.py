@@ -1,0 +1,127 @@
+"""The port's SSD chunk step and chunked SSD against the JAX package.
+
+The JAX Pallas kernel runs in interpret mode, its default on the CPU
+(``repro.kernels.ssd.ops``).  Both packages get the same numpy inputs on the
+five sweep cases of ``tests/test_kernels_ssd.py``; bf16 cases cast the same
+f32 draws to bf16 in both.  Tolerances, relative to each output's max |ref|:
+2e-5 where both sides compute in f32 from the same inputs; 1e-2 for an
+output rounded to bf16 (one bf16 ulp is 2^-8).  The CUDA kernel itself runs
+only on the card, where ``chip_smoke.py`` holds it against
+``ssd_chunks_plain``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd.kernel import ssd_chunks as j_ssd_chunks
+from repro.kernels.ssd.ops import ssd_chunked_kernel as j_ssd_chunked_kernel
+from repro.models import ssm as jssm
+from repro_torch.kernels.ssd import kernel as tkern
+from repro_torch.kernels.ssd.ops import ssd_chunked_kernel
+from repro_torch.models import ssm as tssm
+
+SWEEP = [
+    # bs, s, h, p, g, n, chunk, dtype
+    (2, 64, 4, 8, 2, 16, 16, "float32"),
+    (1, 48, 2, 16, 1, 8, 16, "float32"),
+    (1, 128, 8, 8, 1, 32, 32, "float32"),
+    (2, 64, 4, 8, 4, 16, 16, "float32"),
+    (1, 64, 4, 8, 2, 16, 16, "bfloat16"),
+]
+
+
+def _inputs(case):
+    bs, s, h, p, g, n, chunk, dt = SWEEP[case]
+    rng = np.random.default_rng(case)
+    x = rng.standard_normal((bs, s, h, p)).astype(np.float32)
+    dtv = np.log1p(np.exp(rng.standard_normal((bs, s, h)))).astype(
+        np.float32)
+    a = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    b = (0.3 * rng.standard_normal((bs, s, g, n))).astype(np.float32)
+    c = (0.3 * rng.standard_normal((bs, s, g, n))).astype(np.float32)
+    dsk = np.ones(h, np.float32)
+    jx = [jnp.asarray(v) for v in (x, dtv, a, b, c, dsk)]
+    tx = [torch.from_numpy(v) for v in (x, dtv, a, b, c, dsk)]
+    if dt == "bfloat16":
+        for arrs, cast in ((jx, lambda v: v.astype(jnp.bfloat16)),
+                           (tx, lambda v: v.to(torch.bfloat16))):
+            for i in (0, 3, 4):
+                arrs[i] = cast(arrs[i])
+    return jx, tx, chunk, dt
+
+
+def _rel(got, want):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max())
+                                              + 1e-30)
+
+
+@pytest.mark.parametrize("case", range(len(SWEEP)))
+def test_ssd_chunks_plain_matches_jax_kernel(case):
+    (x, dtv, a, b, c, _), tx, chunk, _ = _inputs(case)
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = s // chunk
+    br = jnp.repeat(b, h // g, axis=2).reshape(bs, nc, chunk, h, n)
+    cr = jnp.repeat(c, h // g, axis=2).reshape(bs, nc, chunk, h, n)
+    want = j_ssd_chunks(x.reshape(bs, nc, chunk, h, p),
+                        dtv.reshape(bs, nc, chunk, h), a, br, cr,
+                        chunk=chunk)
+    got = tkern.ssd_chunks(*tx[:5], chunk=chunk)
+    for name, gt, wt in zip(("y_intra", "states", "cum"), got, want):
+        assert gt.dtype == torch.float32
+        assert tuple(gt.shape) == wt.shape
+        assert _rel(gt, wt) < 2e-5, (case, name, _rel(gt, wt))
+
+
+@pytest.mark.parametrize("case", range(len(SWEEP)))
+def test_ssd_chunked_kernel_matches_jax(case):
+    jx, tx, chunk, dt = _inputs(case)
+    want = j_ssd_chunked_kernel(*jx, chunk)
+    got = ssd_chunked_kernel(*tx, chunk)
+    assert got.dtype == tx[0].dtype
+    tol = 2e-5 if dt == "float32" else 1e-2
+    assert _rel(got, want) < tol, (case, _rel(got, want))
+
+
+@pytest.mark.parametrize("case", [0, 2, 3])
+def test_ssd_chunked_and_reference_match_jax(case):
+    jx, tx, chunk, _ = _inputs(case)
+    assert _rel(tssm.ssd_chunked(*tx, chunk),
+                jssm.ssd_chunked(*jx, chunk)) < 2e-5
+    want = jssm.ssd_reference(*jx)
+    assert _rel(tssm.ssd_reference(*tx), want) < 2e-5
+    # the kernel path against the per-step recurrence (the JAX suite's bar)
+    assert _rel(ssd_chunked_kernel(*tx, chunk), want) < 2e-3
+
+
+def test_wrapper_dispatch_on_cpu_counts_no_launch():
+    _, tx, chunk, _ = _inputs(0)
+    before = tkern.ssd_chunks.launches
+    tkern.ssd_chunks(*tx[:5], chunk=chunk)
+    assert tkern.ssd_chunks.launches == before
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        tkern.ssd_chunks(*tx[:5], chunk=24)
+
+
+def test_strided_views_match_contiguous():
+    """The prefill path hands the kernel strided views of the conv output;
+    the plain version must give the same answer as for contiguous copies."""
+    bs, s, h, p, g, n, chunk = 2, 32, 4, 8, 1, 8, 16
+    rng = np.random.default_rng(3)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (bs, s, h * p + 2 * g * n)).astype(np.float32))
+    x = xbc[..., :h * p].view(bs, s, h, p)
+    b = xbc[..., h * p:h * p + g * n].view(bs, s, g, n)
+    c = xbc[..., h * p + g * n:].view(bs, s, g, n)
+    dtv = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((bs, s, h)).astype(np.float32)))
+    a = -torch.linspace(1.0, 4.0, h)
+    got = tkern.ssd_chunks(x, dtv, a, b, c, chunk=chunk)
+    want = tkern.ssd_chunks(x.contiguous(), dtv, a, b.contiguous(),
+                            c.contiguous(), chunk=chunk)
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, rtol=0, atol=0)
