@@ -7,23 +7,30 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero, printing
 no result, without them.  Phases (each raises on failure):
 
 1. the card's name and power limit; build every kernel from ``csrc/``;
+   ptxas's registers, stack frame and spills of each kernel;
 2. each kernel against its plain PyTorch version on B20 8x8x8 (4,096 atoms,
    0.08 A thermal jitter, random spins, production spec, capacity 64): f64
-   within 1e-9 and f32 within 1e-4 of each output's max |ref|; and
-   ``nep_compute`` through the kernels against the autograd ``compute``;
+   within 1e-9 and f32 within 1e-4 of each output's max |ref|, K2 in both
+   bodies (warp per atom, the default at this spec, and thread per atom);
+   and ``nep_compute`` through the kernels against the autograd ``compute``;
 3. the main path: ``Engine`` with ``NEPSpinPotential(use_kernel=True)`` on
    32x32x32 B20 cells (262,144 atoms) for 3 chunks x 20 steps at 300 K in a
    0.2 T field; launch counts must equal 1 + steps + rebuilds (one
-   evaluation at construction, one per step, one per rebuild);
-4. each kernel against its plain version at the main path's shapes (f32,
-   1e-4), and times of both with CUDA events, beside the least time the card
-   could take (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
+   evaluation at construction, one per step, one per rebuild), every K2
+   launch in the warp-per-atom body;
+4. each kernel (K2 in both bodies) against its plain version at the main
+   path's shapes (f32, 1e-4), and times of each with CUDA events (K2's
+   bodies in turns: warp, thread, thread, warp), beside the least time the
+   card could take (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
 5. SSD and FA against their plain versions on the sweeps of
    ``tests/test_kernels_ssd.py`` and ``tests/test_kernels_attention.py``,
-   and SSD at Mamba-2-2.7B's chunk (L=128, P=64, N=128: the kernel's
-   other shared-memory layout): f32 within 1e-4 of max |ref|; bf16 inputs
-   within 5e-4 for SSD (its outputs are f32 on both sides) and 2e-2 for
-   FA (its output is rounded to bf16);
+   SSD at Mamba-2-2.7B's chunk (L=128, P=64, N=128: the kernel's other
+   shared-memory layout), and FA's tensor-core body on bf16 copies of the
+   f32 sweep cases plus d = 80 and dv = 24 cases (its exact and guarded
+   instantiations: window, ragged S and T, GQA, dv != d, dv % 16 = 8): f32
+   within 1e-4 of max |ref|; bf16 inputs within 5e-4 for SSD (its outputs
+   are f32 on both sides) and 2e-2 for FA (its output is rounded to bf16;
+   bf16 runs FA's tensor-core body, f32 its CUDA-core body);
 6. Zamba2-2.7B at full width and depth (54 layers, d_model 2560, random
    weights from a seed) in f32 with TF32 off: forward logits of B=2 x
    S=256 tokens (two SSD chunks) against 256 decode steps from empty
@@ -31,23 +38,31 @@ no result, without them.  Phases (each raises on failure):
 7. the LM main path, bf16: ``make_prefill_fn`` at B=2, S=8,192 (the
    ``prefill_32k`` shape cut to one card), one warm call and the median of
    3 in prefill tokens/s; every call must launch SSD 54 times and FA 9
-   times (counts set to 0 before each call), and give finite logits;
+   times (bf16, so FA's tensor-core body; counts set to 0 before each
+   call), and give finite logits;
 8. ``make_decode_fn`` at B=8 against 8,192-slot caches, 64 greedy steps
    after 2 warm ones, in decode tokens/s; decode runs no kernel, so the
    counts must stay 0;
 9. SSD and FA at the prefill's shapes against their plain versions, in
    f32 (1e-4) and in bf16 (SSD 5e-4; FA 5e-3, about one bf16 ulp of its
-   largest output), timed in bf16 beside the plain versions and, for FA,
-   the library
-   call ``scaled_dot_product_attention`` (a yardstick the port never
-   calls), and the least time the card could take (bytes at 3.35 TB/s or
+   largest output), and FA's bf16 output row by row against the f32 plain
+   version on the same (bf16-valued) inputs: each output's error beyond
+   half a bf16 ulp (its own rounding), over its row's max |ref|, within
+   1e-4 (P V with P's bf16 hi half alone reads ~3e-3 there); timed in bf16
+   beside the plain versions and, for FA, the library call
+   ``scaled_dot_product_attention`` (a yardstick the port never calls),
+   and the least time the card could take (bytes at 3.35 TB/s or
    contraction flops at the bf16 dense peak of 989 TFLOP/s);
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
-    all four kernels, then ``{"ok": true, "device": ...}``.
+    all four kernels (K2 with ``previous_ms``, the thread body's time in
+    this run; FA's ``previous_ms`` null, as its earlier body is gone; both
+    with ptxas's report of the body timed), then
+    ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +105,13 @@ FA_SWEEP = [    # b, s, t, h, hkv, d, dv, causal, window, dtype
     (1, 64, 64, 4, 1, 32, 16, True, 0, "float32"),
     (2, 64, 64, 4, 2, 32, 32, True, 0, "bfloat16"),
 ]
+# FA's tensor-core body on the f32 cases in bf16 (its guarded
+# instantiation), and its exact d = dv = 80 one with a window, ragged
+# S < T and GQA, and dv % 16 = 8 (V's zeroed pad columns)
+FA_TC_SWEEP = [c[:9] + ("bfloat16",) for c in FA_SWEEP[:5]] + [
+    (1, 100, 130, 4, 2, 80, 80, True, 40, "bfloat16"),
+    (2, 70, 70, 4, 4, 32, 24, True, 0, "bfloat16"),
+]
 # of max |ref|.  SSD's outputs are f32 on both sides, so bf16 inputs change
 # nothing but the inputs; FA rounds its output to bf16 (the sweep keeps the
 # reference suite's 2e-2; at the main shapes 5e-3 is about one bf16 ulp of
@@ -97,6 +119,9 @@ FA_SWEEP = [    # b, s, t, h, hkv, d, dv, causal, window, dtype
 SSD_BAR = {"float32": 1e-4, "bfloat16": 5e-4}
 FA_BAR = {"float32": 1e-4, "bfloat16": 2e-2}
 FA_MAIN_BF16_BAR = 5e-3
+# FA bf16 at the prefill's shapes, row by row: error beyond the output's
+# own rounding, over the row's max |ref| (see fa_beyond_rounding)
+FA_MAIN_ROW_BAR = 1e-4
 LM_ARCH = "zamba2-2.7b"
 PREFILL_B, PREFILL_S = 2, 8192       # prefill_32k cut to one card
 DECODE_B, DECODE_T, DECODE_STEPS = 8, 8192, 64
@@ -169,6 +194,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_report(text: str) -> dict:
+    """``{mangled kernel: {registers, stack_bytes, spill_bytes}}`` from an
+    ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_of(reports: dict, library: str, *parts) -> dict:
+    """The report of the one kernel of ``library`` whose mangled name holds
+    every one of ``parts``."""
+    hits = [v for k, v in reports[library].items()
+            if all(p in k for p in parts)]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas report of {library}: {len(hits)} "
+                             f"kernels match {parts}")
+    return hits[0]
+
+
+# the timed bodies' kernels in ptxas's reports (mangled names)
+PTXAS_K2_WARP = ("nep_force_pass", "force_pass_warp_kernel",
+                 "SizesILi2ELi8ELi6ELi4ELi4ELi4EEEfE")
+PTXAS_K2_THREAD = ("nep_force_pass", "force_pass_kernelIfE")
+PTXAS_FA_TC = ("flash_attention_fwd", "flash_fwd_tc_kernelILi5ELi5ELb1E")
+
+
 # ---------------------------------------------------------------------------
 # LM serving path: Zamba2-2.7B through the SSD and flash-attention kernels
 # ---------------------------------------------------------------------------
@@ -213,15 +279,16 @@ def lm_sweeps(torch, dev):
                   for o, u, w in zip(("y_intra", "states", "cum"), got, want))
         w = worst["ssd_chunks"]
         w[dtype] = max(w.get(dtype, 0.0), err)
-    for i, (b, s, t, h, hkv, d, dv, causal, win, dtype) in enumerate(
-            FA_SWEEP):
+    cases = [("sweep", i, c) for i, c in enumerate(FA_SWEEP)] + [
+        ("tensor-core sweep", i, c) for i, c in enumerate(FA_TC_SWEEP)]
+    for label, i, (b, s, t, h, hkv, d, dv, causal, win, dtype) in cases:
         dt_ = getattr(torch, dtype)
         q, k, v = (rnd(b, s, h, d).to(dt_), rnd(b, t, hkv, d).to(dt_),
                    rnd(b, t, hkv, dv).to(dt_))
         got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
-        err = check(f"FA sweep {i} {dtype}", got.float(), want.float(),
+        err = check(f"FA {label} {i} {dtype}", got.float(), want.float(),
                     FA_BAR[dtype])
         w = worst["flash_attention_fwd"]
         w[dtype] = max(w.get(dtype, 0.0), err)
@@ -357,7 +424,7 @@ def compare_main(torch, names, kernel, plain, args, bar, **kw):
                     for u, w in zip(got, want))
 
 
-def lm_kernels_main(torch, dev, cfg, sweep_err, launches):
+def lm_kernels_main(torch, dev, cfg, sweep_err, launches, ptxas):
     """Phase 9: each LM kernel at the prefill's shapes, against its plain
     version in f32 and in bf16 (the config's dtype); timed in bf16 beside
     the plain version, the library call where one exists, and the least
@@ -417,31 +484,71 @@ def lm_kernels_main(torch, dev, cfg, sweep_err, launches):
     q = torch.randn((B, S, Hq, d), generator=gen, device=dev, dtype=bf16)
     k = torch.randn((B, S, Hkv, d), generator=gen, device=dev, dtype=bf16)
     v = torch.randn((B, S, Hkv, d), generator=gen, device=dev, dtype=bf16)
-    rel32, _ = compare_main(torch, ["FA main f32"], fa.flash_attention_fwd,
-                            fa.flash_attention_plain,
-                            tuple(t.float() for t in (q, k, v)),
-                            FA_BAR["float32"], causal=True)
+    errs = fa_prefill_errors(torch, q, k, v)
+    for name, key, bar in (("FA main f32", "f32", FA_BAR["float32"]),
+                           ("FA main bf16", "bf16", FA_MAIN_BF16_BAR),
+                           ("FA main bf16 by row", "bf16_row",
+                            FA_MAIN_ROW_BAR)):
+        log(f"  {name:<28} rel err {errs[key]:.3e} (bar {bar:g})")
+        if not errs[key] < bar:
+            raise AssertionError(f"{name}: relative error {errs[key]:.3e} "
+                                 f">= {bar:g}")
     torch.cuda.empty_cache()
-    rel, abs_err = compare_main(torch, ["FA main bf16"], fa.flash_attention_fwd,
-                                fa.flash_attention_plain, (q, k, v),
-                                FA_MAIN_BF16_BAR, causal=True)
     nbytes_fa = nbytes(q, k, v) + B * S * Hq * d * q.element_size()
     flops_fa = 2.0 * B * Hq * (S * (S + 1) // 2) * (d + d)
     ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-                 5)
+                 10)
     plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                             causal=True), 1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=1 / math.sqrt(d)), 20)
     rows.append(kernel_row(
-        "flash_attention_fwd", launches[1], abs_err, ms, plain, lib,
+        "flash_attention_fwd", launches[1], errs["bf16_abs"], ms, plain, lib,
         nbytes_fa, flops_fa,
         {"max_rel_err_f32": max(
-            rel32, sweep_err["flash_attention_fwd"]["float32"]),
+            errs["f32"], sweep_err["flash_attention_fwd"]["float32"]),
          "max_rel_err_bf16": max(
-             rel, sweep_err["flash_attention_fwd"]["bfloat16"])}))
+             errs["bf16"], sweep_err["flash_attention_fwd"]["bfloat16"]),
+         "max_row_err_bf16": errs["bf16_row"], "previous_ms": None,
+         "ptxas": ptxas_of(ptxas, *PTXAS_FA_TC)}))
     return rows
+
+
+def fa_beyond_rounding(torch, got, want) -> float:
+    """Each bf16 output's error against the f32 ``want`` beyond half a
+    bf16 ulp of the larger of the two magnitudes (what rounding the output
+    alone may add), floored at 0, over the max |want| of its row (the last
+    dimension); the largest over all rows.  Rounding P to bf16 once shows
+    here, where one-ulp flips of the output hide it from the max-|ref|
+    measure."""
+    got = got.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    half_ulp = torch.exp2((e - 9).float())   # magnitude in [2^(e-1), 2^e)
+    excess = ((got - want).abs() - half_ulp).clamp_min(0).amax(-1)
+    return float((excess / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def fa_prefill_errors(torch, q, k, v) -> dict:
+    """FA on bf16 q, k, v at the prefill's shapes against its plain
+    version: ``f32``, the f32 kernel on the same values, relative to max
+    |ref|; ``bf16`` and ``bf16_abs``, the bf16 kernel against the bf16
+    plain version; ``bf16_row``, :func:`fa_beyond_rounding` of the bf16
+    kernel against the f32 plain version."""
+    from repro_torch.kernels.attention import kernel as fa
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want32 = fa.flash_attention_plain(q32, k32, v32, causal=True)
+    got32 = fa.flash_attention_fwd(q32, k32, v32, causal=True)
+    del q32, k32, v32
+    got = fa.flash_attention_fwd(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    out = {"f32": rel_err(got32, want32),
+           "bf16": rel_err(got.float(), want),
+           "bf16_abs": float((got.float() - want).abs().max()),
+           "bf16_row": fa_beyond_rounding(torch, got, want32)}
+    del got32, want32, got, want
+    return out
 
 
 def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
@@ -467,7 +574,7 @@ def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
             "library_ms": library_ms}
 
 
-def lm_phases(torch, dev):
+def lm_phases(torch, dev, ptxas):
     """Phases 5-9 (the LM serving path); returns their kernel rows."""
     from repro_torch import configs
     from repro_torch.models import lm
@@ -491,7 +598,8 @@ def lm_phases(torch, dev):
     del params
     torch.cuda.empty_cache()
     log("phase 9: SSD and FA at the prefill's shapes (f32 and bf16)")
-    return lm_kernels_main(torch, dev, cfg, sweep_err, pre["launches"])
+    return lm_kernels_main(torch, dev, cfg, sweep_err, pre["launches"],
+                           ptxas)
 
 
 def _leaves(tree):
@@ -543,11 +651,13 @@ def main() -> int:
     secs = _build.build()
     log(f"phase 1: built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per library: { {k: round(v, 1) for k, v in secs.items()} })")
+    ptxas = {}
     for name in _build.SOURCES:
-        report = _build.library_path(name).with_suffix(".log").read_text()
-        for line in report.splitlines():
-            if "registers" in line or "stack frame" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        ptxas[name] = ptxas_report(
+            _build.library_path(name).with_suffix(".log").read_text())
+        for kernel, rep in ptxas[name].items():
+            if "registers" in rep:
+                log(f"  ptxas {name}: {kernel}: {rep}")
 
     spec = config().spec
     lat = b20_fege()
@@ -580,14 +690,16 @@ def main() -> int:
         for k in wl:
             worst = max(worst, check(f"K1 abar.{k} {tag}", gl[k], wl[k], bar))
         errs["nep_atom_pass"][tag] = worst
-        fk = kern.nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx,
-                                 st.types, nbh.tj, st.spin, sj, want[2])
-        fp = ref.force_pass_plain(spec, params, nbh.dr, nbh.mask, nbh.idx,
-                                  st.types, nbh.tj, st.spin, sj, want[2])
-        torch.cuda.synchronize()
-        errs["nep_force_pass"][tag] = max(
-            check(f"K2 F {tag}", fk[0], fp[0], bar),
-            check(f"K2 h2 {tag}", fk[1], fp[1], bar))
+        k2_args = (spec, params, nbh.dr, nbh.mask, nbh.idx, st.types, nbh.tj,
+                   st.spin, sj, want[2])
+        fp = ref.force_pass_plain(*k2_args)
+        for body in kern.FORCE_PASS_BODIES:
+            fk = kern.nep_force_pass(*k2_args, body=body)
+            torch.cuda.synchronize()
+            err = max(check(f"K2 {body} F {tag}", fk[0], fp[0], bar),
+                      check(f"K2 {body} h2 {tag}", fk[1], fp[1], bar))
+            if body == kern.force_pass_body(spec):
+                errs["nep_force_pass"][tag] = err
         field = torch.tensor([0.0, 0.0, 0.2], dtype=dtype, device=dev)
         mom = moments.to(dtype)
         ek = nep_compute(spec, params, nbh, st.spin, st.types, field, mom)
@@ -612,6 +724,8 @@ def main() -> int:
     magnetic = torch.tensor(lat.moments, device=dev) > 0
     kern.nep_atom_pass.launches = 0
     kern.nep_force_pass.launches = 0
+    kern.nep_force_pass.body_launches = dict.fromkeys(
+        kern.FORCE_PASS_BODIES, 0)
     t0 = time.perf_counter()
     eng = Engine(pot, cfg, state, masses, magnetic, spec.cutoff,
                  temperature=run.temperature, field=run.field,
@@ -626,16 +740,20 @@ def main() -> int:
     run_s = time.perf_counter() - t0
     launches = {"nep_atom_pass": kern.nep_atom_pass.launches,
                 "nep_force_pass": kern.nep_force_pass.launches}
+    body_launches = dict(kern.nep_force_pass.body_launches)
     st, ff = eng.state, eng._ff
     expect = 1 + steps + eng.n_rebuilds
     log(f"  grid {eng._n_cells}, setup {setup_s:.2f} s, {steps} steps in "
         f"{run_s:.3f} s = {steps / run_s:.3f} steps/s, "
         f"rebuilds {eng.n_rebuilds}, launches {launches} "
-        f"(expect {expect} each)")
+        f"(expect {expect} each), K2 by body {body_launches}")
     for name, n in launches.items():
         if n != expect:
             raise AssertionError(f"{name} launched {n} times, expected "
                                  f"1 + steps + rebuilds = {expect}")
+    if body_launches != {"warp": expect, "thread": 0}:
+        raise AssertionError(f"K2 launches by body {body_launches}: the "
+                             f"main path must run the warp body only")
     for name, t in (("pos", st.pos), ("vel", st.vel), ("spin", st.spin),
                     ("force", ff.force), ("field", ff.field)):
         if t.shape != (run.n_atoms, 3) or not bool(torch.isfinite(t).all()):
@@ -665,9 +783,15 @@ def main() -> int:
     p1 = ref.atom_pass_plain(spec, params, *blocks)
     k2 = kern.nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx, types,
                              nbh.tj, spin, sj, p1[2])
+    k2_thread = kern.nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx,
+                                    types, nbh.tj, spin, sj, p1[2],
+                                    body="thread")
     p2 = ref.force_pass_plain(spec, params, nbh.dr, nbh.mask, nbh.idx, types,
                               nbh.tj, spin, sj, p1[2])
     torch.cuda.synchronize()
+    for o, a, b in zip(("F", "h2"), k2_thread, p2):
+        check(f"K2 thread {o} main", a, b, 1e-4)
+    del k2_thread
     main_err = {
         "nep_atom_pass": (max(check(f"K1 {o} main", a, b, 1e-4) for o, a, b
                               in zip(("e", "hdir", "abar"), k1, p1)),
@@ -681,10 +805,21 @@ def main() -> int:
     k1_args = (spec, params, *blocks)
     k2_args = (spec, params, nbh.dr, nbh.mask, nbh.idx, types, nbh.tj, spin,
                sj, k1[2])
+    # K2's bodies in turns: warp, thread, thread, warp
+    k2_ms = {"warp": [], "thread": []}
+    for body in ("warp", "thread", "thread", "warp"):
+        k2_ms[body].append(time_ms(torch, lambda: kern.nep_force_pass(
+            *k2_args, body=body), 20))
+    log(f"  K2 by body, in turns (ms): {k2_ms}")
     ms = {"nep_atom_pass": time_ms(torch, lambda: kern.nep_atom_pass(
               *k1_args), 20),
-          "nep_force_pass": time_ms(torch, lambda: kern.nep_force_pass(
-              *k2_args), 20)}
+          "nep_force_pass": sum(k2_ms["warp"]) / 2}
+    extra = {"nep_atom_pass": {},
+             "nep_force_pass": {
+                 "body": "warp", "previous_ms": sum(k2_ms["thread"]) / 2,
+                 "previous_body": "thread",
+                 "ptxas": ptxas_of(ptxas, *PTXAS_K2_WARP),
+                 "previous_ptxas": ptxas_of(ptxas, *PTXAS_K2_THREAD)}}
     plain_ms = {"nep_atom_pass": time_ms(torch, lambda: ref.atom_pass_plain(
                     *k1_args), 2),
                 "nep_force_pass": time_ms(torch, lambda: ref.force_pass_plain(
@@ -717,14 +852,14 @@ def main() -> int:
             "max_rel_err_f64": errs[name]["f64"],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, **extra[name],
         })
     log(f"  main path step {step_ms:.2f} ms, of which K1 + K2 "
         f"{ms['nep_atom_pass'] + ms['nep_force_pass']:.2f} ms per evaluation")
     del eng, c, nbh, blocks, k1, p1, k2, p2, state, st, ff
     torch.cuda.empty_cache()
 
-    rows += lm_phases(torch, dev)
+    rows += lm_phases(torch, dev, ptxas)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ contract of ``repro.kernels.attention.ops.flash_attention``).
 
 ``flash_attention_fwd`` dispatches on the device of its tensors: a CPU
 tensor goes to ``flash_attention_plain``; a CUDA tensor launches
-``csrc/flash_attention_fwd.cu`` on the current stream, or raises.  It counts
-its launches in ``flash_attention_fwd.launches``.
+``csrc/flash_attention_fwd.cu`` on the current stream, or raises.  bf16
+runs the tensor-core body (``mma.sync``, ``ldmatrix``, ``cp.async``), whose
+shape and alignment limits :func:`check_bf16_layout` states; f32 runs the
+CUDA-core body.  It counts its launches in ``flash_attention_fwd.launches``.
 
 Both read the model's layout, q (B,S,H,d) and k/v (B,T,Hkv,d/dv) ->
 (B,S,H,dv), where the reference kernel takes (B*H, S, d) after a transpose,
@@ -25,6 +27,8 @@ from repro_torch import _build
 NEG_INF = -1e30
 PLAIN_ROWS = 256        # query rows per step of the plain version
 MAX_DV = 128
+MAX_D_BF16 = 128
+MAX_SEQ_STRIDE = 2 ** 23    # a tile's <= 256 rows stay in 32-bit offsets
 SMEM_MAX = 232448
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -73,6 +77,33 @@ def _smem_bytes(d: int, dv: int) -> int:
     return 4 * (2 * d * 68 + 64 * dv16 + 64 * 68)
 
 
+def check_bf16_layout(d: int, dv: int, data_ptrs, strides) -> None:
+    """Raise ValueError unless the bf16 tensor-core body takes this layout:
+    d a multiple of 16 (the mma k-step) and dv of 8 (an n-tile), both at
+    most 128; every base pointer and every stride of the leading three
+    dimensions 16-byte aligned (``cp.async`` copies 16 bytes at a time;
+    strides are in bf16 elements, 8 to 16 bytes); and each sequence stride
+    (``strides[i][1]`` of each tensor's (batch, seq, head) strides) below
+    ``MAX_SEQ_STRIDE`` elements, since offsets within a tile are 32-bit."""
+    if d % 16 or not 0 < d <= MAX_D_BF16:
+        raise ValueError(f"the bf16 flash kernel takes d a multiple of 16 "
+                         f"up to {MAX_D_BF16}, got d {d}")
+    if dv % 8 or not 0 < dv <= MAX_DV:
+        raise ValueError(f"the bf16 flash kernel takes dv a multiple of 8 "
+                         f"up to {MAX_DV}, got dv {dv}")
+    if any(p % 16 for p in data_ptrs):
+        raise ValueError("the bf16 flash kernel needs q, k and v to start "
+                         "on 16-byte boundaries")
+    flat = [st for x in strides for st in x]
+    if any(st % 8 for st in flat):
+        raise ValueError(f"the bf16 flash kernel needs the strides of q, k "
+                         f"and v to be multiples of 8 elements (16 bytes), "
+                         f"got {tuple(flat)}")
+    if any(x[1] >= MAX_SEQ_STRIDE for x in strides):
+        raise ValueError(f"the bf16 flash kernel needs sequence strides "
+                         f"below {MAX_SEQ_STRIDE} elements")
+
+
 def _check(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on CUDA or CPU tensors, "
@@ -99,7 +130,10 @@ def _check(q, k, v):
         raise ValueError("the last dimension of q, k and v must be "
                          "contiguous")
     dv = v.shape[3]
-    if dv > MAX_DV or _smem_bytes(d, dv) > SMEM_MAX:
+    if q.dtype == torch.bfloat16:
+        check_bf16_layout(d, dv, [x.data_ptr() for x in (q, k, v)],
+                          [x.stride()[:3] for x in (q, k, v)])
+    elif dv > MAX_DV or _smem_bytes(d, dv) > SMEM_MAX:
         raise ValueError(f"d {d}, dv {dv} exceed the kernel's limits "
                          f"(dv <= {MAX_DV}, {SMEM_MAX} bytes of shared "
                          "memory)")
@@ -107,7 +141,9 @@ def _check(q, k, v):
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     """q (B,S,H,d), k (B,T,Hkv,d), v (B,T,Hkv,dv) -> (B,S,H,dv) in q's
-    dtype; f32 math."""
+    dtype.  f32 in: f32 math on the CUDA cores.  bf16 in: bf16 products on
+    the tensor cores with f32 accumulation, scores and softmax in f32, P V
+    as bf16 hi and lo products."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v)

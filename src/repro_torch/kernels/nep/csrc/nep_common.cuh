@@ -51,6 +51,20 @@ __constant__ double MONO_W[N_MONO] = {
     1, 1, 1, 2, 2, 2,
     1, 1, 1, 3, 3, 3, 3, 3, 3, 6,
     1, 1, 1, 4, 4, 4, 4, 4, 4, 6, 6, 6, 12, 12, 12};
+// MONO_E for indices known at compile time (K2's templated body): the
+// same table, folded into immediates once its loops unroll.
+__host__ __device__ constexpr int mono_exp(int g, int axis) {
+  constexpr int e[N_MONO][3] = {
+      {0, 0, 0},
+      {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
+      {2, 0, 0}, {0, 2, 0}, {0, 0, 2}, {1, 1, 0}, {1, 0, 1}, {0, 1, 1},
+      {3, 0, 0}, {0, 3, 0}, {0, 0, 3}, {2, 1, 0}, {2, 0, 1}, {1, 2, 0},
+      {0, 2, 1}, {1, 0, 2}, {0, 1, 2}, {1, 1, 1},
+      {4, 0, 0}, {0, 4, 0}, {0, 0, 4}, {3, 1, 0}, {3, 0, 1}, {1, 3, 0},
+      {0, 3, 1}, {1, 0, 3}, {0, 1, 3}, {2, 2, 0}, {2, 0, 2}, {0, 2, 2},
+      {2, 1, 1}, {1, 2, 1}, {1, 1, 2}};
+  return e[g][axis];
+}
 // LEG[l][p]: coefficient of t^p in the Legendre polynomial P_l(t)
 __constant__ double LEG[MAX_L + 1][MAX_L + 1] = {
     {1.0, 0.0, 0.0, 0.0, 0.0},
@@ -65,6 +79,12 @@ __device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ double dcos(double x) { return cos(x); }
 __device__ __forceinline__ float dsin(float x) { return sinf(x); }
 __device__ __forceinline__ double dsin(double x) { return sin(x); }
+__device__ __forceinline__ void dsincospi(float x, float* s, float* c) {
+  sincospif(x, s, c);
+}
+__device__ __forceinline__ void dsincospi(double x, double* s, double* c) {
+  sincospi(x, s, c);
+}
 __device__ __forceinline__ float dtanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double dtanh(double x) { return tanh(x); }
 
@@ -78,18 +98,27 @@ template <typename T> __device__ __forceinline__ T pi_v() {
 }
 
 // f_k(r) = 0.5 (T_k(x) + 1) fc(r), x = 2 (r/rc - 1)^2 - 1, for r < rc.
-// With ``df`` non-null also writes d f_k / d r.
-template <typename T>
+// With ``df`` non-null also writes d f_k / d r.  SINCOSPI takes
+// cos(pi xc) and sin(pi xc) from sincospi, whose exact argument reduction
+// needs no local-memory table (cos and sin of pi * xc carry one for huge
+// arguments).
+template <typename T, bool SINCOSPI = false>
 __device__ __forceinline__ void chebyshev(T r, T rc, int K, T* f, T* df) {
   const T xc = r / rc;
   const T x = T(2) * (xc - T(1)) * (xc - T(1)) - T(1);
-  const T fc = T(0.5) * (T(1) + dcos(pi_v<T>() * xc));
+  T cpi, spi;                       // cos(pi xc), sin(pi xc)
+  if constexpr (SINCOSPI)
+    dsincospi(xc, &spi, &cpi);
+  else
+    cpi = dcos(pi_v<T>() * xc);
+  const T fc = T(0.5) * (T(1) + cpi);
   T tkm1 = T(1), tk = x;            // T_{k-1}, T_k
   T dkm1 = T(0), dk = T(1);         // their x-derivatives
   f[0] = fc;                        // 0.5 (T_0 + 1) fc
   if (df) {
     const T dx = T(4) * (xc - T(1)) / rc;
-    const T dfc = -T(0.5) * pi_v<T>() / rc * dsin(pi_v<T>() * xc);
+    if constexpr (!SINCOSPI) spi = dsin(pi_v<T>() * xc);
+    const T dfc = -T(0.5) * pi_v<T>() / rc * spi;
     df[0] = dfc;
     for (int k = 1; k < K; ++k) {
       f[k] = T(0.5) * (tk + T(1)) * fc;
@@ -120,7 +149,7 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int count) {
   for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
 }
 
-__host__ __device__ inline int n_mono(int l_max) {
+__host__ __device__ constexpr int n_mono(int l_max) {
   return (l_max + 1) * (l_max + 2) * (l_max + 3) / 6;
 }
 

@@ -21,14 +21,34 @@
 // run's pairs).  Besides, the neighbor adjoint rows (728 B each) are
 // re-read from L2 for every pair that names them: ~8 GB of L2 traffic.
 //
-// Design: one thread per atom; its own 182 adjoints are held in a
-// per-thread array, neighbor rows are read through the read-only path; the
-// carrier coefficients sit in shared memory and are indexed c[ti][tj] and
-// c[tj][ti] for the two halves.  Per pair the kernel forms the basis and
-// its r-derivative once, the per-k coefficient sum of both halves
-// (dt/df_k), and the gradient P = dt/d(rhat) at fixed basis; then
-// dt/d(dr) = rhat * sum_k f'_k coef_k + (P - rhat (rhat.P)) / r.  Masked
-// slots (self-padded, dr = 0) and pairs at or beyond the cutoff are skipped.
+// Per pair both bodies form the basis and its r-derivative once, the per-k
+// coefficient sum of both halves (dt/df_k), and the gradient P = dt/d(rhat)
+// at fixed basis; then dt/d(dr) = rhat * sum_k f'_k coef_k
+// + (P - rhat (rhat.P)) / r.  Masked slots (self-padded, dr = 0) and pairs
+// at or beyond the cutoff add nothing.  Two bodies:
+//
+// * force_pass_warp_kernel (nep_force_pass_warp_*): one warp per atom,
+//   templated on the spec's sizes (types, K, n_rad, n_ang, l_max, n_spin),
+//   so every loop over them unrolls and the per-pair state (basis, its
+//   derivative, coef, monomials and their B sums, the carriers' g sums)
+//   lives in registers, with the monomial exponents as immediates.
+//   Instantiated for the production spec (configs/fege_spinlattice.py:
+//   config()) and the smoke spec (smoke_config()); kernel.py:
+//   force_pass_body picks it.  The lanes read the atom's M slots
+//   side by side (coalesced), and a ballot over mask & (r < rc) packs the
+//   live slots into a list, so lanes take live pairs in turn and no lane
+//   idles on a dead slot before the last round.  For each round of up to
+//   32 pairs the warp copies the 32 neighbor adjoint rows into shared
+//   memory, one row at a time with 32 lanes on consecutive words (a lane
+//   reading its own 728-byte row would touch 32 cache lines per load
+//   instruction); each lane then reads its row there, at an odd row
+//   stride, so no two lanes share a bank.  The atom's own row sits in
+//   shared memory and is read as broadcasts.  F_i and h2_i are summed
+//   across the warp with shuffles and written by lane 0: no atomics, the
+//   same result every run.
+// * force_pass_kernel (nep_force_pass_*, the first body): one thread per atom
+//   with run-time loop bounds, so its per-pair arrays sit in local memory.
+//   It serves every other spec within the bounds of nep_common.cuh.
 #include "nep_common.cuh"
 
 namespace nep {
@@ -232,9 +252,386 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// One warp per atom, templated on the spec
+// ---------------------------------------------------------------------------
+constexpr int WARPS = 4;           // atoms in flight per block
+constexpr int WGRID_MAX = 8192;    // blocks; warps stride over the atoms
+
+template <int NT_, int K_, int NR_, int NA_, int L_, int NS_>
+struct Sizes {
+  static constexpr int NT = NT_, K = K_, NR = NR_, NA = NA_, L = L_,
+                       NS = NS_;
+  static constexpr int NM = n_mono(L);
+  static constexpr int O_DOT = NR + NA * NM;       // spin leaves start here
+  static constexpr int A = O_DOT + 9 * NS;         // adjoint row width
+  static constexpr int LDA = A | 1;                // odd: no bank conflicts
+  static constexpr int C_ANG = NT * NT * NR * K;   // carrier blocks in s_c
+  static constexpr int C_SPIN = C_ANG + NT * NT * NA * K;
+  static constexpr int NC = C_SPIN + NT * NT * NS * K;
+};
+using ProdSizes = Sizes<2, 8, 6, 4, 4, 4>;    // fege_spinlattice config()
+using SmokeSizes = Sizes<2, 6, 4, 2, 2, 2>;   // fege_spinlattice smoke_config()
+
+// row[0..K) from shared memory, 16 or 8 bytes per load where aligned
+template <typename T, int K>
+__device__ __forceinline__ void load_row(const T* p, T (&c)[K]) {
+  if constexpr ((K * sizeof(T)) % 16 == 0 && sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y; c[k + 2] = v.z; c[k + 3] = v.w;
+    }
+  } else if constexpr ((K * sizeof(T)) % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const double2 v = *reinterpret_cast<const double2*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y;
+    }
+  } else if constexpr ((K * sizeof(T)) % 8 == 0 && sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) c[k] = p[k];
+  }
+}
+
+// g[a] = sum_k c[a][k] f[k] for both halves' carriers of n channels
+template <typename T, int N, int K>
+__device__ __forceinline__ void carrier_sums(const T* c1, const T* c2,
+                                             const T (&f)[K], T (&g1)[N],
+                                             T (&g2)[N]) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    T r1[K], r2[K];
+    load_row<T, K>(c1 + a * K, r1);
+    load_row<T, K>(c2 + a * K, r2);
+    T s1 = T(0), s2 = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s1 += r1[k] * f[k];
+      s2 += r2[k] * f[k];
+    }
+    g1[a] = s1;
+    g2[a] = s2;
+  }
+}
+
+// coef[k] += sum_a c1[a][k] x1[a] + c2[a][k] x2[a]
+template <typename T, int N, int K>
+__device__ __forceinline__ void add_coef(const T* c1, const T* c2,
+                                         const T (&x1)[N], const T (&x2)[N],
+                                         T (&coef)[K]) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    T r1[K], r2[K];
+    load_row<T, K>(c1 + a * K, r1);
+    load_row<T, K>(c2 + a * K, r2);
+#pragma unroll
+    for (int k = 0; k < K; ++k) coef[k] += r1[k] * x1[a] + r2[k] * x2[a];
+  }
+}
+
+// Angular degree P: Y_a += sum_c mono_c A_a,c for both halves (the j-half
+// with (-1)^P), and P_vec += sum_c B_c grad mono_c with
+// B_c = sum_a g1_a Ai_a,c + (-1)^P g2_a Aj_a,c.  Recurses to degree L.
+template <int P, typename S, typename T>
+__device__ __forceinline__ void angular(
+    const T* ai, const T* aj, const T (&px)[MAX_L + 1],
+    const T (&py)[MAX_L + 1], const T (&pz)[MAX_L + 1],
+    const T (&g1)[S::NA], const T (&g2)[S::NA], T (&yi)[S::NA],
+    T (&yj)[S::NA], T& Px, T& Py, T& Pz) {
+  constexpr int C = (P + 1) * (P + 2) / 2;
+  constexpr int G0 = n_mono(P - 1);                // first monomial of P
+  constexpr int BASE = S::NR + S::NA * G0;
+  const T sgn = (P & 1) ? T(-1) : T(1);
+  T mono[C], bv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    mono[c] = px[mono_exp(G0 + c, 0)] * py[mono_exp(G0 + c, 1)] *
+              pz[mono_exp(G0 + c, 2)];
+    bv[c] = T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < S::NA; ++a) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const T Ai = ai[BASE + a * C + c], Aj = sgn * aj[BASE + a * C + c];
+      yi[a] += mono[c] * Ai;
+      yj[a] += mono[c] * Aj;
+      bv[c] += g1[a] * Ai + g2[a] * Aj;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int ex = mono_exp(G0 + c, 0), ey = mono_exp(G0 + c, 1),
+              ez = mono_exp(G0 + c, 2);
+    if (ex) Px += bv[c] * T(ex) * px[ex - 1] * py[ey] * pz[ez];
+    if (ey) Py += bv[c] * T(ey) * px[ex] * py[ey - 1] * pz[ez];
+    if (ez) Pz += bv[c] * T(ez) * px[ex] * py[ey] * pz[ez - 1];
+  }
+  if constexpr (P < S::L)
+    angular<P + 1, S>(ai, aj, px, py, pz, g1, g2, yi, yj, Px, Py, Pz);
+}
+
+// One pair's contribution to F_i (fx, fy, fz) and dt/dS_i (gx, gy, gz).
+// ai, aj: the two adjoint rows in shared memory; sc: the carriers in shared
+// memory; s0..s2 and j0..j2: S_i and S_j.
+template <typename S, typename T>
+__device__ __forceinline__ void warp_pair(T dx, T dy, T dz, T rc, int ta,
+                                          int tb, const T* sc, const T* ai,
+                                          const T* aj, T s0, T s1, T s2,
+                                          T j0, T j1, T j2, T& fx, T& fy,
+                                          T& fz, T& gx, T& gy, T& gz) {
+  constexpr int K = S::K, NT = S::NT;
+  const T r = dsqrt(dx * dx + dy * dy + dz * dz + dist_eps<T>());
+  const T inv = T(1) / r;
+  const T rx = dx * inv, ry = dy * inv, rz = dz * inv;
+  const int p1 = ta * NT + tb, p2 = tb * NT + ta;   // c[ti][tj], c[tj][ti]
+  T fk[K], dfk[K], coef[K];
+  chebyshev<T, true>(r, rc, K, fk, dfk);
+
+  // radial: both halves' carriers contract against Abar.rad
+  T ri[S::NR], rj[S::NR];
+#pragma unroll
+  for (int a = 0; a < S::NR; ++a) {
+    ri[a] = ai[a];
+    rj[a] = aj[a];
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) coef[k] = T(0);
+  add_coef<T, S::NR, K>(sc + p1 * S::NR * K, sc + p2 * S::NR * K, ri, rj,
+                        coef);
+
+  // angular
+  T px[MAX_L + 1], py[MAX_L + 1], pz[MAX_L + 1];
+  powers(rx, px);
+  powers(ry, py);
+  powers(rz, pz);
+  const T* ca1 = sc + S::C_ANG + p1 * S::NA * K;
+  const T* ca2 = sc + S::C_ANG + p2 * S::NA * K;
+  T g1[S::NA], g2[S::NA], yi[S::NA], yj[S::NA];
+  carrier_sums<T, S::NA, K>(ca1, ca2, fk, g1, g2);
+#pragma unroll
+  for (int a = 0; a < S::NA; ++a) yi[a] = yj[a] = T(0);
+  T Px = T(0), Py = T(0), Pz = T(0);
+  angular<0, S>(ai, aj, px, py, pz, g1, g2, yi, yj, Px, Py, Pz);
+  add_coef<T, S::NA, K>(ca1, ca2, yi, yj, coef);
+
+  if constexpr (S::NS > 0) {
+    constexpr int NS = S::NS, OD = S::O_DOT, OV = OD + 3 * NS,
+                  OW = OV + 3 * NS;
+    const T dot = s0 * j0 + s1 * j1 + s2 * j2;
+    const T cx = s1 * j2 - s2 * j1, cy = s2 * j0 - s0 * j2,
+            cz = s0 * j1 - s1 * j0;
+    const T dmi = cx * rx + cy * ry + cz * rz;
+    const T sir = s0 * rx + s1 * ry + s2 * rz;
+    const T sjr = j0 * rx + j1 * ry + j2 * rz;
+    const T pd = sir * sjr;
+    const T* cs1 = sc + S::C_SPIN + p1 * NS * K;
+    const T* cs2 = sc + S::C_SPIN + p2 * NS * K;
+    T h1[NS], h2[NS], zi[NS], zj[NS];
+    carrier_sums<T, NS, K>(cs1, cs2, fk, h1, h2);
+    T S_dot = T(0), S_dmi = T(0), S_pd = T(0);
+    T Wx = T(0), Wy = T(0), Wz = T(0), Vx = T(0), Vy = T(0), Vz = T(0);
+#pragma unroll
+    for (int a = 0; a < NS; ++a) {
+      const T id = ai[OD + a], im = ai[OD + NS + a], ip = ai[OD + 2 * NS + a];
+      const T jd = aj[OD + a], jm = aj[OD + NS + a], jp = aj[OD + 2 * NS + a];
+      const T iv0 = ai[OV + 3 * a], iv1 = ai[OV + 3 * a + 1],
+              iv2 = ai[OV + 3 * a + 2];
+      const T iw0 = ai[OW + 3 * a], iw1 = ai[OW + 3 * a + 1],
+              iw2 = ai[OW + 3 * a + 2];
+      const T jv0 = aj[OV + 3 * a], jv1 = aj[OV + 3 * a + 1],
+              jv2 = aj[OV + 3 * a + 2];
+      const T jw0 = aj[OW + 3 * a], jw1 = aj[OW + 3 * a + 1],
+              jw2 = aj[OW + 3 * a + 2];
+      // i-half sees S_j as the neighbor spin and +rhat; the j-half sees
+      // S_i as the neighbor spin and -rhat (sp_w flips sign)
+      zi[a] = dot * id + dmi * im + pd * ip +
+              (j0 * iv0 + j1 * iv1 + j2 * iv2) +
+              (rx * iw0 + ry * iw1 + rz * iw2);
+      zj[a] = dot * jd + dmi * jm + pd * jp +
+              (s0 * jv0 + s1 * jv1 + s2 * jv2) -
+              (rx * jw0 + ry * jw1 + rz * jw2);
+      S_dot += h1[a] * id + h2[a] * jd;
+      S_dmi += h1[a] * im + h2[a] * jm;
+      S_pd += h1[a] * ip + h2[a] * jp;
+      Wx += h1[a] * iw0 - h2[a] * jw0;
+      Wy += h1[a] * iw1 - h2[a] * jw1;
+      Wz += h1[a] * iw2 - h2[a] * jw2;
+      Vx += h2[a] * jv0; Vy += h2[a] * jv1; Vz += h2[a] * jv2;
+    }
+    add_coef<T, NS, K>(cs1, cs2, zi, zj, coef);
+    // dt/d(rhat): DMI (S_i x S_j), pseudo-dipolar, and the W carriers
+    Px += S_dmi * cx + S_pd * (s0 * sjr + j0 * sir) + Wx;
+    Py += S_dmi * cy + S_pd * (s1 * sjr + j1 * sir) + Wy;
+    Pz += S_dmi * cz + S_pd * (s2 * sjr + j2 * sir) + Wz;
+    // dt/dS_i: Heisenberg S_j, DMI S_j x rhat, pseudo-dipolar, V of j
+    gx += S_dot * j0 + S_dmi * (j1 * rz - j2 * ry) + S_pd * sjr * rx + Vx;
+    gy += S_dot * j1 + S_dmi * (j2 * rx - j0 * rz) + S_pd * sjr * ry + Vy;
+    gz += S_dot * j2 + S_dmi * (j0 * ry - j1 * rx) + S_pd * sjr * rz + Vz;
+  }
+
+  T dtdr = T(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) dtdr += dfk[k] * coef[k];
+  const T rp = rx * Px + ry * Py + rz * Pz;
+  fx += rx * dtdr + (Px - rx * rp) * inv;
+  fy += ry * dtdr + (Py - ry * rp) * inv;
+  fz += rz * dtdr + (Pz - rz * rp) * inv;
+}
+
+template <typename S, typename T>
+__global__ void __launch_bounds__(32 * WARPS)
+force_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
+                       const int* __restrict__ idx, const int* __restrict__ ti,
+                       const int* __restrict__ tj, const T* __restrict__ si,
+                       const T* __restrict__ sj, const T* __restrict__ c_rad,
+                       const T* __restrict__ c_ang,
+                       const T* __restrict__ c_spin,
+                       const T* __restrict__ abar, T* __restrict__ f_out,
+                       T* __restrict__ h_out, int n, int m, T rc) {
+  constexpr int A = S::A, LDA = S::LDA;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sc = reinterpret_cast<T*>(smem_raw);             // carriers
+  T* s_own = sc + (S::NC + 3) / 4 * 4;                // WARPS x A
+  T* s_nb = s_own + WARPS * A;                        // WARPS x 32 x LDA
+  int* s_list = reinterpret_cast<int*>(s_nb + WARPS * 32 * LDA);  // WARPS x m
+  constexpr int NRK = S::NT * S::NT * S::NR * S::K;
+  constexpr int NAK = S::NT * S::NT * S::NA * S::K;
+  stage(sc, c_rad, NRK);
+  stage(sc + S::C_ANG, c_ang, NAK);
+  if constexpr (S::NS > 0)
+    stage(sc + S::C_SPIN, c_spin, S::NT * S::NT * S::NS * S::K);
+  __syncthreads();
+
+  const unsigned full = 0xffffffffu;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* own = s_own + warp * A;
+  T* nbs = s_nb + warp * 32 * LDA;
+  int* list = s_list + warp * m;
+  for (int i = blockIdx.x * WARPS + warp; i < n; i += gridDim.x * WARPS) {
+#pragma unroll
+    for (int c0 = 0; c0 < A; c0 += 32)
+      if (c0 + lane < A) own[c0 + lane] = abar[(size_t)i * A + c0 + lane];
+    // live slots, in slot order
+    int live = 0;
+    for (int s0 = 0; s0 < m; s0 += 32) {
+      const int s = s0 + lane;
+      bool ok = false;
+      if (s < m) {
+        const size_t pm = (size_t)i * m + s;
+        if (mask[pm]) {
+          const T dx = dr[3 * pm], dy = dr[3 * pm + 1], dz = dr[3 * pm + 2];
+          ok = dsqrt(dx * dx + dy * dy + dz * dz + dist_eps<T>()) < rc;
+        }
+      }
+      const unsigned b = __ballot_sync(full, ok);
+      if (ok) list[live + __popc(b & ((1u << lane) - 1u))] = s;
+      live += __popc(b);
+    }
+    __syncwarp();
+
+    const int ta = ti[i];
+    const T s0 = si[3 * i], s1 = si[3 * i + 1], s2 = si[3 * i + 2];
+    T fx = T(0), fy = T(0), fz = T(0), gx = T(0), gy = T(0), gz = T(0);
+    for (int t0 = 0; t0 < live; t0 += 32) {
+      const int cnt = min(32, live - t0);
+      const bool act = lane < cnt;
+      const size_t pm = (size_t)i * m + (act ? list[t0 + lane] : 0);
+      const int j = act ? idx[pm] : 0;
+      // the round's neighbor rows, 32 lanes on consecutive words of a row
+#pragma unroll 4
+      for (int rr = 0; rr < cnt; ++rr) {
+        const T* src = abar + (size_t)__shfl_sync(full, j, rr) * A;
+#pragma unroll
+        for (int c0 = 0; c0 < A; c0 += 32)
+          if (c0 + lane < A) nbs[rr * LDA + c0 + lane] = __ldg(src + c0 + lane);
+      }
+      __syncwarp();
+      if (act)
+        warp_pair<S, T>(dr[3 * pm], dr[3 * pm + 1], dr[3 * pm + 2], rc, ta,
+                        tj[pm], sc, own, nbs + lane * LDA, s0, s1, s2,
+                        sj[3 * pm], sj[3 * pm + 1], sj[3 * pm + 2], fx, fy,
+                        fz, gx, gy, gz);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      fx += __shfl_xor_sync(full, fx, off);
+      fy += __shfl_xor_sync(full, fy, off);
+      fz += __shfl_xor_sync(full, fz, off);
+      gx += __shfl_xor_sync(full, gx, off);
+      gy += __shfl_xor_sync(full, gy, off);
+      gz += __shfl_xor_sync(full, gz, off);
+    }
+    if (lane == 0) {
+      f_out[3 * i] = fx;
+      f_out[3 * i + 1] = fy;
+      f_out[3 * i + 2] = fz;
+      h_out[3 * i] = -gx;
+      h_out[3 * i + 1] = -gy;
+      h_out[3 * i + 2] = -gz;
+    }
+    __syncwarp();
+  }
+}
+
+template <typename S, typename T>
+int launch_warp(const void* dr, const void* mask, const void* idx,
+                const void* ti, const void* tj, const void* si,
+                const void* sj, const void* c_rad, const void* c_ang,
+                const void* c_spin, const void* abar, void* f, void* h,
+                int n, int m, double cutoff, void* stream) {
+  const size_t smem = sizeof(T) * ((S::NC + 3) / 4 * 4 + WARPS * S::A +
+                                   WARPS * 32 * S::LDA) +
+                      sizeof(int) * WARPS * m;
+  auto* kern = force_pass_warp_kernel<S, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min((n + WARPS - 1) / WARPS, WGRID_MAX);
+  kern<<<grid, 32 * WARPS, smem, (cudaStream_t)stream>>>(
+      (const T*)dr, (const bool*)mask, (const int*)idx, (const int*)ti,
+      (const int*)tj, (const T*)si, (const T*)sj, (const T*)c_rad,
+      (const T*)c_ang, (const T*)c_spin, (const T*)abar, (T*)f, (T*)h, n, m,
+      T(cutoff));
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+bool is(const Spec& sp) {
+  return sp.n_types == S::NT && sp.K == S::K && sp.n_rad == S::NR &&
+         sp.n_ang == S::NA && sp.l_max == S::L && sp.n_spin == S::NS &&
+         sp.spin;
+}
+
+template <typename T>
+int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
+                           const void* ti, const void* tj, const void* si,
+                           const void* sj, const void* c_rad,
+                           const void* c_ang, const void* c_spin,
+                           const void* abar, void* f, void* h, int n, int m,
+                           Spec sp, void* stream) {
+  if (is<ProdSizes>(sp))
+    return launch_warp<ProdSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
+                                     c_ang, c_spin, abar, f, h, n, m,
+                                     sp.cutoff, stream);
+  if (is<SmokeSizes>(sp))
+    return launch_warp<SmokeSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
+                                      c_ang, c_spin, abar, f, h, n, m,
+                                      sp.cutoff, stream);
+  return (int)cudaErrorInvalidValue;   // no instantiation for this spec
+}
+
 }  // namespace nep
 
-#define NEP_FORCE_PASS_ENTRY(NAME, T)                                         \
+#define NEP_FORCE_PASS_ENTRY(NAME, T, LAUNCH)                                 \
   extern "C" int NAME(const void* dr, const void* mask, const void* idx,      \
                       const void* ti, const void* tj, const void* si,         \
                       const void* sj, const void* c_rad, const void* c_ang,   \
@@ -244,10 +641,11 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
                       int spin, double cutoff, void* stream) {                \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,   \
                  spin, cutoff};                                               \
-    return nep::launch_force_pass<T>(dr, mask, idx, ti, tj, si, sj, c_rad,    \
-                                     c_ang, c_spin, abar, f, h, n, m, sp,     \
-                                     stream);                                 \
+    return nep::LAUNCH<T>(dr, mask, idx, ti, tj, si, sj, c_rad, c_ang,        \
+                          c_spin, abar, f, h, n, m, sp, stream);              \
   }
 
-NEP_FORCE_PASS_ENTRY(nep_force_pass_f32, float)
-NEP_FORCE_PASS_ENTRY(nep_force_pass_f64, double)
+NEP_FORCE_PASS_ENTRY(nep_force_pass_f32, float, launch_force_pass)
+NEP_FORCE_PASS_ENTRY(nep_force_pass_f64, double, launch_force_pass)
+NEP_FORCE_PASS_ENTRY(nep_force_pass_warp_f32, float, launch_force_pass_warp)
+NEP_FORCE_PASS_ENTRY(nep_force_pass_warp_f64, double, launch_force_pass_warp)

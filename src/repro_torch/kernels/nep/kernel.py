@@ -8,6 +8,11 @@ current stream, or raises - there is no fallback.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, raises if the launch reports a CUDA error, and counts its
 launches in a plain integer attribute (``nep_atom_pass.launches``).
+
+K2 has two bodies: ``"warp"`` (one warp per atom, compiled for the specs of
+``WARP_SPECS``) and ``"thread"`` (one thread per atom, any spec within
+``SPEC_BOUNDS``).  :func:`force_pass_body` picks one from the spec;
+``nep_force_pass.body_launches`` counts the launches of each.
 """
 from __future__ import annotations
 
@@ -24,6 +29,11 @@ from repro_torch.kernels.nep.ref import atom_pass_plain, force_pass_plain
 # compile-time maxima of csrc/nep_common.cuh
 SPEC_BOUNDS = {"n_types": 4, "n_rad": 8, "n_ang": 8, "n_spin": 8,
                "l_max": 4, "basis_size": 16, "hidden": 64, "n_onsite": 4}
+# specs with a compiled warp-per-atom K2 body (csrc/nep_force_pass.cu:
+# ProdSizes, SmokeSizes): (n_types, basis_size, n_rad, n_ang, l_max, n_spin)
+# of configs/fege_spinlattice.py config() and smoke_config(), with spin
+WARP_SPECS = ((2, 8, 6, 4, 4, 4), (2, 6, 4, 2, 2, 2))
+FORCE_PASS_BODIES = ("warp", "thread")
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SPEC_ARGS = [_I] * 9 + [_D, _P]     # n_types..spin, cutoff, stream
@@ -44,8 +54,16 @@ def check_spec(spec: NEPSpinSpec) -> None:
                              f"got {v}")
 
 
-def _entry(name: str, dtype):
-    fn = getattr(_build.load(name), f"{name}_{_DTYPES[dtype]}")
+def force_pass_body(spec: NEPSpinSpec) -> str:
+    """K2's body for ``spec``: ``"warp"`` where one is compiled for it,
+    else ``"thread"``."""
+    sizes = (spec.n_types, spec.basis_size, spec.n_rad, spec.n_ang,
+             spec.l_max, spec.n_spin)
+    return "warp" if spec.spin and sizes in WARP_SPECS else "thread"
+
+
+def _entry(name: str, dtype, suffix: str = ""):
+    fn = getattr(_build.load(name), f"{name}{suffix}_{_DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -131,13 +149,21 @@ nep_atom_pass.launches = 0
 
 
 def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
-                   ti, tj, si, sj, abar):
+                   ti, tj, si, sj, abar, *, body: str | None = None):
     """K2: ``(F (N,3), h2 (N,3))`` from K1's packed adjoints ``abar``
-    (N, A), read through ``idx`` (N,M) int32 for each neighbor."""
+    (N, A), read through ``idx`` (N,M) int32 for each neighbor.  ``body``
+    (CUDA tensors only) defaults to :func:`force_pass_body`; ``"thread"``
+    runs the thread-per-atom body for any spec, ``"warp"`` raises for a
+    spec it was not compiled for."""
     if dr.device.type == "cpu":
         return force_pass_plain(spec, params, dr, mask, idx, ti, tj, si, sj,
                                 abar)
     n, m = _check_common(spec, params, dr, mask, ti, tj, si, sj)
+    body = force_pass_body(spec) if body is None else body
+    if body not in FORCE_PASS_BODIES or (
+            body == "warp" and force_pass_body(spec) != "warp"):
+        raise ValueError(f"K2 has no {body!r} body for this spec; "
+                         f"WARP_SPECS = {WARP_SPECS}")
     _check("idx", idx, (n, m), torch.int32, dr.device)
     _check("abar", abar, (n, acc_width(spec)), dr.dtype, dr.device)
     f = torch.empty((n, 3), dtype=dr.dtype, device=dr.device)
@@ -145,7 +171,8 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     if n == 0:
         return f, h2
     with torch.cuda.device(dr.device):
-        rc = _entry("nep_force_pass", dr.dtype)(
+        rc = _entry("nep_force_pass", dr.dtype,
+                    "_warp" if body == "warp" else "")(
             dr.data_ptr(), mask.data_ptr(), idx.data_ptr(), ti.data_ptr(),
             tj.data_ptr(), si.data_ptr(), sj.data_ptr(),
             params.c_rad.data_ptr(), params.c_ang.data_ptr(),
@@ -153,7 +180,9 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
             h2.data_ptr(), n, m, *_spec_args(spec, dr.device))
     _raise_on("nep_force_pass", rc)
     nep_force_pass.launches += 1
+    nep_force_pass.body_launches[body] += 1
     return f, h2
 
 
 nep_force_pass.launches = 0
+nep_force_pass.body_launches = dict.fromkeys(FORCE_PASS_BODIES, 0)

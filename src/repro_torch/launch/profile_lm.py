@@ -24,7 +24,7 @@ from pathlib import Path
 
 ARCH = "zamba2-2.7b"
 KINDS = (("ssd_chunks", ("ssd_chunk_kernel",)),
-         ("flash_attention_fwd", ("flash_fwd_kernel",)),
+         ("flash_attention_fwd", ("flash_fwd",)),
          ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")))
 
 

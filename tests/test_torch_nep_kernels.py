@@ -262,3 +262,42 @@ def test_wrappers_dispatch_cpu_to_plain_and_check_inputs():
             tkern.check_spec(NEPSpinSpec(**bad))
     tkern.check_spec(NEPSpinSpec(**PRODUCTION))
     assert acc_width(NEPSpinSpec(**PRODUCTION)) == 182
+
+
+@pytest.mark.parametrize("spec_kw, body", [
+    (PRODUCTION, "warp"),
+    (dict(cutoff=5.0, basis_size=6, n_rad=4, n_ang=2, l_max=2, n_spin=2,
+          n_types=2, hidden=16), "warp"),
+    (CASES[2][3], "thread"),
+    (dict(PRODUCTION, spin=False), "thread"),
+    (dict(PRODUCTION, n_types=1), "thread"),
+])
+def test_force_pass_body_choice(spec_kw, body):
+    """K2's warp body serves the specs it is compiled for (the production
+    and smoke specs of configs/fege_spinlattice.py); any other spec within
+    SPEC_BOUNDS goes to the thread-per-atom body."""
+    assert tkern.force_pass_body(NEPSpinSpec(**spec_kw)) == body
+
+
+def test_force_pass_body_covers_the_fege_configs():
+    from repro_torch.configs.fege_spinlattice import config, smoke_config
+    for cfg in (config(), smoke_config()):
+        assert tkern.force_pass_body(cfg.spec) == "warp"
+    assert set(tkern.nep_force_pass.body_launches) == set(
+        tkern.FORCE_PASS_BODIES)
+
+
+def test_warp_specs_match_the_cuda_instantiations():
+    """WARP_SPECS in kernel.py and the ``Sizes<...>`` instantiations of
+    csrc/nep_force_pass.cu name the same specs, in the same field order
+    (n_types, basis_size, n_rad, n_ang, l_max, n_spin)."""
+    import re
+    from pathlib import Path
+    src = (Path(tkern.__file__).parent / "csrc" /
+           "nep_force_pass.cu").read_text()
+    sizes = re.findall(r"^using \w+Sizes = Sizes<([\d,\s]+)>;", src,
+                       flags=re.M)
+    assert sorted(tuple(int(x) for x in s.split(",")) for s in sizes) == \
+        sorted(tkern.WARP_SPECS)
+    for name in re.findall(r"^using (\w+Sizes) = Sizes<", src, flags=re.M):
+        assert f"is<{name}>(sp)" in src, name
