@@ -7,60 +7,67 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero, printing
 no result, without them.  Phases (each raises on failure):
 
 1. the card's name and power limit; build every kernel from ``csrc/``;
-   ptxas's registers, stack frame and spills of each kernel;
+   ptxas's registers, stack frame and spills of each kernel body;
 2. each kernel against its plain PyTorch version on B20 8x8x8 (4,096 atoms,
    0.08 A thermal jitter, random spins, production spec, capacity 64): f64
-   within 1e-9 and f32 within 1e-4 of each output's max |ref|, K2 in both
-   bodies (warp per atom, the default at this spec, and thread per atom);
-   and ``nep_compute`` through the kernels against the autograd ``compute``;
+   within 1e-9 and f32 within 1e-4 of each output's max |ref|, K1 and K2
+   each in both bodies (warp per atom, the default at this spec, and thread
+   per atom); and ``nep_compute`` through the kernels against the autograd
+   ``compute``;
 3. the main path: ``Engine`` with ``NEPSpinPotential(use_kernel=True)`` on
    32x32x32 B20 cells (262,144 atoms) for 3 chunks x 20 steps at 300 K in a
    0.2 T field; launch counts must equal 1 + steps + rebuilds (one
-   evaluation at construction, one per step, one per rebuild), every K2
-   launch in the warp-per-atom body;
-4. each kernel (K2 in both bodies) against its plain version at the main
-   path's shapes (f32, 1e-4), and times of each with CUDA events (K2's
+   evaluation at construction, one per step, one per rebuild), every K1 and
+   K2 launch in the warp-per-atom body;
+4. each kernel (K1 and K2 in both bodies) against its plain version at the
+   main path's shapes (f32, 1e-4), and times of each with CUDA events (the
    bodies in turns: warp, thread, thread, warp), beside the least time the
    card could take (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
 5. SSD and FA against their plain versions on the sweeps of
    ``tests/test_kernels_ssd.py`` and ``tests/test_kernels_attention.py``,
-   SSD at Mamba-2-2.7B's chunk (L=128, P=64, N=128: the kernel's other
-   shared-memory layout), and FA's tensor-core body on bf16 copies of the
-   f32 sweep cases plus d = 80 and dv = 24 cases (its exact and guarded
-   instantiations: window, ragged S and T, GQA, dv != d, dv % 16 = 8): f32
-   within 1e-4 of max |ref|; bf16 inputs within 5e-4 for SSD (its outputs
-   are f32 on both sides) and 2e-2 for FA (its output is rounded to bf16;
-   bf16 runs FA's tensor-core body, f32 its CUDA-core body);
+   SSD at Mamba-2-2.7B's chunk (L=128, P=64, N=128: the CUDA-core body's
+   other shared-memory layout), SSD in both bodies (tensor cores, the bf16
+   default, and CUDA cores) on bf16 copies of the f32 sweep cases plus the
+   bf16 one (N = 128 among them), and FA's tensor-core body on bf16 copies
+   of the f32 sweep cases plus d = 80 and dv = 24 cases (its exact and
+   guarded instantiations: window, ragged S and T, GQA, dv != d,
+   dv % 16 = 8): f32 within 1e-4 of max |ref|; bf16 inputs within 5e-4 for
+   SSD (its outputs are f32 on both sides) and 2e-2 for FA (its output is
+   rounded to bf16; bf16 runs FA's tensor-core body, f32 its CUDA-core
+   body);
 6. Zamba2-2.7B at full width and depth (54 layers, d_model 2560, random
    weights from a seed) in f32 with TF32 off: forward logits of B=2 x
    S=256 tokens (two SSD chunks) against 256 decode steps from empty
    caches, within 5e-3 of max |logit|;
 7. the LM main path, bf16: ``make_prefill_fn`` at B=2, S=8,192 (the
    ``prefill_32k`` shape cut to one card), one warm call and the median of
-   3 in prefill tokens/s; every call must launch SSD 54 times and FA 9
-   times (bf16, so FA's tensor-core body; counts set to 0 before each
-   call), and give finite logits;
+   3 in prefill tokens/s; every call must launch SSD 54 times, all in its
+   tensor-core body, and FA 9 times (bf16, so FA's tensor-core body;
+   counts set to 0 before each call), and give finite logits;
 8. ``make_decode_fn`` at B=8 against 8,192-slot caches, 64 greedy steps
    after 2 warm ones, in decode tokens/s; decode runs no kernel, so the
    counts must stay 0;
 9. SSD and FA at the prefill's shapes against their plain versions, in
-   f32 (1e-4) and in bf16 (SSD 5e-4; FA 5e-3, about one bf16 ulp of its
-   largest output), and FA's bf16 output row by row against the f32 plain
+   f32 (1e-4) and in bf16 (SSD 5e-4, both bodies; FA 5e-3, about one bf16
+   ulp of its largest output), and FA's bf16 output row by row against the
+   f32 plain
    version on the same (bf16-valued) inputs: each output's error beyond
    half a bf16 ulp (its own rounding), over its row's max |ref|, within
    1e-4 (P V with P's bf16 hi half alone reads ~3e-3 there); timed in bf16
-   beside the plain versions and, for FA, the library call
+   beside the plain versions (SSD's bodies in turns: tc, cuda_core,
+   cuda_core, tc) and, for FA, the library call
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
    and the least time the card could take (bytes at 3.35 TB/s or
    contraction flops at the bf16 dense peak of 989 TFLOP/s);
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
-    all four kernels (K2 with ``previous_ms``, the thread body's time in
-    this run; FA's ``previous_ms`` null, as its earlier body is gone; both
-    with ptxas's report of the body timed), then
+    all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
+    earlier body's time in this run; FA's ``previous_ms`` null, as its
+    earlier body is gone; all with ptxas's report of the body timed), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -93,10 +100,13 @@ SSD_SWEEP = [   # bs, s, h, p, g, n, chunk, dtype
     (1, 128, 8, 8, 1, 32, 32, "float32"),
     (2, 64, 4, 8, 4, 16, 16, "float32"),
     (1, 64, 4, 8, 2, 16, 16, "bfloat16"),
-    # Mamba-2-2.7B's chunk: N = 128 sends the kernel down its unpadded
-    # shared-memory layout (230,400 of 232,448 bytes)
+    # Mamba-2-2.7B's chunk: N = 128 sends the CUDA-core body down its
+    # unpadded shared-memory layout (230,400 of 232,448 bytes)
     (1, 256, 8, 64, 1, 128, 128, "float32"),
 ]
+# bf16 copies of the f32 cases (N = 128: the tensor-core body's second
+# exact instantiation; N = 8 and P = 16, 8: its guarded one)
+SSD_SWEEP += [c[:7] + ("bfloat16",) for c in SSD_SWEEP if c[7] == "float32"]
 FA_SWEEP = [    # b, s, t, h, hkv, d, dv, causal, window, dtype
     (2, 64, 64, 4, 2, 32, 32, True, 0, "float32"),
     (1, 48, 80, 4, 4, 16, 16, True, 16, "float32"),
@@ -229,9 +239,13 @@ def ptxas_of(reports: dict, library: str, *parts) -> dict:
 
 
 # the timed bodies' kernels in ptxas's reports (mangled names)
-PTXAS_K2_WARP = ("nep_force_pass", "force_pass_warp_kernel",
-                 "SizesILi2ELi8ELi6ELi4ELi4ELi4EEEfE")
+PROD_SIZES = "SizesILi2ELi8ELi6ELi4ELi4ELi4ELi32ELi3EEEfE"
+PTXAS_K1_WARP = ("nep_atom_pass", "atom_pass_warp_kernel", PROD_SIZES)
+PTXAS_K1_THREAD = ("nep_atom_pass", "atom_pass_kernelIfE")
+PTXAS_K2_WARP = ("nep_force_pass", "force_pass_warp_kernel", PROD_SIZES)
 PTXAS_K2_THREAD = ("nep_force_pass", "force_pass_kernelIfE")
+PTXAS_SSD_TC = ("ssd_chunks", "ssd_chunk_tc_kernelILi4ELi8ELb1E")
+PTXAS_SSD_CC = ("ssd_chunks", "ssd_chunk_kernelI13__nv_bfloat16E")
 PTXAS_FA_TC = ("flash_attention_fwd", "flash_fwd_tc_kernelILi5ELi5ELb1E")
 
 
@@ -248,6 +262,8 @@ def lm_counters():
 def reset_lm_counters():
     for fn in lm_counters():
         fn.launches = 0
+    ssd = lm_counters()[0]
+    ssd.body_launches = dict.fromkeys(ssd.body_launches, 0)
 
 
 def read_lm_counters():
@@ -272,13 +288,21 @@ def lm_sweeps(torch, dev):
         a = -torch.exp(rnd(h) * 0.5)
         b = (rnd(bs, s, g, n) * 0.3).to(dt_)
         c = (rnd(bs, s, g, n) * 0.3).to(dt_)
-        got = ssd.ssd_chunks(x, dtv, a, b, c, chunk=chunk)
+        body = ssd.ssd_body(x, b, c, chunk)
+        if body != {"float32": "cuda_core", "bfloat16": "tc"}[dtype]:
+            raise AssertionError(f"SSD sweep {i} {dtype} chose {body}")
         want = ssd.ssd_chunks_plain(x, dtv, a, b, c, chunk=chunk)
-        torch.cuda.synchronize()
-        err = max(check(f"SSD sweep {i} {o} {dtype}", u, w, SSD_BAR[dtype])
-                  for o, u, w in zip(("y_intra", "states", "cum"), got, want))
-        w = worst["ssd_chunks"]
-        w[dtype] = max(w.get(dtype, 0.0), err)
+        # bf16 runs both bodies; the default's error is the one kept
+        for bd in ssd.BODIES if body == "tc" else (body,):
+            got = ssd.ssd_chunks(x, dtv, a, b, c, chunk=chunk, body=bd)
+            torch.cuda.synchronize()
+            err = max(check(f"SSD sweep {i} {bd} {o} {dtype}", u, w,
+                            SSD_BAR[dtype])
+                      for o, u, w in zip(("y_intra", "states", "cum"), got,
+                                         want))
+            if bd == body:
+                w = worst["ssd_chunks"]
+                w[dtype] = max(w.get(dtype, 0.0), err)
     cases = [("sweep", i, c) for i, c in enumerate(FA_SWEEP)] + [
         ("tensor-core sweep", i, c) for i, c in enumerate(FA_TC_SWEEP)]
     for label, i, (b, s, t, h, hkv, d, dv, causal, win, dtype) in cases:
@@ -356,6 +380,10 @@ def lm_prefill(torch, dev, cfg, params):
         if counts != expect:
             raise AssertionError(f"prefill call {i} launched (SSD, FA) = "
                                  f"{counts}, expected {expect}")
+        ssd_bodies = lm_counters()[0].body_launches
+        if ssd_bodies != {"tc": expect[0], "cuda_core": 0}:
+            raise AssertionError(f"prefill call {i}: SSD launches by body "
+                                 f"{ssd_bodies}, all must be tensor-core")
     if tuple(logits.shape) != (PREFILL_B, padded_vocab(cfg.vocab)) or not \
             bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -365,7 +393,8 @@ def lm_prefill(torch, dev, cfg, params):
     log(f"  prefill B={PREFILL_B} S={PREFILL_S}: warm {secs[0]:.3f} s, "
         f"calls {[round(s, 4) for s in secs[1:]]} s, median {med:.4f} s = "
         f"{tps:.1f} prefill tokens/s; launches in the last call (SSD, FA) "
-        f"= {counts}; peak memory "
+        f"= {counts}, SSD by body {lm_counters()[0].body_launches}; peak "
+        f"memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return {"tokens_per_s": tps, "median_s": med, "launches": counts}
 
@@ -460,22 +489,38 @@ def lm_kernels_main(torch, dev, cfg, sweep_err, launches, ptxas):
                             ssd.ssd_chunks, ssd.ssd_chunks_plain, args32,
                             SSD_BAR["float32"], chunk=L)
     del xbc32, args32
-    rel, abs_err = compare_main(torch, ssd_names("bf16"),
+    if ssd.ssd_body(x, b, c, L) != "tc":
+        raise AssertionError("SSD at the prefill's shapes must take the "
+                             "tensor-core body")
+    rel, abs_err = compare_main(torch, ssd_names("bf16 tc"),
                                 ssd.ssd_chunks, ssd.ssd_chunks_plain, args,
                                 SSD_BAR["bfloat16"], chunk=L)
+    compare_main(
+        torch, ssd_names("bf16 cuda_core"),
+        functools.partial(ssd.ssd_chunks, body="cuda_core"),
+        ssd.ssd_chunks_plain, args, SSD_BAR["bfloat16"], chunk=L)
     nc = S // L
     f32_out = 4 * B * nc * (L * H * P + H * N * P + L * H)
     nbytes_ssd = nbytes(x, b, c, dt, a) + f32_out
     tri = L * (L + 1) // 2
     flops_ssd = 2.0 * B * nc * H * (tri * N + tri * P + L * N * P)
-    ms = time_ms(torch, lambda: ssd.ssd_chunks(*args, chunk=L), 20)
+    # the bodies in turns: tc, cuda_core, cuda_core, tc
+    ssd_ms = {"tc": [], "cuda_core": []}
+    for body in ("tc", "cuda_core", "cuda_core", "tc"):
+        ssd_ms[body].append(time_ms(torch, lambda: ssd.ssd_chunks(
+            *args, chunk=L, body=body), 20))
+    log(f"  SSD by body, in turns (ms): {ssd_ms}")
     plain = time_ms(torch, lambda: ssd.ssd_chunks_plain(*args, chunk=L), 2)
     rows.append(kernel_row(
-        "ssd_chunks", launches[0], abs_err, ms, plain, None, nbytes_ssd,
-        flops_ssd, {"max_rel_err_f32": max(
-                        rel32, sweep_err["ssd_chunks"]["float32"]),
-                    "max_rel_err_bf16": max(
-                        rel, sweep_err["ssd_chunks"]["bfloat16"])}))
+        "ssd_chunks", launches[0], abs_err, sum(ssd_ms["tc"]) / 2, plain,
+        None, nbytes_ssd, flops_ssd,
+        {"max_rel_err_f32": max(rel32, sweep_err["ssd_chunks"]["float32"]),
+         "max_rel_err_bf16": max(rel, sweep_err["ssd_chunks"]["bfloat16"]),
+         "body": "tc",
+         "previous_ms": sum(ssd_ms["cuda_core"]) / 2,
+         "previous_body": "cuda_core",
+         "ptxas": ptxas_of(ptxas, *PTXAS_SSD_TC),
+         "previous_ptxas": ptxas_of(ptxas, *PTXAS_SSD_CC)}))
     del xbc, x, b, c, dt, args
     torch.cuda.empty_cache()
 
@@ -681,19 +726,23 @@ def main() -> int:
         nbh = gather_blocks(pos, st.types, tab, st.box)
         sj = st.spin[nbh.idx.long()]
         blocks = (nbh.dr, nbh.mask, st.types, nbh.tj, st.spin, sj)
-        got = kern.nep_atom_pass(spec, params, *blocks)
         want = ref.atom_pass_plain(spec, params, *blocks)
-        torch.cuda.synchronize()
-        worst = max(check(f"K1 e {tag}", got[0], want[0], bar),
-                    check(f"K1 hdir {tag}", got[1], want[1], bar))
-        gl, wl = unpack_abar(spec, got[2]), unpack_abar(spec, want[2])
-        for k in wl:
-            worst = max(worst, check(f"K1 abar.{k} {tag}", gl[k], wl[k], bar))
-        errs["nep_atom_pass"][tag] = worst
+        wl = unpack_abar(spec, want[2])
+        for body in kern.BODIES:
+            got = kern.nep_atom_pass(spec, params, *blocks, body=body)
+            torch.cuda.synchronize()
+            worst = max(check(f"K1 {body} e {tag}", got[0], want[0], bar),
+                        check(f"K1 {body} hdir {tag}", got[1], want[1], bar))
+            gl = unpack_abar(spec, got[2])
+            for k in wl:
+                worst = max(worst, check(f"K1 {body} abar.{k} {tag}", gl[k],
+                                         wl[k], bar))
+            if body == kern.atom_pass_body(spec):
+                errs["nep_atom_pass"][tag] = worst
         k2_args = (spec, params, nbh.dr, nbh.mask, nbh.idx, st.types, nbh.tj,
                    st.spin, sj, want[2])
         fp = ref.force_pass_plain(*k2_args)
-        for body in kern.FORCE_PASS_BODIES:
+        for body in kern.BODIES:
             fk = kern.nep_force_pass(*k2_args, body=body)
             torch.cuda.synchronize()
             err = max(check(f"K2 {body} F {tag}", fk[0], fp[0], bar),
@@ -722,10 +771,9 @@ def main() -> int:
                            spin_alpha=run.spin_alpha)
     masses = torch.tensor(lat.masses, dtype=dtype, device=dev)
     magnetic = torch.tensor(lat.moments, device=dev) > 0
-    kern.nep_atom_pass.launches = 0
-    kern.nep_force_pass.launches = 0
-    kern.nep_force_pass.body_launches = dict.fromkeys(
-        kern.FORCE_PASS_BODIES, 0)
+    for fn in (kern.nep_atom_pass, kern.nep_force_pass):
+        fn.launches = 0
+        fn.body_launches = dict.fromkeys(kern.BODIES, 0)
     t0 = time.perf_counter()
     eng = Engine(pot, cfg, state, masses, magnetic, spec.cutoff,
                  temperature=run.temperature, field=run.field,
@@ -740,20 +788,23 @@ def main() -> int:
     run_s = time.perf_counter() - t0
     launches = {"nep_atom_pass": kern.nep_atom_pass.launches,
                 "nep_force_pass": kern.nep_force_pass.launches}
-    body_launches = dict(kern.nep_force_pass.body_launches)
+    body_launches = {"nep_atom_pass": dict(kern.nep_atom_pass.body_launches),
+                     "nep_force_pass": dict(
+                         kern.nep_force_pass.body_launches)}
     st, ff = eng.state, eng._ff
     expect = 1 + steps + eng.n_rebuilds
     log(f"  grid {eng._n_cells}, setup {setup_s:.2f} s, {steps} steps in "
         f"{run_s:.3f} s = {steps / run_s:.3f} steps/s, "
         f"rebuilds {eng.n_rebuilds}, launches {launches} "
-        f"(expect {expect} each), K2 by body {body_launches}")
+        f"(expect {expect} each), by body {body_launches}")
     for name, n in launches.items():
         if n != expect:
             raise AssertionError(f"{name} launched {n} times, expected "
                                  f"1 + steps + rebuilds = {expect}")
-    if body_launches != {"warp": expect, "thread": 0}:
-        raise AssertionError(f"K2 launches by body {body_launches}: the "
-                             f"main path must run the warp body only")
+        if body_launches[name] != {"warp": expect, "thread": 0}:
+            raise AssertionError(f"{name} launches by body "
+                                 f"{body_launches[name]}: the main path "
+                                 "must run the warp body only")
     for name, t in (("pos", st.pos), ("vel", st.vel), ("spin", st.spin),
                     ("force", ff.force), ("field", ff.field)):
         if t.shape != (run.n_atoms, 3) or not bool(torch.isfinite(t).all()):
@@ -781,6 +832,7 @@ def main() -> int:
         "cutoff")
     k1 = kern.nep_atom_pass(spec, params, *blocks)
     p1 = ref.atom_pass_plain(spec, params, *blocks)
+    k1_thread = kern.nep_atom_pass(spec, params, *blocks, body="thread")
     k2 = kern.nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx, types,
                              nbh.tj, spin, sj, p1[2])
     k2_thread = kern.nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx,
@@ -789,9 +841,11 @@ def main() -> int:
     p2 = ref.force_pass_plain(spec, params, nbh.dr, nbh.mask, nbh.idx, types,
                               nbh.tj, spin, sj, p1[2])
     torch.cuda.synchronize()
+    for o, a, b in zip(("e", "hdir", "abar"), k1_thread, p1):
+        check(f"K1 thread {o} main", a, b, 1e-4)
     for o, a, b in zip(("F", "h2"), k2_thread, p2):
         check(f"K2 thread {o} main", a, b, 1e-4)
-    del k2_thread
+    del k1_thread, k2_thread
     main_err = {
         "nep_atom_pass": (max(check(f"K1 {o} main", a, b, 1e-4) for o, a, b
                               in zip(("e", "hdir", "abar"), k1, p1)),
@@ -805,21 +859,25 @@ def main() -> int:
     k1_args = (spec, params, *blocks)
     k2_args = (spec, params, nbh.dr, nbh.mask, nbh.idx, types, nbh.tj, spin,
                sj, k1[2])
-    # K2's bodies in turns: warp, thread, thread, warp
-    k2_ms = {"warp": [], "thread": []}
-    for body in ("warp", "thread", "thread", "warp"):
-        k2_ms[body].append(time_ms(torch, lambda: kern.nep_force_pass(
-            *k2_args, body=body), 20))
-    log(f"  K2 by body, in turns (ms): {k2_ms}")
-    ms = {"nep_atom_pass": time_ms(torch, lambda: kern.nep_atom_pass(
-              *k1_args), 20),
-          "nep_force_pass": sum(k2_ms["warp"]) / 2}
-    extra = {"nep_atom_pass": {},
-             "nep_force_pass": {
-                 "body": "warp", "previous_ms": sum(k2_ms["thread"]) / 2,
-                 "previous_body": "thread",
-                 "ptxas": ptxas_of(ptxas, *PTXAS_K2_WARP),
-                 "previous_ptxas": ptxas_of(ptxas, *PTXAS_K2_THREAD)}}
+    # each kernel's bodies in turns: warp, thread, thread, warp
+    calls = {"nep_atom_pass": (kern.nep_atom_pass, k1_args),
+             "nep_force_pass": (kern.nep_force_pass, k2_args)}
+    by_body = {}
+    for name, (fn, fargs) in calls.items():
+        by_body[name] = {"warp": [], "thread": []}
+        for body in ("warp", "thread", "thread", "warp"):
+            by_body[name][body].append(time_ms(
+                torch, lambda: fn(*fargs, body=body), 20))
+        log(f"  {name} by body, in turns (ms): {by_body[name]}")
+    ms = {name: sum(t["warp"]) / 2 for name, t in by_body.items()}
+    ptx = {"nep_atom_pass": (PTXAS_K1_WARP, PTXAS_K1_THREAD),
+           "nep_force_pass": (PTXAS_K2_WARP, PTXAS_K2_THREAD)}
+    extra = {name: {"body": "warp",
+                    "previous_ms": sum(by_body[name]["thread"]) / 2,
+                    "previous_body": "thread",
+                    "ptxas": ptxas_of(ptxas, *ptx[name][0]),
+                    "previous_ptxas": ptxas_of(ptxas, *ptx[name][1])}
+             for name in calls}
     plain_ms = {"nep_atom_pass": time_ms(torch, lambda: ref.atom_pass_plain(
                     *k1_args), 2),
                 "nep_force_pass": time_ms(torch, lambda: ref.force_pass_plain(

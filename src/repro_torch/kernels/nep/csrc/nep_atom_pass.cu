@@ -15,14 +15,48 @@
 // is ~10 GFLOP, ~0.15 ms at 67 TFLOP/s.  So it is bound by bytes
 // (chip_smoke.py counts both from each run's pairs).
 //
-// Design: one thread per atom walks its M neighbors and keeps the 182
-// accumulators (at most MAX_ACC) in a per-thread array; the type dispatch
-// is a direct index c[ti][tj] into the carrier coefficients, which sit in
-// shared memory with the MLP weights (~15 KB f32, ~30 KB f64).  Masked
-// slots and pairs at or beyond the cutoff (where every basis function and
-// its derivative vanish) are skipped.  The per-thread accumulator array
-// lives in local memory (runtime-indexed), so this first version pays L1/L2
-// traffic for it; the ragged edge n % BLOCK is masked by the bounds check.
+// Per atom both bodies sum, over the pairs inside the cutoff, the 182
+// accumulators (at most MAX_ACC): rad_a = sum g_a, ang_a,c = sum g_a
+// mono_c(rhat), and the spin sums of g_a times S_i.S_j, DMI, pseudo-dipolar,
+// S_j and rhat, where g_a = sum_k c[ti][tj][a][k] f_k(r) are the carriers.
+// Then finalize (q), the MLP (e) and its backward (dq = dE/dq), and the
+// adjoints through finalize.  Masked slots and pairs at or beyond the cutoff
+// (where every basis function vanishes) add nothing.  Two bodies:
+//
+// * atom_pass_warp_kernel (nep_atom_pass_warp_*): one warp per atom,
+//   templated on the spec's sizes (nep_common.cuh: Sizes, the list K2's
+//   warp body reads), so every loop over them unrolls; kernel.py:
+//   atom_pass_body picks it for the specs of configs/fege_spinlattice.py.
+//   As in K2, the lanes read the atom's M slots side by side (coalesced)
+//   and a ballot over mask & (r < rc) packs the live slots into a list;
+//   each lane then takes one live pair and forms, in registers, its basis
+//   (sincospi: no local-memory table), its 14 carriers g, its 35
+//   monomials and its spin terms, and writes these 59 factors as one row
+//   of a per-warp record in shared memory (odd row stride: the lanes'
+//   stores hit 32 banks).  The 182 sums are then transposed onto the
+//   lanes: lane j owns accumulators j, j + 32, ... (6 of them), knows each
+//   one's two factors' positions in a row, and adds their products over
+//   the round's pairs in registers, in pair order - no local memory, no
+//   atomics, the same result every run.  (The other way, each lane holding
+//   its own pair's 182 products and the warp summing them with shuffle
+//   butterflies, costs 182 x 5 shuffles per round against ~12 shared
+//   loads per pair per lane here.)  Finalize and the MLP run across the
+//   lanes: q (49 features) in shared memory read as broadcasts; one hidden
+//   unit per lane (hidden = 32) with W1 staged at an odd row stride (33),
+//   so the backward dq_d = sum_h W1[d][h] hb_h, with lanes over d, is free
+//   of bank conflicts; the energy is a shuffle sum.  Each lane then forms
+//   the adjoints of the accumulators it owns, and the warp writes the
+//   182-float row to consecutive words.  It runs at ~13 % of the bytes
+//   bound above; how its time splits between the record's shared-memory
+//   traffic, the per-pair arithmetic and latency is not measured apart.
+// * atom_pass_kernel (nep_atom_pass_*, the first body): one thread per atom
+//   with run-time loop bounds; it keeps the accumulators, q and dq in
+//   per-thread arrays, which live in local memory (2,320 bytes of stack at
+//   the production spec, f32), and its slot reads are 768 bytes apart
+//   across a warp.  It serves every other spec within the bounds of
+//   nep_common.cuh; the carriers and MLP weights sit in shared memory
+//   (~15 KB f32, ~30 KB f64), the type dispatch is a direct index
+//   c[ti][tj], and the ragged edge n % BLOCK is masked by the bounds check.
 #include "nep_common.cuh"
 
 namespace nep {
@@ -269,9 +303,413 @@ int launch_atom_pass(const void* dr, const void* mask, const void* ti,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// One warp per atom, templated on the spec
+// ---------------------------------------------------------------------------
+constexpr int AWARPS = 4;          // atoms in flight per block
+constexpr int AGRID_MAX = 2048;    // blocks; warps stride over the atoms
+// Blocks per SM: ~52 KB of shared memory each (f32 production) lets 4
+// share an SM, so 128 registers a thread cost no occupancy.  With only the
+// block size bounded, ptxas held the f32 production body to 72 registers
+// and spilled five per-lane constants (24 bytes of stack); build variants
+// timed on the card (8 and 2 warps a block, 2 blocks per SM) ran no faster.
+constexpr int AMIN_BLOCKS = 4;
+
+// One pair's row of the per-warp record: the factors whose products the
+// accumulators sum (ONE is the constant 1 of the radial sums).
+template <typename S>
+struct Rec {
+  static constexpr int ONE = 0, RAD = 1, ANG = RAD + S::NR,
+                       SPIN = ANG + S::NA, MONO = SPIN + S::NS,
+                       DOT = MONO + S::NM, DMI = DOT + 1, PD = DMI + 1,
+                       J = PD + 1, R = J + 3, W = R + 3;
+  static constexpr int LD = W | 1;             // odd row stride
+  static constexpr int T = (S::A + 31) / 32;   // accumulators per lane
+  static constexpr int NMP = (S::L + 1) * S::NA;   // mpow[p][a] values
+};
+
+// Accumulator k of the packed row sums rec[f1] * rec[f2] over the pairs;
+// k past the row gets (ONE, ONE) and is never written.
+template <typename S>
+__device__ __forceinline__ void acc_factors(int k, int& f1, int& f2) {
+  using R = Rec<S>;
+  constexpr int NS = S::NS;
+  f1 = f2 = R::ONE;
+  if (k < S::NR) {
+    f1 = R::RAD + k;
+    return;
+  }
+  if (k < S::O_DOT) {
+    int kk = k - S::NR;
+#pragma unroll
+    for (int p = 0; p <= S::L; ++p) {   // leaf ang{p}: [n_ang][C_p]
+      const int C = (p + 1) * (p + 2) / 2;
+      if (kk < S::NA * C) {
+        f1 = R::ANG + kk / C;
+        f2 = R::MONO + n_mono(p - 1) + kk % C;
+        return;
+      }
+      kk -= S::NA * C;
+    }
+  }
+  int o = k - S::O_DOT;
+  if (o < 3 * NS) {                     // sp_dot, sp_dmi, sp_pd
+    f1 = R::SPIN + o % NS;
+    f2 = R::DOT + o / NS;
+  } else if (o < 6 * NS) {              // sp_v[a][d] = sum g_a S_j,d
+    o -= 3 * NS;
+    f1 = R::SPIN + o / 3;
+    f2 = R::J + o % 3;
+  } else if (o < 9 * NS) {              // sp_w[a][d] = sum g_a rhat_d
+    o -= 6 * NS;
+    f1 = R::SPIN + o / 3;
+    f2 = R::R + o % 3;
+  }
+}
+
+// out[a] = sum_k c[a][k] f[k] for n channels of one type pair's carriers
+template <typename T, int N, int K>
+__device__ __forceinline__ void carrier_sum(const T* c, const T (&f)[K],
+                                            T* out) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    T r[K];
+    load_row<T, K>(c + a * K, r);
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) s += r[k] * f[k];
+    out[a] = s;
+  }
+}
+
+// One live pair's row of the record (in shared memory at ``rec``).
+template <typename S, typename T>
+__device__ __forceinline__ void pair_record(T dx, T dy, T dz, T rc, int pt,
+                                            const T* sc, T s0, T s1, T s2,
+                                            T j0, T j1, T j2, T* rec) {
+  using R = Rec<S>;
+  constexpr int K = S::K;
+  const T r = dsqrt(dx * dx + dy * dy + dz * dz + dist_eps<T>());
+  const T inv = T(1) / r;
+  const T rx = dx * inv, ry = dy * inv, rz = dz * inv;
+  T fk[K];
+  chebyshev<T, true>(r, rc, K, fk, nullptr);
+  rec[R::ONE] = T(1);
+  carrier_sum<T, S::NR, K>(sc + pt * S::NR * K, fk, rec + R::RAD);
+  carrier_sum<T, S::NA, K>(sc + S::C_ANG + pt * S::NA * K, fk, rec + R::ANG);
+  carrier_sum<T, S::NS, K>(sc + S::C_SPIN + pt * S::NS * K, fk,
+                           rec + R::SPIN);
+  T px[MAX_L + 1], py[MAX_L + 1], pz[MAX_L + 1];
+  powers(rx, px);
+  powers(ry, py);
+  powers(rz, pz);
+#pragma unroll
+  for (int g = 0; g < S::NM; ++g)
+    rec[R::MONO + g] = px[mono_exp(g, 0)] * py[mono_exp(g, 1)] *
+                       pz[mono_exp(g, 2)];
+  const T cx = s1 * j2 - s2 * j1, cy = s2 * j0 - s0 * j2,
+          cz = s0 * j1 - s1 * j0;
+  rec[R::DOT] = s0 * j0 + s1 * j1 + s2 * j2;
+  rec[R::DMI] = cx * rx + cy * ry + cz * rz;
+  rec[R::PD] = (s0 * rx + s1 * ry + s2 * rz) * (j0 * rx + j1 * ry + j2 * rz);
+  rec[R::J] = j0;
+  rec[R::J + 1] = j1;
+  rec[R::J + 2] = j2;
+  rec[R::R] = rx;
+  rec[R::R + 1] = ry;
+  rec[R::R + 2] = rz;
+}
+
+// shared memory in T: block-wide carriers, MLP weights and q_scale ...
+template <typename S>
+__host__ __device__ constexpr int atom_shared_count() {
+  return round4(S::NC) + S::NT * S::D * (S::H | 1) + 2 * S::NT * S::H +
+         S::NT + S::D;
+}
+// ... and per warp the record, acc, q, dq, hb and mpow
+template <typename S>
+__host__ __device__ constexpr int atom_warp_count() {
+  using R = Rec<S>;
+  return 32 * R::LD + S::A + 2 * S::D + S::H + R::NMP;
+}
+
+template <typename S, typename T>
+__global__ void __launch_bounds__(32 * AWARPS, AMIN_BLOCKS)
+atom_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
+                      const int* __restrict__ ti, const int* __restrict__ tj,
+                      const T* __restrict__ si, const T* __restrict__ sj,
+                      const T* __restrict__ c_rad, const T* __restrict__ c_ang,
+                      const T* __restrict__ c_spin, const T* __restrict__ w1,
+                      const T* __restrict__ b1, const T* __restrict__ w2,
+                      const T* __restrict__ b2,
+                      const T* __restrict__ q_scale, T* __restrict__ e_out,
+                      T* __restrict__ hdir_out, T* __restrict__ abar_out,
+                      int n, int m, T rc) {
+  static_assert(S::NS > 0, "the warp body is compiled for spin specs");
+  using R = Rec<S>;
+  constexpr int A = S::A, D = S::D, H = S::H, NT = S::NT, NS = S::NS,
+                NA = S::NA, LDH = H | 1, NMP = R::NMP;
+  static_assert(NMP <= 32, "one lane per mpow[p][a]");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sc = reinterpret_cast<T*>(smem_raw);       // carriers
+  T* s_w1 = sc + round4(S::NC);                 // NT x D x LDH
+  T* s_b1 = s_w1 + NT * D * LDH;                // NT x H
+  T* s_w2 = s_b1 + NT * H;                      // NT x H
+  T* s_b2 = s_w2 + NT * H;                      // NT
+  T* s_qs = s_b2 + NT;                          // D
+  T* s_warps = sc + atom_shared_count<S>();     // AWARPS x atom_warp_count
+  int* s_list = reinterpret_cast<int*>(s_warps + AWARPS * atom_warp_count<S>());
+  stage(sc, c_rad, NT * NT * S::NR * S::K);
+  stage(sc + S::C_ANG, c_ang, NT * NT * NA * S::K);
+  stage(sc + S::C_SPIN, c_spin, NT * NT * NS * S::K);
+  for (int t = threadIdx.x; t < NT * D * H; t += blockDim.x)
+    s_w1[(t / H) * LDH + t % H] = w1[t];
+  stage(s_b1, b1, NT * H);
+  stage(s_w2, w2, NT * H);
+  stage(s_b2, b2, NT);
+  stage(s_qs, q_scale, D);
+  __syncthreads();
+
+  const unsigned full = 0xffffffffu;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* rec = s_warps + warp * atom_warp_count<S>();   // 32 x LD
+  T* acc_s = rec + 32 * R::LD;                      // A
+  T* q_s = acc_s + A;                               // D: q / q_scale
+  T* dq_s = q_s + D;                                // D
+  T* hb_s = dq_s + D;                               // H: dE/dz_h
+  T* mp_s = hb_s + H;                               // mpow, then dE/dmpow
+  int* list = s_list + warp * m;
+  int f1[R::T], f2[R::T];
+#pragma unroll
+  for (int t = 0; t < R::T; ++t) acc_factors<S>(lane + 32 * t, f1[t], f2[t]);
+  const int ofs = S::NR + NA * S::L + S::NO;   // sp_dot features in q
+
+  for (int i = blockIdx.x * AWARPS + warp; i < n; i += gridDim.x * AWARPS) {
+    // live slots, in slot order
+    int live = 0;
+    for (int s0 = 0; s0 < m; s0 += 32) {
+      const int s = s0 + lane;
+      bool ok = false;
+      if (s < m) {
+        const size_t pm = (size_t)i * m + s;
+        if (mask[pm]) {
+          const T dx = dr[3 * pm], dy = dr[3 * pm + 1], dz = dr[3 * pm + 2];
+          ok = dsqrt(dx * dx + dy * dy + dz * dz + dist_eps<T>()) < rc;
+        }
+      }
+      const unsigned b = __ballot_sync(full, ok);
+      if (ok) list[live + __popc(b & ((1u << lane) - 1u))] = s;
+      live += __popc(b);
+    }
+    __syncwarp();
+
+    const int ta = ti[i];
+    const T s0 = si[3 * i], s1 = si[3 * i + 1], s2 = si[3 * i + 2];
+    T acc[R::T];
+#pragma unroll
+    for (int t = 0; t < R::T; ++t) acc[t] = T(0);
+    for (int t0 = 0; t0 < live; t0 += 32) {
+      const int cnt = min(32, live - t0);
+      if (lane < cnt) {
+        const size_t pm = (size_t)i * m + list[t0 + lane];
+        pair_record<S, T>(dr[3 * pm], dr[3 * pm + 1], dr[3 * pm + 2], rc,
+                          ta * NT + tj[pm], sc, s0, s1, s2, sj[3 * pm],
+                          sj[3 * pm + 1], sj[3 * pm + 2], rec + lane * R::LD);
+      }
+      __syncwarp();
+      // the transpose: this lane's accumulators over the round's pairs
+      for (int p = 0; p < cnt; ++p) {
+        const T* rp = rec + p * R::LD;
+#pragma unroll
+        for (int t = 0; t < R::T; ++t) acc[t] += rp[f1[t]] * rp[f2[t]];
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int t = 0; t < R::T; ++t)
+      if (lane + 32 * t < A) acc_s[lane + 32 * t] = acc[t];
+    __syncwarp();
+
+    // ---- finalize: mpow[p][a] = sum_c w_c ang[a][c]^2, then q ----------
+    if (lane < NMP) {
+      const int p = lane / NA, a = lane % NA;
+      const int C = (p + 1) * (p + 2) / 2, g0 = n_mono(p - 1);
+      const T* ang = acc_s + S::NR + NA * g0 + a * C;
+      T v = T(0);
+      for (int c = 0; c < C; ++c) v += T(MONO_W[g0 + c]) * ang[c] * ang[c];
+      mp_s[lane] = v;
+    }
+    __syncwarp();
+    const T smag = dsqrt(s0 * s0 + s1 * s1 + s2 * s2 + T(1e-30));
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 32) {
+      const int d = d0 + lane;
+      if (d >= D) continue;
+      T q;
+      if (d < S::NR) {
+        q = acc_s[d];
+      } else if (d < S::NR + NA * S::L) {
+        const int l = (d - S::NR) / NA + 1, a = (d - S::NR) % NA;
+        q = T(0);
+        for (int p = 0; p <= l; ++p) q += T(LEG[l][p]) * mp_s[p * NA + a];
+      } else if (d < ofs) {                      // |S|^(k+1)
+        q = smag;
+        for (int k = S::NR + NA * S::L; k < d; ++k) q *= smag;
+      } else {
+        const int o = d - ofs, grp = o / NS, a = o % NS;
+        const T* sv = acc_s + S::O_DOT + 3 * NS + 3 * a;
+        const T* sw = sv + 3 * NS;
+        if (grp < 3)
+          q = acc_s[S::O_DOT + o];               // sp_dot, sp_dmi, sp_pd
+        else if (grp == 3)
+          q = sv[0] * sv[0] + sv[1] * sv[1] + sv[2] * sv[2];
+        else if (grp == 4)
+          q = sv[0] * s0 + sv[1] * s1 + sv[2] * s2;
+        else
+          q = sw[0] * sv[0] + sw[1] * sv[1] + sw[2] * sv[2];
+      }
+      q_s[d] = q / s_qs[d];
+    }
+    __syncwarp();
+
+    // ---- MLP: one hidden unit per lane, then dq with lanes over d -------
+    const T* W1 = s_w1 + ta * D * LDH;
+    T epart = T(0);
+#pragma unroll
+    for (int h0 = 0; h0 < H; h0 += 32) {
+      const int h = h0 + lane;
+      if (h < H) {
+        T z = T(0);
+#pragma unroll
+        for (int d = 0; d < D; ++d) z += q_s[d] * W1[d * LDH + h];
+        const T th = dtanh(z + s_b1[ta * H + h]);
+        const T wv = s_w2[ta * H + h];
+        epart += th * wv;
+        hb_s[h] = wv * (T(1) - th * th);           // dE/dz_h
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      epart += __shfl_xor_sync(full, epart, off);
+    __syncwarp();
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 32) {
+      const int d = d0 + lane;
+      if (d >= D) continue;
+      T v = T(0);
+#pragma unroll
+      for (int h = 0; h < H; ++h) v += W1[d * LDH + h] * hb_s[h];
+      dq_s[d] = v / s_qs[d];
+    }
+    __syncwarp();
+    if (lane < NMP) {        // dE/d mpow[p][a] = sum_l LEG[l][p] dq_l[a]
+      const int p = lane / NA, a = lane % NA;
+      T v = T(0);
+      for (int l = (p > 1 ? p : 1); l <= S::L; ++l)
+        v += T(LEG[l][p]) * dq_s[S::NR + (l - 1) * NA + a];
+      mp_s[lane] = v;
+    }
+    __syncwarp();
+
+    // ---- adjoints of this lane's accumulators, one coalesced row --------
+    T* out = abar_out + (size_t)i * A;
+#pragma unroll
+    for (int t = 0; t < R::T; ++t) {
+      const int k = lane + 32 * t;
+      if (k >= A) continue;
+      T v;
+      if (k < S::NR) {
+        v = dq_s[k];
+      } else if (k < S::O_DOT) {
+        const int a = f1[t] - R::ANG, g = f2[t] - R::MONO;
+        const int p = g < 1 ? 0 : g < 4 ? 1 : g < 10 ? 2 : g < 20 ? 3 : 4;
+        v = mp_s[p * NA + a] * T(2) * T(MONO_W[g]) * acc[t];
+      } else if (k < S::O_DOT + 3 * NS) {
+        v = dq_s[ofs + k - S::O_DOT];
+      } else {
+        const int a = f1[t] - R::SPIN;
+        const T dwv = dq_s[ofs + 5 * NS + a];
+        if (k < S::O_DOT + 6 * NS) {           // sp_v[a][dd]
+          const int dd = f2[t] - R::J;
+          const T sd = dd == 0 ? s0 : dd == 1 ? s1 : s2;
+          const T sw = acc_s[k + 3 * NS];
+          v = T(2) * acc[t] * dq_s[ofs + 3 * NS + a] +
+              sd * dq_s[ofs + 4 * NS + a] + sw * dwv;
+        } else {                               // sp_w[a][dd]
+          v = acc_s[k - 3 * NS] * dwv;
+        }
+      }
+      out[k] = v;
+    }
+    // direct field -dE_i/dS_i at fixed accumulators: lane d, component d
+    if (lane < 3) {
+      T dsmag = T(0), pw = T(1);
+#pragma unroll
+      for (int k = 0; k < S::NO; ++k) {
+        dsmag += T(k + 1) * pw * dq_s[S::NR + NA * S::L + k];
+        pw *= smag;
+      }
+      T vs = T(0);
+#pragma unroll
+      for (int a = 0; a < NS; ++a)
+        vs += acc_s[S::O_DOT + 3 * NS + 3 * a + lane] *
+              dq_s[ofs + 4 * NS + a];
+      const T sd = lane == 0 ? s0 : lane == 1 ? s1 : s2;
+      hdir_out[3 * i + lane] = -((dsmag / smag) * sd + vs);
+    }
+    if (lane == 0) e_out[i] = s_b2[ta] + epart;
+    __syncwarp();
+  }
+}
+
+template <typename S, typename T>
+int launch_atom_warp(const void* dr, const void* mask, const void* ti,
+                     const void* tj, const void* si, const void* sj,
+                     const void* c_rad, const void* c_ang, const void* c_spin,
+                     const void* w1, const void* b1, const void* w2,
+                     const void* b2, const void* q_scale, void* e, void* hdir,
+                     void* abar, int n, int m, double cutoff, void* stream) {
+  const size_t smem =
+      sizeof(T) * (atom_shared_count<S>() + AWARPS * atom_warp_count<S>()) +
+      sizeof(int) * AWARPS * m;
+  auto* kern = atom_pass_warp_kernel<S, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min((n + AWARPS - 1) / AWARPS, AGRID_MAX);
+  kern<<<grid, 32 * AWARPS, smem, (cudaStream_t)stream>>>(
+      (const T*)dr, (const bool*)mask, (const int*)ti, (const int*)tj,
+      (const T*)si, (const T*)sj, (const T*)c_rad, (const T*)c_ang,
+      (const T*)c_spin, (const T*)w1, (const T*)b1, (const T*)w2,
+      (const T*)b2, (const T*)q_scale, (T*)e, (T*)hdir, (T*)abar, n, m,
+      T(cutoff));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
+                          const void* tj, const void* si, const void* sj,
+                          const void* c_rad, const void* c_ang,
+                          const void* c_spin, const void* w1, const void* b1,
+                          const void* w2, const void* b2,
+                          const void* q_scale, void* e, void* hdir,
+                          void* abar, int n, int m, Spec sp, void* stream) {
+  if (is_atom<ProdSizes>(sp))
+    return launch_atom_warp<ProdSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
+                                          c_ang, c_spin, w1, b1, w2, b2,
+                                          q_scale, e, hdir, abar, n, m,
+                                          sp.cutoff, stream);
+  if (is_atom<SmokeSizes>(sp))
+    return launch_atom_warp<SmokeSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
+                                           c_ang, c_spin, w1, b1, w2, b2,
+                                           q_scale, e, hdir, abar, n, m,
+                                           sp.cutoff, stream);
+  return (int)cudaErrorInvalidValue;   // no instantiation for this spec
+}
+
 }  // namespace nep
 
-#define NEP_ATOM_PASS_ENTRY(NAME, T)                                          \
+#define NEP_ATOM_PASS_ENTRY(NAME, T, LAUNCH)                                  \
   extern "C" int NAME(const void* dr, const void* mask, const void* ti,      \
                       const void* tj, const void* si, const void* sj,        \
                       const void* c_rad, const void* c_ang,                  \
@@ -283,10 +721,12 @@ int launch_atom_pass(const void* dr, const void* mask, const void* ti,
                       double cutoff, void* stream) {                         \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,  \
                  spin, cutoff};                                              \
-    return nep::launch_atom_pass<T>(dr, mask, ti, tj, si, sj, c_rad, c_ang,  \
-                                    c_spin, w1, b1, w2, b2, q_scale, e,      \
-                                    hdir, abar, n, m, sp, stream);           \
+    return nep::LAUNCH<T>(dr, mask, ti, tj, si, sj, c_rad, c_ang, c_spin,    \
+                          w1, b1, w2, b2, q_scale, e, hdir, abar, n, m, sp,  \
+                          stream);                                           \
   }
 
-NEP_ATOM_PASS_ENTRY(nep_atom_pass_f32, float)
-NEP_ATOM_PASS_ENTRY(nep_atom_pass_f64, double)
+NEP_ATOM_PASS_ENTRY(nep_atom_pass_f32, float, launch_atom_pass)
+NEP_ATOM_PASS_ENTRY(nep_atom_pass_f64, double, launch_atom_pass)
+NEP_ATOM_PASS_ENTRY(nep_atom_pass_warp_f32, float, launch_atom_pass_warp)
+NEP_ATOM_PASS_ENTRY(nep_atom_pass_warp_f64, double, launch_atom_pass_warp)

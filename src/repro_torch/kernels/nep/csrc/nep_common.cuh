@@ -26,7 +26,7 @@ constexpr int MAX_ONSITE = 4;
 constexpr int N_MONO = 35;       // monomials of degree 0..4
 constexpr int MAX_DESC = MAX_CH + MAX_CH * MAX_L + MAX_ONSITE + 6 * MAX_CH;
 constexpr int MAX_ACC = MAX_CH + MAX_CH * N_MONO + 9 * MAX_CH;
-constexpr int BLOCK = 128;       // threads per block, one atom per thread
+constexpr int BLOCK = 128;       // threads per block of a thread-per-atom body
 
 struct Spec {
   int n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden, spin;
@@ -151,6 +151,68 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int count) {
 
 __host__ __device__ constexpr int n_mono(int l_max) {
   return (l_max + 1) * (l_max + 2) * (l_max + 3) / 6;
+}
+
+// The specs with a compiled warp-per-atom body in K1 and K2 (kernel.py:
+// WARP_SPECS), as compile-time sizes, so every loop over them unrolls.
+template <int NT_, int K_, int NR_, int NA_, int L_, int NS_, int H_, int NO_>
+struct Sizes {
+  static constexpr int NT = NT_, K = K_, NR = NR_, NA = NA_, L = L_,
+                       NS = NS_, H = H_, NO = NO_;
+  static constexpr int NM = n_mono(L);
+  static constexpr int O_DOT = NR + NA * NM;       // spin leaves start here
+  static constexpr int A = O_DOT + 9 * NS;         // adjoint row width
+  static constexpr int LDA = A | 1;                // odd: no bank conflicts
+  static constexpr int D = NR + NA * L + NO + 6 * NS;   // descriptor width
+  static constexpr int C_ANG = NT * NT * NR * K;   // carrier blocks in s_c
+  static constexpr int C_SPIN = C_ANG + NT * NT * NA * K;
+  static constexpr int NC = C_SPIN + NT * NT * NS * K;
+};
+// (n_types, basis_size, n_rad, n_ang, l_max, n_spin, hidden, n_onsite)
+using ProdSizes = Sizes<2, 8, 6, 4, 4, 4, 32, 3>;    // fege_spinlattice config()
+using SmokeSizes = Sizes<2, 6, 4, 2, 2, 2, 16, 3>;   // fege_spinlattice smoke_config()
+
+// K2's warp body reads the carriers only: the sizes up to n_spin decide.
+template <typename S>
+bool is(const Spec& sp) {
+  return sp.n_types == S::NT && sp.K == S::K && sp.n_rad == S::NR &&
+         sp.n_ang == S::NA && sp.l_max == S::L && sp.n_spin == S::NS &&
+         sp.spin;
+}
+
+// K1's warp body also runs the MLP and the onsite features.
+template <typename S>
+bool is_atom(const Spec& sp) {
+  return is<S>(sp) && sp.hidden == S::H && sp.n_onsite == S::NO;
+}
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+
+// row[0..K) from shared memory, 16 or 8 bytes per load where aligned
+template <typename T, int K>
+__device__ __forceinline__ void load_row(const T* p, T (&c)[K]) {
+  if constexpr ((K * sizeof(T)) % 16 == 0 && sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y; c[k + 2] = v.z; c[k + 3] = v.w;
+    }
+  } else if constexpr ((K * sizeof(T)) % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const double2 v = *reinterpret_cast<const double2*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y;
+    }
+  } else if constexpr ((K * sizeof(T)) % 8 == 0 && sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + k);
+      c[k] = v.x; c[k + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) c[k] = p[k];
+  }
 }
 
 }  // namespace nep

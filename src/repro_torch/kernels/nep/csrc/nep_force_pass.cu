@@ -28,9 +28,11 @@
 // at or beyond the cutoff add nothing.  Two bodies:
 //
 // * force_pass_warp_kernel (nep_force_pass_warp_*): one warp per atom,
-//   templated on the spec's sizes (types, K, n_rad, n_ang, l_max, n_spin),
-//   so every loop over them unrolls and the per-pair state (basis, its
-//   derivative, coef, monomials and their B sums, the carriers' g sums)
+//   templated on the spec's sizes (nep_common.cuh: Sizes, the list K1's
+//   warp body reads; K2 matches a spec on types, K, n_rad, n_ang, l_max
+//   and n_spin), so every loop over them unrolls and the per-pair state
+//   (basis, its derivative, coef, monomials and their B sums, the carriers'
+//   g sums)
 //   lives in registers, with the monomial exponents as immediates.
 //   Instantiated for the production spec (configs/fege_spinlattice.py:
 //   config()) and the smoke spec (smoke_config()); kernel.py:
@@ -257,48 +259,6 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
 // ---------------------------------------------------------------------------
 constexpr int WARPS = 4;           // atoms in flight per block
 constexpr int WGRID_MAX = 8192;    // blocks; warps stride over the atoms
-
-template <int NT_, int K_, int NR_, int NA_, int L_, int NS_>
-struct Sizes {
-  static constexpr int NT = NT_, K = K_, NR = NR_, NA = NA_, L = L_,
-                       NS = NS_;
-  static constexpr int NM = n_mono(L);
-  static constexpr int O_DOT = NR + NA * NM;       // spin leaves start here
-  static constexpr int A = O_DOT + 9 * NS;         // adjoint row width
-  static constexpr int LDA = A | 1;                // odd: no bank conflicts
-  static constexpr int C_ANG = NT * NT * NR * K;   // carrier blocks in s_c
-  static constexpr int C_SPIN = C_ANG + NT * NT * NA * K;
-  static constexpr int NC = C_SPIN + NT * NT * NS * K;
-};
-using ProdSizes = Sizes<2, 8, 6, 4, 4, 4>;    // fege_spinlattice config()
-using SmokeSizes = Sizes<2, 6, 4, 2, 2, 2>;   // fege_spinlattice smoke_config()
-
-// row[0..K) from shared memory, 16 or 8 bytes per load where aligned
-template <typename T, int K>
-__device__ __forceinline__ void load_row(const T* p, T (&c)[K]) {
-  if constexpr ((K * sizeof(T)) % 16 == 0 && sizeof(T) == 4) {
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + k);
-      c[k] = v.x; c[k + 1] = v.y; c[k + 2] = v.z; c[k + 3] = v.w;
-    }
-  } else if constexpr ((K * sizeof(T)) % 16 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 2) {
-      const double2 v = *reinterpret_cast<const double2*>(p + k);
-      c[k] = v.x; c[k + 1] = v.y;
-    }
-  } else if constexpr ((K * sizeof(T)) % 8 == 0 && sizeof(T) == 4) {
-#pragma unroll
-    for (int k = 0; k < K; k += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(p + k);
-      c[k] = v.x; c[k + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) c[k] = p[k];
-  }
-}
 
 // g[a] = sum_k c[a][k] f[k] for both halves' carriers of n channels
 template <typename T, int N, int K>
@@ -602,13 +562,6 @@ int launch_warp(const void* dr, const void* mask, const void* idx,
       (const T*)c_ang, (const T*)c_spin, (const T*)abar, (T*)f, (T*)h, n, m,
       T(cutoff));
   return (int)cudaGetLastError();
-}
-
-template <typename S>
-bool is(const Spec& sp) {
-  return sp.n_types == S::NT && sp.K == S::K && sp.n_rad == S::NR &&
-         sp.n_ang == S::NA && sp.l_max == S::L && sp.n_spin == S::NS &&
-         sp.spin;
 }
 
 template <typename T>

@@ -9,10 +9,12 @@ device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, raises if the launch reports a CUDA error, and counts its
 launches in a plain integer attribute (``nep_atom_pass.launches``).
 
-K2 has two bodies: ``"warp"`` (one warp per atom, compiled for the specs of
-``WARP_SPECS``) and ``"thread"`` (one thread per atom, any spec within
-``SPEC_BOUNDS``).  :func:`force_pass_body` picks one from the spec;
-``nep_force_pass.body_launches`` counts the launches of each.
+Each kernel has two bodies: ``"warp"`` (one warp per atom, compiled for
+the specs of ``WARP_SPECS``) and ``"thread"`` (one thread per atom, any spec
+within ``SPEC_BOUNDS``).  :func:`atom_pass_body` and :func:`force_pass_body`
+pick one from the spec, never from a failed build or launch;
+``nep_atom_pass.body_launches`` and ``nep_force_pass.body_launches`` count
+the launches of each.
 """
 from __future__ import annotations
 
@@ -29,11 +31,12 @@ from repro_torch.kernels.nep.ref import atom_pass_plain, force_pass_plain
 # compile-time maxima of csrc/nep_common.cuh
 SPEC_BOUNDS = {"n_types": 4, "n_rad": 8, "n_ang": 8, "n_spin": 8,
                "l_max": 4, "basis_size": 16, "hidden": 64, "n_onsite": 4}
-# specs with a compiled warp-per-atom K2 body (csrc/nep_force_pass.cu:
-# ProdSizes, SmokeSizes): (n_types, basis_size, n_rad, n_ang, l_max, n_spin)
-# of configs/fege_spinlattice.py config() and smoke_config(), with spin
-WARP_SPECS = ((2, 8, 6, 4, 4, 4), (2, 6, 4, 2, 2, 2))
-FORCE_PASS_BODIES = ("warp", "thread")
+# specs with compiled warp-per-atom bodies (csrc/nep_common.cuh: ProdSizes,
+# SmokeSizes): (n_types, basis_size, n_rad, n_ang, l_max, n_spin, hidden,
+# n_onsite) of configs/fege_spinlattice.py config() and smoke_config(), with
+# spin.  K2 reads no MLP, so its body matches on the first six fields.
+WARP_SPECS = ((2, 8, 6, 4, 4, 4, 32, 3), (2, 6, 4, 2, 2, 2, 16, 3))
+BODIES = ("warp", "thread")
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SPEC_ARGS = [_I] * 9 + [_D, _P]     # n_types..spin, cutoff, stream
@@ -54,12 +57,31 @@ def check_spec(spec: NEPSpinSpec) -> None:
                              f"got {v}")
 
 
-def force_pass_body(spec: NEPSpinSpec) -> str:
-    """K2's body for ``spec``: ``"warp"`` where one is compiled for it,
+def _sizes(spec: NEPSpinSpec) -> tuple:
+    return (spec.n_types, spec.basis_size, spec.n_rad, spec.n_ang,
+            spec.l_max, spec.n_spin, spec.hidden, spec.n_onsite)
+
+
+def atom_pass_body(spec: NEPSpinSpec) -> str:
+    """K1's body for ``spec``: ``"warp"`` where one is compiled for it,
     else ``"thread"``."""
-    sizes = (spec.n_types, spec.basis_size, spec.n_rad, spec.n_ang,
-             spec.l_max, spec.n_spin)
-    return "warp" if spec.spin and sizes in WARP_SPECS else "thread"
+    return "warp" if spec.spin and _sizes(spec) in WARP_SPECS else "thread"
+
+
+def force_pass_body(spec: NEPSpinSpec) -> str:
+    """K2's body for ``spec``: ``"warp"`` where one is compiled for its
+    carrier sizes, else ``"thread"``."""
+    compiled = {w[:6] for w in WARP_SPECS}
+    return "warp" if spec.spin and _sizes(spec)[:6] in compiled else "thread"
+
+
+def _pick(name: str, body: str | None, chosen: str) -> str:
+    """``body`` (default ``chosen``), raising for one not compiled."""
+    body = chosen if body is None else body
+    if body not in BODIES or (body == "warp" and chosen != "warp"):
+        raise ValueError(f"{name} has no {body!r} body for this spec; "
+                         f"WARP_SPECS = {WARP_SPECS}")
+    return body
 
 
 def _entry(name: str, dtype, suffix: str = ""):
@@ -120,12 +142,17 @@ def _raise_on(name: str, rc: int) -> None:
 
 
 def nep_atom_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti, tj,
-                  si, sj):
+                  si, sj, *, body: str | None = None):
     """K1: ``(e (N,), hdir (N,3), abar (N, A))``.
 
     dr (N,M,3), mask (N,M) bool, ti (N,) / tj (N,M) int32, si (N,3),
     sj (N,M,3).  ``hdir = -dE_i/dS_i`` at fixed accumulators; ``abar`` is
-    the packed dE_i/dA_i (:mod:`repro_torch.kernels.nep.layout`)."""
+    the packed dE_i/dA_i (:mod:`repro_torch.kernels.nep.layout`).  ``body``
+    defaults to :func:`atom_pass_body`; ``"thread"`` runs the
+    thread-per-atom body for any spec, ``"warp"`` raises for a spec it was
+    not compiled for (on any device: a CPU tensor runs the plain version
+    whatever the body)."""
+    body = _pick("K1", body, atom_pass_body(spec))
     if dr.device.type == "cpu":
         return atom_pass_plain(spec, params, dr, mask, ti, tj, si, sj)
     n, m = _check_common(spec, params, dr, mask, ti, tj, si, sj)
@@ -135,35 +162,34 @@ def nep_atom_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti, tj,
     if n == 0:
         return e, hdir, abar
     with torch.cuda.device(dr.device):
-        rc = _entry("nep_atom_pass", dr.dtype)(
+        rc = _entry("nep_atom_pass", dr.dtype,
+                    "_warp" if body == "warp" else "")(
             dr.data_ptr(), mask.data_ptr(), ti.data_ptr(), tj.data_ptr(),
             si.data_ptr(), sj.data_ptr(), *(p.data_ptr() for p in params),
             e.data_ptr(), hdir.data_ptr(), abar.data_ptr(), n, m,
             *_spec_args(spec, dr.device))
     _raise_on("nep_atom_pass", rc)
     nep_atom_pass.launches += 1
+    nep_atom_pass.body_launches[body] += 1
     return e, hdir, abar
 
 
 nep_atom_pass.launches = 0
+nep_atom_pass.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
                    ti, tj, si, sj, abar, *, body: str | None = None):
     """K2: ``(F (N,3), h2 (N,3))`` from K1's packed adjoints ``abar``
     (N, A), read through ``idx`` (N,M) int32 for each neighbor.  ``body``
-    (CUDA tensors only) defaults to :func:`force_pass_body`; ``"thread"``
-    runs the thread-per-atom body for any spec, ``"warp"`` raises for a
-    spec it was not compiled for."""
+    defaults to :func:`force_pass_body`; ``"thread"`` runs the
+    thread-per-atom body for any spec, ``"warp"`` raises for a spec it was
+    not compiled for (on any device)."""
+    body = _pick("K2", body, force_pass_body(spec))
     if dr.device.type == "cpu":
         return force_pass_plain(spec, params, dr, mask, idx, ti, tj, si, sj,
                                 abar)
     n, m = _check_common(spec, params, dr, mask, ti, tj, si, sj)
-    body = force_pass_body(spec) if body is None else body
-    if body not in FORCE_PASS_BODIES or (
-            body == "warp" and force_pass_body(spec) != "warp"):
-        raise ValueError(f"K2 has no {body!r} body for this spec; "
-                         f"WARP_SPECS = {WARP_SPECS}")
     _check("idx", idx, (n, m), torch.int32, dr.device)
     _check("abar", abar, (n, acc_width(spec)), dr.dtype, dr.device)
     f = torch.empty((n, 3), dtype=dr.dtype, device=dr.device)
@@ -185,4 +211,4 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
 
 
 nep_force_pass.launches = 0
-nep_force_pass.body_launches = dict.fromkeys(FORCE_PASS_BODIES, 0)
+nep_force_pass.body_launches = dict.fromkeys(BODIES, 0)

@@ -3,8 +3,13 @@ PyTorch version (port of ``repro.kernels.ssd.kernel.ssd_chunks``).
 
 ``ssd_chunks`` dispatches on the device of its tensors: a CPU tensor goes to
 ``ssd_chunks_plain``; a CUDA tensor launches ``csrc/ssd_chunks.cu`` on the
-current stream, or raises.  It counts its launches in
-``ssd_chunks.launches``.
+current stream, or raises.  The kernel has two bodies: ``"tc"`` (bf16 on
+the tensor cores, for the shapes and layouts of :func:`tc_takes`) and
+``"cuda_core"`` (f32 products on the CUDA cores, any f32 or bf16 input
+whose tile fits in shared memory).  :func:`ssd_body` picks one from the
+dtype, shape and layout, never from a failed build or launch.  It counts
+its launches in ``ssd_chunks.launches`` and, per body, in
+``ssd_chunks.body_launches``.
 
 Unlike the reference, both take B and C per group, (B, S, G, N): head h
 reads group h // (H/G), so nothing is repeated over heads.  x may be a
@@ -23,6 +28,8 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 7 + [_L] * 6 + [_P]
 SMEM_MAX = 232448
+BODIES = ("tc", "cuda_core")
+TC_MAX = 128          # the tensor-core body's bound on chunk, N and P
 
 
 def ssd_chunks_plain(x, dt, a, b, c, *, chunk: int):
@@ -52,8 +59,32 @@ def ssd_chunks_plain(x, dt, a, b, c, *, chunk: int):
             cum.reshape(bs, nc, L, h))
 
 
-def _entry(dtype):
-    fn = getattr(_build.load("ssd_chunks"), f"ssd_chunks_{_DTYPES[dtype]}")
+def tc_takes(chunk: int, p: int, n: int, pointers, strides) -> bool:
+    """Whether the tensor-core body takes these bf16 inputs: chunk % 16 == 0
+    up to 128, N % 8 == 0 and P % 8 == 0 up to 128, 16-byte
+    aligned base pointers (x, b, c) and batch / sequence strides that are
+    multiples of 8 elements (its 16-byte copies)."""
+    return (0 < chunk <= TC_MAX and chunk % 16 == 0
+            and 0 < n <= TC_MAX and n % 8 == 0
+            and 0 < p <= TC_MAX and p % 8 == 0
+            and all(ptr % 16 == 0 for ptr in pointers)
+            and all(st % 8 == 0 for st in strides))
+
+
+def ssd_body(x, b, c, chunk: int) -> str:
+    """The body for these inputs: ``"tc"`` for bf16 that
+    :func:`tc_takes`, else ``"cuda_core"``."""
+    ok = x.dtype == torch.bfloat16 and tc_takes(
+        chunk, x.shape[3], b.shape[3],
+        [t.data_ptr() for t in (x, b, c)],
+        [t.stride(i) for t in (x, b, c) for i in (0, 1)])
+    return "tc" if ok else "cuda_core"
+
+
+def _entry(dtype, body: str):
+    tag = "tc_" if body == "tc" else ""
+    fn = getattr(_build.load("ssd_chunks"),
+                 f"ssd_chunks_{tag}{_DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -66,7 +97,7 @@ def _smem_bytes(L: int, P: int, N: int) -> int:
     return 4 * (2 * np_ * lp + lp * pp + lp * lp + 2 * lp)
 
 
-def _check(x, dt, a, b, c, chunk):
+def _check(x, dt, a, b, c):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunks runs on CUDA or CPU tensors, got "
                          f"{x.device}")
@@ -96,21 +127,31 @@ def _check(x, dt, a, b, c, chunk):
         raise ValueError("x's (H, P) block must be contiguous")
     if g == 0 or h % g:
         raise ValueError(f"heads {h} must be a multiple of groups {g}")
-    if _smem_bytes(chunk, p, n) > SMEM_MAX:
-        raise ValueError(f"chunk {chunk}, P {p}, N {n} need more than "
-                         f"{SMEM_MAX} bytes of shared memory")
 
 
-def ssd_chunks(x, dt, a, b, c, *, chunk: int):
-    """The SSD chunk step (see ``ssd_chunks_plain`` for the contract)."""
+def ssd_chunks(x, dt, a, b, c, *, chunk: int, body: str | None = None):
+    """The SSD chunk step (see ``ssd_chunks_plain`` for the contract).
+    ``body`` defaults to :func:`ssd_body`; ``"cuda_core"`` runs the
+    CUDA-core body on any input it fits, ``"tc"`` raises for inputs the
+    tensor-core body does not take (on any device: a CPU tensor runs the
+    plain version whatever the body)."""
     if x.shape[1] % chunk:
         raise ValueError(f"sequence {x.shape[1]} is not a multiple of "
                          f"chunk {chunk}")
-    if x.device.type == "cpu":
-        return ssd_chunks_plain(x, dt, a, b, c, chunk=chunk)
-    _check(x, dt, a, b, c, chunk)
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
+    chosen = ssd_body(x, b, c, chunk)
+    body = chosen if body is None else body
+    if body not in BODIES or (body == "tc" and chosen != "tc"):
+        raise ValueError(f"ssd_chunks has no {body!r} body for {x.dtype}, "
+                         f"chunk {chunk}, P {p}, N {n} and this layout "
+                         "(see tc_takes)")
+    if x.device.type == "cpu":
+        return ssd_chunks_plain(x, dt, a, b, c, chunk=chunk)
+    _check(x, dt, a, b, c)
+    if body == "cuda_core" and _smem_bytes(chunk, p, n) > SMEM_MAX:
+        raise ValueError(f"chunk {chunk}, P {p}, N {n} need more than "
+                         f"{SMEM_MAX} bytes of shared memory")
     nc = s // chunk
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((bs, nc, chunk, h, p), **f32)
@@ -119,7 +160,7 @@ def ssd_chunks(x, dt, a, b, c, *, chunk: int):
     if y.numel() == 0:
         return y, st, cum
     with torch.cuda.device(x.device):
-        rc = _entry(x.dtype)(
+        rc = _entry(x.dtype, body)(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), st.data_ptr(), cum.data_ptr(),
             bs, nc, chunk, h, p, g, n, x.stride(0), x.stride(1),
@@ -129,7 +170,9 @@ def ssd_chunks(x, dt, a, b, c, *, chunk: int):
         raise RuntimeError(f"ssd_chunks kernel launch failed with CUDA "
                            f"error {rc}")
     ssd_chunks.launches += 1
+    ssd_chunks.body_launches[body] += 1
     return y, st, cum
 
 
 ssd_chunks.launches = 0
+ssd_chunks.body_launches = dict.fromkeys(BODIES, 0)

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 ARCH = "zamba2-2.7b"
-KINDS = (("ssd_chunks", ("ssd_chunk_kernel",)),
+KINDS = (("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
          ("flash_attention_fwd", ("flash_fwd",)),
          ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")))
 

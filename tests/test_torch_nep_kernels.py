@@ -279,25 +279,75 @@ def test_force_pass_body_choice(spec_kw, body):
     assert tkern.force_pass_body(NEPSpinSpec(**spec_kw)) == body
 
 
+SMOKE = dict(cutoff=5.0, basis_size=6, n_rad=4, n_ang=2, l_max=2, n_spin=2,
+             n_types=2, hidden=16)
+
+
+@pytest.mark.parametrize("spec_kw, body", [
+    (PRODUCTION, "warp"),
+    (SMOKE, "warp"),
+    (CASES[0][3], "thread"),
+    (CASES[2][3], "thread"),
+    (dict(PRODUCTION, spin=False), "thread"),
+    (dict(PRODUCTION, n_types=1), "thread"),
+    (dict(PRODUCTION, hidden=16), "thread"),
+    (dict(PRODUCTION, n_onsite=2), "thread"),
+])
+def test_atom_pass_body_choice(spec_kw, body):
+    """K1's warp body serves the specs it is compiled for, MLP width and
+    onsite features included; any other spec within SPEC_BOUNDS goes to
+    the thread-per-atom body."""
+    assert tkern.atom_pass_body(NEPSpinSpec(**spec_kw)) == body
+
+
 def test_force_pass_body_covers_the_fege_configs():
     from repro_torch.configs.fege_spinlattice import config, smoke_config
     for cfg in (config(), smoke_config()):
         assert tkern.force_pass_body(cfg.spec) == "warp"
-    assert set(tkern.nep_force_pass.body_launches) == set(
-        tkern.FORCE_PASS_BODIES)
+        assert tkern.atom_pass_body(cfg.spec) == "warp"
+    for fn in (tkern.nep_atom_pass, tkern.nep_force_pass):
+        assert set(fn.body_launches) == set(tkern.BODIES)
 
 
 def test_warp_specs_match_the_cuda_instantiations():
     """WARP_SPECS in kernel.py and the ``Sizes<...>`` instantiations of
-    csrc/nep_force_pass.cu name the same specs, in the same field order
-    (n_types, basis_size, n_rad, n_ang, l_max, n_spin)."""
+    csrc/nep_common.cuh name the same specs, in the same field order
+    (n_types, basis_size, n_rad, n_ang, l_max, n_spin, hidden, n_onsite),
+    and both K1's and K2's warp bodies dispatch on each of them."""
     import re
     from pathlib import Path
-    src = (Path(tkern.__file__).parent / "csrc" /
-           "nep_force_pass.cu").read_text()
-    sizes = re.findall(r"^using \w+Sizes = Sizes<([\d,\s]+)>;", src,
+    csrc = Path(tkern.__file__).parent / "csrc"
+    common = (csrc / "nep_common.cuh").read_text()
+    sizes = re.findall(r"^using \w+Sizes = Sizes<([\d,\s]+)>;", common,
                        flags=re.M)
     assert sorted(tuple(int(x) for x in s.split(",")) for s in sizes) == \
         sorted(tkern.WARP_SPECS)
-    for name in re.findall(r"^using (\w+Sizes) = Sizes<", src, flags=re.M):
-        assert f"is<{name}>(sp)" in src, name
+    k1 = (csrc / "nep_atom_pass.cu").read_text()
+    k2 = (csrc / "nep_force_pass.cu").read_text()
+    for name in re.findall(r"^using (\w+Sizes) = Sizes<", common, flags=re.M):
+        assert f"is<{name}>(sp)" in k2, name
+        assert f"is_atom<{name}>(sp)" in k1, name
+
+
+def test_wrappers_reject_a_warp_body_not_compiled():
+    """``body="warp"`` for a spec without a warp instantiation raises on
+    any device; ``"thread"`` takes it.  Case 0's spec shares K2's carrier
+    sizes with the smoke spec but not its MLP width, so only K1 refuses."""
+    for case, k1_ok, k2_ok in ((1, False, False), (0, False, True)):
+        c = _case(case)
+        blocks = _port_blocks(c)
+        abar = tkern.nep_atom_pass(c["spec"], c["params"], *blocks,
+                                   body="thread")[2]
+        k2_args = (c["spec"], c["params"], blocks[0], blocks[1],
+                   c["nbh"].idx, *blocks[2:], abar)
+        for fn, args, ok in ((tkern.nep_atom_pass, (c["spec"], c["params"],
+                                                     *blocks), k1_ok),
+                             (tkern.nep_force_pass, k2_args, k2_ok)):
+            fn(*args, body="thread")
+            if ok:
+                fn(*args, body="warp")
+            else:
+                with pytest.raises(ValueError, match="no 'warp' body"):
+                    fn(*args, body="warp")
+            with pytest.raises(ValueError, match="no 'block' body"):
+                fn(*args, body="block")

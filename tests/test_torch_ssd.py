@@ -125,3 +125,111 @@ def test_strided_views_match_contiguous():
                             c.contiguous(), chunk=chunk)
     for gt, wt in zip(got, want):
         torch.testing.assert_close(gt, wt, rtol=0, atol=0)
+
+
+ALIGNED = ([0, 4096, 8192], [8, 64])
+
+
+@pytest.mark.parametrize("chunk, p, n, layout, ok", [
+    (128, 64, 64, ALIGNED, True),      # Zamba2-2.7B
+    (128, 64, 128, ALIGNED, True),     # Mamba-2-2.7B
+    (16, 8, 16, ALIGNED, True),        # the sweeps' shapes
+    (16, 16, 8, ALIGNED, True),
+    (32, 8, 32, ALIGNED, True),
+    (64, 24, 40, ALIGNED, True),
+    (24, 64, 64, ALIGNED, False),      # chunk % 16
+    (256, 64, 64, ALIGNED, False),     # chunk > 128
+    (128, 64, 12, ALIGNED, False),     # N % 8
+    (128, 4, 64, ALIGNED, False),      # P % 8
+    (128, 64, 256, ALIGNED, False),    # N > 128
+    (128, 64, 64, ([0, 4104, 8192], [8, 64]), False),   # b 8 bytes off 16
+    (128, 64, 64, ([0, 4096, 8192], [8, 68]), False),   # stride % 8
+])
+def test_tc_takes(chunk, p, n, layout, ok):
+    """The shapes and layouts the tensor-core body takes."""
+    assert tkern.tc_takes(chunk, p, n, *layout) is ok
+
+
+def test_body_choice_and_rejection():
+    """bf16 at a shape and layout the tensor-core body takes chooses it;
+    f32, and bf16 at an odd offset, choose the CUDA-core body; asking for
+    ``"tc"`` where it does not apply raises on any device."""
+    _, tx, chunk, _ = _inputs(4)                     # the bf16 sweep case
+    x, dtv, a, b, c = tx[:5]
+    assert tkern.ssd_body(x, b, c, chunk) == "tc"
+    assert tkern.ssd_body(x.float(), b.float(), c.float(), chunk) == \
+        "cuda_core"
+    base = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    x_odd = base[1:].view(x.shape)                   # 2 bytes off 16
+    assert tkern.ssd_body(x_odd, b, c, chunk) == "cuda_core"
+    assert set(tkern.ssd_chunks.body_launches) == set(tkern.BODIES)
+    want = tkern.ssd_chunks(x, dtv, a, b, c, chunk=chunk)
+    for body in tkern.BODIES:
+        got = tkern.ssd_chunks(x, dtv, a, b, c, chunk=chunk, body=body)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for xx, body in ((x.float(), "tc"), (x_odd, "tc"), (x, "wgmma")):
+        with pytest.raises(ValueError, match="no '"):
+            tkern.ssd_chunks(xx, dtv, a, b.to(xx.dtype), c.to(xx.dtype),
+                             chunk=chunk, body=body)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _tc_numerics(x, dt, a, b, c, split):
+    """The tensor-core body's arithmetic for one chunk of one head: x (L,P),
+    dt (L,), a scalar, b/c (L,N), all bf16-valued.  S = C B^T with exact
+    bf16 products summed in f32; W masked before the exponential, in f32;
+    W and B o dte rounded to bf16 as hi (+ lo = bf16(v - hi) with
+    ``split``); products against x summed in f32 (here f64)."""
+    L = x.shape[0]
+    cum = np.cumsum(dt * a, dtype=np.float32)
+    s = (c.astype(np.float64) @ b.astype(np.float64).T).astype(np.float32)
+    li = np.tril(np.ones((L, L), bool))
+    seg = np.where(li, cum[:, None] - cum[None, :], -np.inf)
+    w = np.where(li, s * np.exp(seg.astype(np.float32)) * dt[None, :],
+                 0).astype(np.float32)
+    bd = (b * (np.exp(cum[-1] - cum) * dt)[:, None]).astype(np.float32)
+    y, st = 0.0, 0.0
+    for part in (w, bd):
+        hi = _bf16(part)
+        halves = (hi, _bf16(part - hi)) if split else (hi,)
+        for half in halves:
+            if part is w:
+                y = y + half.astype(np.float64) @ x
+            else:
+                st = st + half.T.astype(np.float64) @ x
+    return y, st
+
+
+def test_tc_split_keeps_w_and_b_dte_to_16_bits():
+    """Why the tensor-core body multiplies x by both bf16 halves of W and
+    of B o dte: at one Zamba2 chunk (L = 128, N = P = 64, 8 heads, inputs
+    drawn as chip_smoke.py draws the prefill's), the emulated body with the
+    split is ~5e-6 of max |ref| from ssd_chunks_plain, 100x inside the
+    kernel's 5e-4 bar; with the hi halves alone it reads ~2.5e-3, 5x over
+    the bar."""
+    rng = np.random.default_rng(0)
+    L, P, N, H = 128, 64, 64, 8
+    x = _bf16(rng.standard_normal((1, L, H, P)))
+    b, c = (_bf16(rng.standard_normal((1, L, 1, N))) for _ in range(2))
+    dt = np.log1p(np.exp(rng.standard_normal((1, L, H)))).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    want = tkern.ssd_chunks_plain(
+        *(torch.from_numpy(v) for v in (x, dt, a, b, c)), chunk=L)
+    wy, ws = want[0][0, 0].numpy(), want[1][0, 0].numpy()
+    err = {}
+    for split in (True, False):
+        ey = es = 0.0
+        for h in range(H):
+            y, st = _tc_numerics(x[0, :, h], dt[0, :, h], a[h], b[0, :, 0],
+                                 c[0, :, 0], split)
+            ey = max(ey, float(np.abs(y - wy[:, h]).max()))
+            es = max(es, float(np.abs(st - ws[h]).max()))
+        err[split] = max(ey / float(np.abs(wy).max()),
+                         es / float(np.abs(ws).max()))
+    assert err[True] < 5e-4 / 10, err
+    assert err[False] > 5e-4, err
