@@ -59,10 +59,33 @@ no result, without them.  Phases (each raises on failure):
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
    and the least time the card could take (bytes at 3.35 TB/s or
    contraction flops at the bf16 dense peak of 989 TFLOP/s);
+A. field cooling at the main path's size: ``Engine`` with K1/K2 under
+   ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
+   4 chunks x 20 steps, all six observables every 5 steps, a runlog with
+   ``HealthConfig(max_spin_dev=1e-3)``, a profiler trace and a checkpoint
+   every chunk (keep 2, the chunk-2 step pinned), under ``build/``; run
+   once bare and once with all of that: every step's temperature equals
+   the protocol's formula written out in numpy and its field 0.2 T along
+   z, every K1/K2 launch is in the warp body (1 + steps + rebuilds), the
+   runlog parses with 0 compiles after the first chunk and every verdict
+   "ok", the profiled run wrote a non-empty Chrome trace, and the runs
+   end bitwise equal; steps/s of each, and a checkpoint's size, save time
+   (and the call time of ``save_md``'s async write) at this size;
+B. the chunk-2 checkpoint restored into a fresh Engine and run through
+   chunks 3-4: ``torch.equal`` with phase A's final pos, vel, spin, step,
+   rebuild count and trace rows; the restore time;
+C. Heisenberg-DMI on the same 262,144-atom B20 lattice (Morse minimum at
+   the Fe-Fe distance), 2 chunks x 20 steps, midpoint with 2 iterations,
+   300 K: steps/s and peak memory; a resume from the chunk-1 checkpoint
+   bitwise equal; the deterministic pair-reaction and spin-grid sums
+   against ``index_add_`` on the same inputs (f32 within 2e-5 of max
+   |ref|; two deterministic evaluations equal), and both timed;
+   one ``{"md_surface": ...}`` line with phases A-C's numbers;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
-    earlier body is gone; all with ptxas's report of the body timed), then
+    earlier body is gone; all with ptxas's report of the body timed; K1
+    and K2 with ``launches_field_cooling`` from phase A), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -655,6 +678,365 @@ def _leaves(tree):
             yield v
 
 
+# ---------------------------------------------------------------------------
+# the full single-device MD surface: field cooling with telemetry and
+# checkpoints, bitwise resume, Heisenberg-DMI
+# ---------------------------------------------------------------------------
+
+SURFACE_DIR = ROOT / "build" / "chip_smoke"
+FC_CHUNKS, FC_CHUNK, FC_OBS_EVERY = 4, 20, 5
+FC_OBS = ("energy", "kinetic", "magnetization", "charge", "skyrmion_count",
+          "pitch")
+# the Fig. 9 protocol: 300 K for 20 fs, down to 100 K over 40 fs, 0.2 T
+FC_T = dict(t_hot=300.0, t_cold=100.0, b_field=0.2, t_hold=0.02,
+            t_ramp=0.04)
+# Heisenberg-DMI on the B20 lattice: its Morse minimum at the Fe-Fe
+# nearest-neighbor distance (the default r0 is the lattice constant, which
+# would push the 2.4-2.9 A B20 neighbors apart at ~150 eV/A)
+HEIS_B20 = dict(r0=2.9, morse_de=0.05, d0=0.008, ka=0.001)
+HEIS_CHUNKS, HEIS_CHUNK = 2, 20
+
+
+def reset_md_counters(kern):
+    for fn in (kern.nep_atom_pass, kern.nep_force_pass):
+        fn.launches = 0
+        fn.body_launches = dict.fromkeys(kern.BODIES, 0)
+
+
+def read_md_counters(kern):
+    return {fn.__name__: (fn.launches, dict(fn.body_launches))
+            for fn in (kern.nep_atom_pass, kern.nep_force_pass)}
+
+
+def cooling_rows(dt: float):
+    """The per-step temperatures of the field-cooling protocol, written out
+    here in numpy float32 (hold, linear ramp, hold) at the engine's clock:
+    chunk start ``step * dt`` plus ``i * dt``, both float32."""
+    import numpy as np
+    f32 = np.float32
+    t = np.concatenate([f32(c * FC_CHUNK) * f32(dt)
+                        + np.arange(FC_CHUNK, dtype=f32) * f32(dt)
+                        for c in range(FC_CHUNKS)])
+    t0 = f32(FC_T["t_hold"])
+    t1 = f32(FC_T["t_hold"] + FC_T["t_ramp"])
+    hot, cold = f32(FC_T["t_hot"]), f32(FC_T["t_cold"])
+    w = np.clip((t - t0) / np.maximum(t1 - t0, f32(1e-30)), f32(0), f32(1))
+    ramp = hot + w * (cold - hot)
+    return np.where(t < t0, hot, np.where(t >= t1, cold, ramp))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def fc_engine(torch, dev, spec, lat, moments, kern):
+    """A field-cooling Engine at the main path's size and spec, K1/K2."""
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import NEPSpinPotential, init_params
+    from repro_torch.ensemble import protocol
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.state import init_state
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    state = init_state(lat, run.unit_cells, generator=torch.Generator(
+        device=dev).manual_seed(21), temperature=FC_T["t_hot"], dtype=dtype,
+        device=dev)
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(22),
+                         dtype=dtype, device=dev)
+    temp, field = protocol.field_cooling(
+        FC_T["t_hot"], FC_T["t_cold"], FC_T["b_field"],
+        t_hold=FC_T["t_hold"], t_ramp=FC_T["t_ramp"])
+    cfg = IntegratorConfig(dt=run.dt, lattice_gamma=run.lattice_gamma,
+                           spin_alpha=run.spin_alpha)
+    return run, Engine(
+        NEPSpinPotential(spec, params, moments.to(dtype), use_kernel=True),
+        cfg, state, torch.tensor(lat.masses, dtype=dtype, device=dev),
+        torch.tensor(lat.moments, device=dev) > 0, spec.cutoff,
+        temperature=temp, field=field, observables=FC_OBS,
+        obs_every=FC_OBS_EVERY, capacity=run.capacity, skin=run.skin,
+        use_cell_list=True, cell_capacity=run.cell_capacity, device=dev)
+
+
+def same_run(torch, a, b, rows, what):
+    """Raise unless engine ``b`` ended bitwise where ``a`` did and its
+    trace equals ``a``'s rows ``rows``."""
+    import numpy as np
+    for k in ("pos", "vel", "spin"):
+        if not torch.equal(getattr(a.state, k), getattr(b.state, k)):
+            d = float((getattr(a.state, k) - getattr(b.state, k)).abs().max())
+            raise AssertionError(f"{what}: {k} differs (max |diff| {d:.3e})")
+    if (a.state.step, a.n_rebuilds) != (b.state.step, b.n_rebuilds):
+        raise AssertionError(f"{what}: step / rebuilds {a.state.step}, "
+                             f"{a.n_rebuilds} vs {b.state.step}, "
+                             f"{b.n_rebuilds}")
+    for k, v in b.trace.values.items():
+        if not np.array_equal(a.trace.values[k][rows], v):
+            raise AssertionError(f"{what}: trace {k} differs")
+
+
+def phase_field_cooling(torch, dev, spec, lat, moments, kern) -> dict:
+    """Phases A and B; returns their numbers."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.ckpt.checkpoint import save_md
+    from repro_torch.telemetry import HealthConfig, Telemetry, read_runlog
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    ckpt = SURFACE_DIR / "ckpt"
+    steps = FC_CHUNKS * FC_CHUNK
+    log(f"phase A: field cooling (Fig. 9: {FC_T}) at the main path's size, "
+        f"{FC_CHUNKS} x {FC_CHUNK} steps, observables {FC_OBS} every "
+        f"{FC_OBS_EVERY} steps, runlog + health + profile + checkpoints")
+    out, done = {}, {}
+    # bare; with a runlog, health checks and a checkpoint every chunk; and
+    # with a profiler trace on top (its runlog and checkpoints are the ones
+    # checked and restored)
+    for tag in ("bare", "telemetry", "profiled"):
+        torch.cuda.synchronize()
+        reset_md_counters(kern)
+        run, eng = fc_engine(torch, dev, spec, lat, moments, kern)
+        seen = []
+        step = eng._step
+
+        def recording(st, ff, nbh, gen, temp, field, _step=step):
+            seen.append((temp, field))
+            return _step(st, ff, nbh, gen, temp, field)
+
+        eng._step = recording
+        gen = torch.Generator(device=dev).manual_seed(23)
+        kw = {}
+        if tag != "bare":
+            eng.ckpt_pin = 2 * FC_CHUNK       # phase B restores it
+            sub = SURFACE_DIR / tag
+            kw = dict(checkpoint_dir=str(sub / "ckpt"), checkpoint_keep=2,
+                      telemetry=Telemetry(
+                          runlog=sub / "field_cooling.jsonl",
+                          health=HealthConfig(max_spin_dev=1e-3),
+                          profile_dir=(sub / "profile" if tag == "profiled"
+                                       else None)))
+        # first uses (the FFT plan, sorts) outside the timed run
+        eng._observe(eng._carry.state, eng._carry.ff)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(steps, gen, chunk=FC_CHUNK, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_md_counters(kern)
+        expect = 1 + steps + eng.n_rebuilds
+        log(f"  {tag}: {steps} steps in {secs:.3f} s = {steps / secs:.3f} "
+            f"steps/s, rebuilds {eng.n_rebuilds}, launches {counts}")
+        for name, (n, by_body) in counts.items():
+            if n != expect or by_body != {"warp": expect, "thread": 0}:
+                raise AssertionError(f"{name}: launches {n} by body "
+                                     f"{by_body}, expected {expect}, all "
+                                     "in the warp body")
+        temps = np.asarray([t for t, _ in seen], np.float32)
+        if not np.array_equal(temps, cooling_rows(run.dt)):
+            raise AssertionError("per-step temperatures differ from the "
+                                 "protocol's formula")
+        fields = torch.stack([f for _, f in seen]).cpu()
+        if not torch.equal(fields, torch.tensor(
+                [[0.0, 0.0, FC_T["b_field"]]] * steps,
+                dtype=fields.dtype)):
+            raise AssertionError("per-step fields differ from 0.2 T along z")
+        n_emit = steps // FC_OBS_EVERY
+        for k, v in eng.trace.values.items():
+            if v.shape[0] != n_emit or not np.isfinite(v).all():
+                raise AssertionError(f"observable {k}: shape {v.shape} or "
+                                     "non-finite values")
+        out[tag] = dict(steps_per_s=steps / secs, seconds=secs,
+                        rebuilds=eng.n_rebuilds, launches=expect)
+        done[tag] = eng
+        if tag == "bare":
+            continue
+        same_run(torch, done["bare"], eng, slice(None),
+                 f"{tag}: telemetry and checkpoints changed the trajectory")
+        events = read_runlog(SURFACE_DIR / tag / "field_cooling.jsonl")
+        chunks = [e for e in events if e["event"] == "chunk"]
+        kinds = [e["event"] for e in events]
+        if kinds != ["run_start"] + ["chunk"] * FC_CHUNKS + ["run_end"]:
+            raise AssertionError(f"runlog events {kinds}")
+        if any(c["compiles"] for c in chunks[1:]):
+            raise AssertionError(f"compiles after the first chunk: "
+                                 f"{[c['compiles'] for c in chunks]}")
+        if (any(c["verdict"] != "ok" for c in chunks)
+                or events[-1]["status"] != "ok"):
+            raise AssertionError(f"verdicts {[c['verdict'] for c in chunks]}"
+                                 f", status {events[-1]['status']}")
+        ckpts = sorted(p.name for p in (SURFACE_DIR / tag / "ckpt").iterdir())
+        chunk_rates = [c["steps_per_s"] for c in chunks]
+        log(f"  {tag} runlog: {len(events)} records, compiles "
+            f"{[c['compiles'] for c in chunks]}, verdicts "
+            f"{[c['verdict'] for c in chunks]}, in-chunk steps/s "
+            f"{[round(r, 3) for r in chunk_rates]}, last health "
+            f"{chunks[-1]['health']}; checkpoints {ckpts}")
+        out[tag]["chunk_steps_per_s"] = chunk_rates
+        if tag == "profiled":
+            trace = SURFACE_DIR / tag / "profile" / "trace.json"
+            if not trace.is_file() or trace.stat().st_size == 0:
+                raise AssertionError(f"no profiler trace at {trace}")
+            out[tag]["trace_bytes"] = trace.stat().st_size
+            log(f"  provenance {events[0]['provenance']}; trace "
+                f"{trace.stat().st_size / 1e6:.1f} MB")
+            log(f"  observables at the last emission: "
+                f"{ {k: v[-1].tolist() for k, v in eng.trace.values.items()} }")
+    ckpt = SURFACE_DIR / "profiled" / "ckpt"
+
+    # the cost of a checkpoint at this size, outside the run
+    t0 = time.perf_counter()
+    path = eng.save(str(SURFACE_DIR / "timing"), gen)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = save_md(str(SURFACE_DIR / "timing_async"), eng.ckpt_step(),
+                     eng._ckpt_tree(eng._carry), gen, async_=True)
+    async_s = time.perf_counter() - t0
+    handle.join()
+    size = dir_bytes(Path(path))
+
+    log("phase B: restore the chunk-2 checkpoint into a fresh Engine, run "
+        "chunks 3-4, hold them bitwise to phase A")
+    _, fresh = fc_engine(torch, dev, spec, lat, moments, kern)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_b = fresh.restore(str(ckpt), step=2 * FC_CHUNK)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fresh.run(steps - 2 * FC_CHUNK, gen_b, chunk=FC_CHUNK)
+    same_run(torch, eng, fresh, slice(steps // FC_OBS_EVERY // 2, None),
+             "resume")
+    log(f"  resumed run is bitwise phase A's (pos, vel, spin, step "
+        f"{fresh.state.step}, rebuilds {fresh.n_rebuilds}, trace rows); "
+        f"checkpoint {size / 1e6:.1f} MB, save {save_s:.3f} s (async call "
+        f"returns in {async_s:.3f} s), load + re-derived blocks "
+        f"{load_s:.3f} s")
+    out.update(ckpt_bytes=size, save_s=save_s, async_call_s=async_s,
+               load_s=load_s)
+    del eng, done, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_heisenberg(torch, dev, lat) -> dict:
+    """Phase C: Heisenberg-DMI at full width with deterministic pair sums."""
+    import shutil
+
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.hamiltonian import HeisenbergDMIModel
+    from repro_torch.md import analysis
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.neighbor import (assemble_pair_forces,
+                                         assemble_pair_forces_plain,
+                                         reverse_index)
+    from repro_torch.md.state import init_state
+    from repro_torch.telemetry import peak_device_memory
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    ham = HeisenbergDMIModel(**HEIS_B20)
+    steps = HEIS_CHUNKS * HEIS_CHUNK
+    log(f"phase C: Heisenberg-DMI {HEIS_B20} on B20 {run.unit_cells} = "
+        f"{run.n_atoms} atoms, {HEIS_CHUNKS} x {HEIS_CHUNK} steps, midpoint "
+        f"(2 iterations), {run.temperature} K, B={run.field} T")
+    ckpt = SURFACE_DIR / "heisenberg_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def engine():
+        state = init_state(lat, run.unit_cells, generator=torch.Generator(
+            device=dev).manual_seed(31), temperature=run.temperature,
+            dtype=dtype, device=dev)
+        cfg = IntegratorConfig(dt=run.dt, lattice_gamma=run.lattice_gamma,
+                               spin_alpha=run.spin_alpha, midpoint=True,
+                               midpoint_iters=2)
+        return Engine(ham, cfg, state,
+                      torch.tensor(lat.masses, dtype=dtype, device=dev),
+                      torch.tensor(lat.moments, device=dev) > 0, ham.cutoff,
+                      temperature=run.temperature, field=run.field,
+                      observables=FC_OBS, capacity=run.capacity,
+                      skin=run.skin, use_cell_list=True,
+                      cell_capacity=run.cell_capacity, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    torch.cuda.synchronize()
+    peak_setup = peak_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(steps, gen, chunk=HEIS_CHUNK, checkpoint_dir=str(ckpt),
+            checkpoint_keep=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = peak_device_memory()
+    log(f"  {steps} steps in {secs:.3f} s = {steps / secs:.3f} steps/s "
+        f"(5 evaluations a step), rebuilds {eng.n_rebuilds}, peak memory "
+        f"{peak / 2**30:.2f} GiB in the run, {peak_setup / 2**30:.2f} GiB "
+        f"in the construction (a table build, one evaluation), energy "
+        f"{eng.energy:.6f} eV")
+    for k, v in eng.trace.values.items():
+        if not torch.isfinite(torch.as_tensor(v)).all():
+            raise AssertionError(f"Heisenberg observable {k} non-finite")
+
+    fresh = engine()
+    gen_b = fresh.restore(str(ckpt), step=HEIS_CHUNK)
+    fresh.run(steps - HEIS_CHUNK, gen_b, chunk=HEIS_CHUNK)
+    same_run(torch, eng, fresh, slice(1, None), "Heisenberg resume")
+    log("  resumed run is bitwise the uninterrupted one")
+
+    # the deterministic reductions against index_add_ on the same inputs
+    c = eng._carry
+    nbh, spin, types = c.nbh, c.state.spin, c.state.types
+    det = ham.compute(nbh, spin, types, run.field)
+    again = ham.compute(nbh, spin, types, run.field)
+    plain = ham.compute(nbh, spin, types, run.field, plain=True)
+    plain2 = ham.compute(nbh, spin, types, run.field, plain=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(det, again)):
+        raise AssertionError("two deterministic evaluations differ")
+    errs = {name: check(f"Heisenberg {name} det vs index_add_", a, b, 2e-5)
+            for name, a, b in zip("EFH", det, plain)}
+    plain_repeat = [float((a - b).abs().max()) for a, b in zip(plain,
+                                                               plain2)]
+    log(f"  index_add_ twice on the same inputs: max |diff| E, F, H "
+        f"{plain_repeat}")
+    g = torch.randn(nbh.dr.shape, dtype=dtype, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(34))
+    pos, box = c.state.pos, c.state.box
+    times = {
+        "pair_forces_ms": time_ms(torch, lambda: assemble_pair_forces(
+            g, nbh), 20),
+        "pair_forces_plain_ms": time_ms(
+            torch, lambda: assemble_pair_forces_plain(g, nbh), 20),
+        "reverse_index_ms": time_ms(torch, lambda: reverse_index(nbh.idx),
+                                    5),
+        "spin_grid_ms": time_ms(torch, lambda: analysis.accumulate_spin_grid(
+            pos, spin, box), 20),
+        "spin_grid_plain_ms": time_ms(
+            torch, lambda: analysis.accumulate_spin_grid(pos, spin, box,
+                                                         plain=True), 20),
+        "evaluation_ms": time_ms(torch, lambda: ham.compute(
+            nbh, spin, types, run.field), 5),
+        "evaluation_plain_ms": time_ms(torch, lambda: ham.compute(
+            nbh, spin, types, run.field, plain=True), 5),
+    }
+    grid_err = check("spin grid det vs index_add_",
+                     analysis.accumulate_spin_grid(pos, spin, box),
+                     analysis.accumulate_spin_grid(pos, spin, box,
+                                                   plain=True), 2e-5)
+    log(f"  times (ms): {times}")
+    out = dict(steps_per_s=steps / secs, seconds=secs,
+               rebuilds=eng.n_rebuilds, peak_memory_bytes=peak,
+               peak_memory_setup_bytes=peak_setup,
+               det_vs_plain_rel_err=errs, grid_rel_err=grid_err,
+               plain_repeat_max_abs_diff=plain_repeat, **times)
+    del eng, fresh, c, nbh, det, again, plain, plain2, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -918,6 +1300,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows += lm_phases(torch, dev, ptxas)
+    torch.cuda.empty_cache()
+    surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
+                                                    moments, kern)}
+    surface["heisenberg"] = phase_heisenberg(torch, dev, lat)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            row["launches_field_cooling"] = surface["field_cooling"][
+                "profiled"]["launches"]
+    print(json.dumps({"md_surface": surface}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

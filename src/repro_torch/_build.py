@@ -37,6 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# libraries compiled and loaded in this process: what "recompiling" means
+# for the port (read by repro_torch.telemetry.metrics.CompileWatchdog)
+EVENTS = {"builds": 0, "loads": 0}
 
 
 def nvcc_path() -> str:
@@ -87,6 +90,7 @@ def build(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             tmp.replace(out)
+            EVENTS["builds"] += 1
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return secs
@@ -100,4 +104,5 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
+        EVENTS["loads"] += 1
     return lib

@@ -3,7 +3,8 @@
 
 One energy surface E(R, S); forces F = -dE/dR and effective fields
 H = -dE/dS are exact derivatives of the same scalar, by autograd here
-(:func:`compute`) and by the hand-written kernels in
+(:func:`compute` from pre-gathered blocks, :func:`energy_forces_field`
+through the gather) and by the hand-written kernels in
 :mod:`repro_torch.kernels.nep` when ``use_kernel=True``.
 """
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.descriptor import NEPSpinSpec, descriptors
-from repro_torch.md.neighbor import Neighborhood, compute_from_blocks
+from repro_torch.md.neighbor import (NeighborTable, Neighborhood,
+                                     compute_from_blocks, gather_neighbors)
 from repro_torch.utils import units
 from repro_torch.utils.device import resolve_device
 
@@ -102,41 +104,99 @@ def zeeman_moments(moments, types, like: torch.Tensor) -> torch.Tensor:
     return moments.to(like.dtype)[types.long()]
 
 
+def _zeeman(spin, types, field, moments) -> torch.Tensor:
+    mom = zeeman_moments(moments, types, spin)
+    b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
+    return -units.MU_B * torch.sum(mom[:, None] * spin * b)
+
+
+def energy(spec: NEPSpinSpec, params: NEPSpinParams, pos: torch.Tensor,
+           spin: torch.Tensor, types: torch.Tensor, table: NeighborTable,
+           box: torch.Tensor, field=None, moments=None) -> torch.Tensor:
+    """Total energy E(R, S) [eV]; ``field`` (3,) Tesla adds the Zeeman term
+    -mu_B * m_t * sum_i S_i . B (the external field is not learned)."""
+    dr, dist, sj, tj, mask = gather_neighbors(pos, spin, types, table, box)
+    e = torch.sum(atom_energies(spec, params, dr, dist, mask, types, tj, spin,
+                                sj))
+    if field is not None:
+        e = e + _zeeman(spin, types, field, moments)
+    return e
+
+
+def energy_forces_field(spec: NEPSpinSpec, params: NEPSpinParams,
+                        pos: torch.Tensor, spin: torch.Tensor,
+                        types: torch.Tensor, table: NeighborTable,
+                        box: torch.Tensor, field=None, moments=None):
+    """(E, F = -dE/dR (N,3) [eV/A], H_eff = -dE/dS (N,3)) by autograd
+    through the gather: the whole-evaluation surface."""
+    p = pos.detach().requires_grad_(True)
+    s = spin.detach().requires_grad_(True)
+    with torch.enable_grad():
+        e = energy(spec, params, p, s, types, table, box, field, moments)
+        g_p, g_s = torch.autograd.grad(e, (p, s))
+    return e.detach(), -g_p, -g_s
+
+
 def compute(spec: NEPSpinSpec, params: NEPSpinParams, nbh: Neighborhood,
             spin: torch.Tensor, types: torch.Tensor, field=None,
-            moments=None):
+            moments=None, *, plain: bool = False):
     """Gather-once autograd evaluation ``(E, F, H_eff)`` from pre-gathered
     neighbor blocks; ``field`` (3,) Tesla adds the Zeeman term
-    -mu_B * m_t * sum_i S_i . B."""
-    idx = nbh.idx.long()
-
-    def etot(dr, s):
+    -mu_B * m_t * sum_i S_i . B.  ``plain`` sums the pair reactions with
+    ``index_add_`` (:func:`~repro_torch.md.neighbor.compute_from_blocks`)."""
+    def etot(dr, s, rows):
         dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + 1e-30)
-        e = atom_energies(spec, params, dr, dist, nbh.mask, types, nbh.tj, s,
-                          s[idx])
-        etot_ = torch.sum(e)
+        e = torch.sum(atom_energies(spec, params, dr, dist, nbh.mask, types,
+                                    nbh.tj, s, rows(s)))
         if field is not None:
-            mom = zeeman_moments(moments, types, s)
-            b = torch.as_tensor(field, dtype=s.dtype, device=s.device)
-            etot_ = etot_ - units.MU_B * torch.sum(mom[:, None] * s * b)
-        return etot_
+            e = e + _zeeman(s, types, field, moments)
+        return e
 
-    return compute_from_blocks(etot, nbh, spin)
+    return compute_from_blocks(etot, nbh, spin, plain)
 
 
 @dataclasses.dataclass(frozen=True)
 class NEPSpinPotential:
     """Bound NEP-SPIN surface: (spec, params) with the engine-facing API.
 
-    ``compute`` is the gather-once surface the MD loop calls;
-    ``use_kernel`` routes it through the hand-written kernels
-    (:func:`repro_torch.kernels.nep.ops.nep_compute`) instead of autograd.
+    ``compute`` is the gather-once surface the MD loop calls,
+    ``energy_forces_field`` the whole evaluation of the legacy driver;
+    ``use_kernel`` routes both through the hand-written kernels
+    (:mod:`repro_torch.kernels.nep.ops`) instead of autograd.
     """
 
     spec: NEPSpinSpec
     params: NEPSpinParams
     moments: torch.Tensor | None = None   # (n_types,) mu_B per type
     use_kernel: bool = False
+
+    @property
+    def pair_scatter(self) -> bool:
+        """Whether ``compute`` sums pair reactions through the table's
+        transpose (autograd); K2 has no reverse scatter."""
+        return not self.use_kernel
+
+    def energy_forces_field(self, pos, spin, types, table, box, field=None):
+        if self.use_kernel:
+            from repro_torch.kernels.nep.ops import nep_energy_forces_field
+            return nep_energy_forces_field(self.spec, self.params, pos, spin,
+                                           types, table, box, field,
+                                           self.moments)
+        return energy_forces_field(self.spec, self.params, pos, spin, types,
+                                   table, box, field, self.moments)
+
+    def pair_energies(self, dr, dist, mask, ti, tj, si, sj):
+        """Per-atom energies from pre-gathered pair blocks (flat (N, M)
+        shapes), by autograd-transparent torch ops."""
+        return atom_energies(self.spec, self.params, dr, dist, mask, ti, tj,
+                             si, sj)
+
+    def site_moments(self, types):
+        """Per-site magnetic moment [mu_B] entering the Zeeman term."""
+        if self.moments is not None:
+            return self.moments[types.long()]
+        return torch.ones(types.shape, dtype=torch.float32,
+                          device=types.device)
 
     def compute(self, nbh: Neighborhood, spin, types, field=None):
         if self.use_kernel:

@@ -1,1 +1,2 @@
-"""Spin-lattice MD: lattice, state, neighbor tables, integrator, engine."""
+"""Spin-lattice MD: lattice, state, neighbor tables, integrator, analysis,
+engine, simulation facades."""

@@ -1,5 +1,14 @@
-"""Magnetic-texture analysis: magnetization and the Berg-Luscher topological
-charge (port of ``repro.md.analysis``; the helix pitch is not ported yet).
+"""Magnetic-texture analysis: magnetization, the Berg-Luscher topological
+charge, and the helix pitch from the spin structure factor (port of
+``repro.md.analysis``).
+
+Binned sums (the spin grid of the charge, the slab profile of the pitch)
+go through :func:`segment_sum`, which adds in fixed point, so they read
+the same bits on every run, on the card too, where a float ``index_add_``
+adds with atomics in no fixed order.  It reads nothing back to the host,
+so a streamed observable stays on the device.  Each ``accumulate_*``
+function takes ``plain=True`` for the ``index_add_`` form it is held
+against.
 """
 from __future__ import annotations
 
@@ -15,6 +24,95 @@ def magnetization(spin: torch.Tensor,
         w = mask.to(spin.dtype)[:, None]
         return torch.sum(spin * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
     return torch.mean(spin, dim=0)
+
+
+_FIXED = 2.0 ** 40     # the fixed-point grid of segment_sum
+
+
+def segment_sum(values: torch.Tensor, keys: torch.Tensor, n: int,
+                plain: bool = False) -> torch.Tensor:
+    """``out[b] = sum of values[i] over keys[i] == b`` for b < n.
+
+    Deterministic: every value is rounded to a multiple of 2^-40 and the
+    sums are taken in int64, where addition is exact, so the order in which
+    the card's atomic adds land cannot change a bit.  float32 values of
+    magnitude >= 2^-16 lie on that grid exactly; a bin's sum must stay
+    below 2^23 in magnitude.  A non-finite value makes every bin NaN.
+    ``plain`` is the float ``index_add_`` it is held against."""
+    out_shape = (n,) + values.shape[1:]
+    if plain:
+        return values.new_zeros(out_shape).index_add_(0, keys, values)
+    fixed = torch.round(values.to(torch.float64) * _FIXED).to(torch.int64)
+    acc = torch.zeros(out_shape, dtype=torch.int64,
+                      device=values.device).index_add_(0, keys, fixed)
+    out = (acc.to(torch.float64) / _FIXED).to(values.dtype)
+    return torch.where(torch.isfinite(values).all(), out,
+                       torch.full_like(out, float("nan")))
+
+
+def _bin(pos: torch.Tensor, box: torch.Tensor, axis: int, n: int):
+    return torch.clamp((pos[:, axis] / box[axis] * n).to(torch.int64),
+                       0, n - 1)
+
+
+def spins_on_grid(pos: torch.Tensor, spin: torch.Tensor, box: torch.Tensor,
+                  shape: tuple[int, ...]) -> torch.Tensor:
+    """Bin spins onto a regular grid (cell-averaged) over the first
+    ``len(shape)`` axes; (*shape, 3) unit (or zero) spins per cell."""
+    flat = _bin(pos, box, 0, shape[0])
+    for d in range(1, len(shape)):
+        flat = flat * shape[d] + _bin(pos, box, d, shape[d])
+    acc = segment_sum(spin, flat, math.prod(shape))
+    nrm = torch.linalg.norm(acc, dim=-1, keepdim=True)
+    acc = torch.where(nrm > 1e-12, acc / torch.where(nrm > 1e-12, nrm, 1.0),
+                      torch.zeros_like(acc))
+    return acc.reshape(*shape, 3)
+
+
+def accumulate_spin_profile(pos: torch.Tensor, spin: torch.Tensor,
+                            box: torch.Tensor, axis: int = 0, n_bins: int = 64,
+                            weight: torch.Tensor | None = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Raw per-slab spin sums (n_bins, 3) along ``axis`` (the accumulation
+    half of :func:`helix_pitch`)."""
+    s = spin if weight is None else spin * weight[:, None].to(spin.dtype)
+    return segment_sum(s, _bin(pos, box, axis, n_bins), n_bins, plain)
+
+
+def pitch_from_profile(acc: torch.Tensor, box: torch.Tensor,
+                       axis: int = 0) -> torch.Tensor:
+    """Pitch [A] from raw per-slab spin sums: each bin normalized, FFT per
+    Cartesian component, box / k* for the strongest nonzero mode."""
+    nrm = torch.linalg.norm(acc, dim=-1, keepdim=True)
+    full = nrm > 1e-12
+    prof = torch.where(full, acc / torch.where(full, nrm, 1.0),
+                       torch.zeros_like(acc))
+    return _pitch_of(prof, box, axis)
+
+
+def _pitch_of(prof: torch.Tensor, box: torch.Tensor, axis: int):
+    power = torch.sum(torch.abs(torch.fft.rfft(prof, dim=0)) ** 2, dim=-1)
+    k = torch.argmax(power[1:]) + 1                     # skip k = 0
+    return box[axis] / k
+
+
+def _mean_profile(pos, spin, box, axis, n_bins):
+    i = _bin(pos, box, axis, n_bins)
+    acc = segment_sum(spin, i, n_bins)
+    cnt = segment_sum(torch.ones_like(spin[:, :1]), i, n_bins)
+    return acc / torch.clamp(cnt, min=1.0)
+
+
+def helix_pitch(pos: torch.Tensor, spin: torch.Tensor, box: torch.Tensor,
+                axis: int = 0, n_bins: int = 0) -> torch.Tensor:
+    """Dominant modulation period [A] of the spin texture along ``axis``
+    (the helix pitch of Fig. 4): slab-binned spins, FFT per component,
+    box / k* for the strongest nonzero mode."""
+    n_bins = n_bins or 64
+    if axis == 0:
+        return pitch_from_profile(
+            accumulate_spin_profile(pos, spin, box, axis, n_bins), box, axis)
+    return _pitch_of(_mean_profile(pos, spin, box, axis, n_bins), box, axis)
 
 
 def topological_charge_grid(s: torch.Tensor) -> torch.Tensor:
@@ -38,17 +136,13 @@ def topological_charge_grid(s: torch.Tensor) -> torch.Tensor:
 def accumulate_spin_grid(pos: torch.Tensor, spin: torch.Tensor,
                          box: torch.Tensor, grid: tuple[int, int] = (32, 32),
                          plane: tuple[int, int] = (0, 1),
-                         weight: torch.Tensor | None = None) -> torch.Tensor:
+                         weight: torch.Tensor | None = None,
+                         plain: bool = False) -> torch.Tensor:
     """Raw per-cell spin sums (G0*G1, 3) on the projection plane."""
     ax, ay = plane
-    ix = torch.clamp((pos[:, ax] / box[ax] * grid[0]).to(torch.int64),
-                     0, grid[0] - 1)
-    iy = torch.clamp((pos[:, ay] / box[ay] * grid[1]).to(torch.int64),
-                     0, grid[1] - 1)
+    flat = _bin(pos, box, ax, grid[0]) * grid[1] + _bin(pos, box, ay, grid[1])
     s = spin if weight is None else spin * weight[:, None].to(spin.dtype)
-    acc = torch.zeros((grid[0] * grid[1], 3), dtype=spin.dtype,
-                      device=spin.device)
-    return acc.index_add_(0, ix * grid[1] + iy, s)
+    return segment_sum(s, flat, grid[0] * grid[1], plain)
 
 
 def charge_from_grid(acc: torch.Tensor,
@@ -74,3 +168,11 @@ def topological_charge(pos: torch.Tensor, spin: torch.Tensor,
 def skyrmion_count(charge: torch.Tensor) -> torch.Tensor:
     """Integer skyrmion-count estimate |Q| rounded."""
     return torch.round(torch.abs(charge))
+
+
+def spin_structure_factor(pos: torch.Tensor, spin: torch.Tensor,
+                          box: torch.Tensor, n_bins: int = 64,
+                          axis: int = 0) -> torch.Tensor:
+    """1-D spin structure factor S(k) along an axis (power spectrum)."""
+    prof = _mean_profile(pos, spin, box, axis, n_bins)
+    return torch.sum(torch.abs(torch.fft.rfft(prof, dim=0)) ** 2, dim=-1)

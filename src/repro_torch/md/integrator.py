@@ -10,6 +10,9 @@ optional self-consistent midpoint iteration for the spin half-steps, a
 Langevin (OBABO) lattice thermostat, stochastic LLG transverse spin noise
 and an optional longitudinal Landau channel for |S|.
 
+``make_fused_step`` is the gather-once step of the Engine; ``make_step``
+is the un-split legacy surface (one whole evaluation per force call).
+
 Randomness: the step's five noise streams (k1 lattice kick before, k2/k3 the
 two spin half-steps, k4 longitudinal, k5 lattice kick after - the reference
 splits its step key the same way) are drawn from an explicit
@@ -19,6 +22,7 @@ pre-drawn standard normals so a test can feed in the reference's draws.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Callable, NamedTuple
 
@@ -216,5 +220,49 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
         return SpinLatticeState(pos=pos, vel=vel, spin=spin,
                                 types=state.types, box=state.box,
                                 step=state.step + 1), ff, nbh
+
+    return step
+
+
+def _adapt_eval(evaluate: Callable) -> Callable:
+    """Accept legacy ``(pos, spin)`` evaluators beside ``(pos, spin,
+    field)`` ones: a field-aware evaluator names its third parameter
+    ``field`` (an arity check would misroute the field into a closure's
+    default parameters)."""
+    try:
+        pars = list(inspect.signature(evaluate).parameters.values())
+    except (TypeError, ValueError):
+        return evaluate
+    if len(pars) >= 3 and pars[2].name == "field":
+        return evaluate
+
+    def ev(pos, spin, field):
+        return evaluate(pos, spin)
+    return ev
+
+
+def make_step(evaluate: Callable, cfg: IntegratorConfig, masses: torch.Tensor,
+              magnetic: torch.Tensor):
+    """The un-split coupled step
+
+        step(state, ff, generator=None, temperature=None, field=None,
+             noise=None) -> (state, ff)
+
+    ``evaluate(pos, spin[, field]) -> (E, F, H_eff)`` closes over the types,
+    table and box.  It is :func:`make_fused_step` with the positions
+    themselves standing in for the gathered blocks."""
+    ev = _adapt_eval(evaluate)
+    fstep = make_fused_step(
+        gather=lambda pos, _nbh: pos,
+        compute=lambda pos, spin, types, field: ForceField(
+            *ev(pos, spin, field)),
+        cfg=cfg, masses=masses, magnetic=magnetic)
+
+    def step(state: SpinLatticeState, ff: ForceField,
+             generator: torch.Generator | None = None, temperature=None,
+             field=None, noise: dict | None = None):
+        state, ff, _ = fstep(state, ff, state.pos, generator, temperature,
+                             field, noise)
+        return state, ff
 
     return step

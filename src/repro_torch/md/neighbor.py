@@ -13,6 +13,18 @@ table-static blocks (idx, mask, neighbor types) and the position-dependent
 ``dr`` into a :class:`Neighborhood`; ``refresh_dr`` refreshes only ``dr``
 after a drift; potentials evaluate from the ``Neighborhood`` alone and
 assemble atomic forces with ``assemble_pair_forces``.
+
+Deterministic reverse sums.  Two reductions run "backwards" through the
+table: the pair reaction forces (atom k collects ``-g[i, m]`` from every
+slot listing it) and the gradient of the neighbor-spin gather ``s[idx]``.
+``index_add_`` does both with float atomics on a CUDA tensor, so two
+identical runs could differ in the last bit.  Here both read the
+table's transpose instead: :func:`reverse_index` lists, per atom, the flat
+slots that point at it (a stable sort of ``idx``, built once per table),
+and :func:`reverse_sum` gathers those slots and sums each row in a fixed
+order.  ``gather_blocks(..., reverse=True)`` stores it in the
+``Neighborhood``; ``assemble_pair_forces_plain`` keeps the ``index_add_``
+form as the plain version it is held against.
 """
 from __future__ import annotations
 
@@ -61,6 +73,19 @@ def dense_neighbor_table(pos: torch.Tensor, box: torch.Tensor, cutoff: float,
                          cutoff=rc)
 
 
+def gather_neighbors(pos: torch.Tensor, spin: torch.Tensor,
+                     types: torch.Tensor, table: NeighborTable,
+                     box: torch.Tensor):
+    """Per-neighbor quantities from a table: (dr (N,M,3) min-imaged
+    r_j - r_i, dist (N,M), neighbor spins (N,M,3), neighbor types (N,M),
+    mask (N,M)).  Differentiable in ``pos`` and ``spin`` (the whole-
+    evaluation surfaces differentiate through it)."""
+    idx = table.idx.long()
+    dr = _min_image(pos[idx] - pos[:, None, :], box)
+    dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + 1e-30)
+    return dr, dist, spin[idx], types[idx], table.mask
+
+
 def needs_rebuild(table: NeighborTable, pos: torch.Tensor, box: torch.Tensor,
                   skin: float = 0.5) -> torch.Tensor:
     """0-d bool tensor: did any atom move more than skin/2 since the build?"""
@@ -83,14 +108,72 @@ class Neighborhood(NamedTuple):
     mask: torch.Tensor  # (N, M) bool
     tj: torch.Tensor    # (N, M) int32 neighbor types
     dr: torch.Tensor    # (N, M, 3) min-imaged r_j - r_i
+    rev: torch.Tensor | None = None   # (N, R) reverse_index(idx), or None
+
+
+def reverse_index(idx: torch.Tensor) -> torch.Tensor:
+    """The table's transpose: row k lists, in increasing order, the flat
+    slots ``i * M + m`` with ``idx[i, m] == k`` (every slot, masked ones
+    too), padded with ``N * M`` (a zero row in :func:`reverse_sum`).
+
+    A stable sort of the flat table; R (the longest row) is read back
+    once, so build it once per table, not per evaluation."""
+    n, m = idx.shape
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    target = flat[order]
+    counts = torch.bincount(flat, minlength=n)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n * m, device=idx.device) - start[target]
+    rev = torch.full((n, max(int(counts.max()), 1)), n * m,
+                     dtype=torch.int64, device=idx.device)
+    rev[target, rank] = order
+    return rev
+
+
+def reverse_sum(vals: torch.Tensor, rev: torch.Tensor) -> torch.Tensor:
+    """``out[k] = sum of vals[s]`` over the slots s of ``rev[k]``, each row
+    summed in one fixed order: the deterministic form of
+    ``zeros.index_add_(0, idx.flatten(), vals)``.  ``vals`` is (N*M, C)."""
+    padded = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
+    return padded[rev].sum(dim=1)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x[idx]`` whose gradient is :func:`reverse_sum` (autograd's own
+    backward of an index gather accumulates with atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, rev):
+        ctx.save_for_backward(rev)
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rev,) = ctx.saved_tensors
+        tail = g.shape[2:]
+        return reverse_sum(g.reshape((-1,) + tail), rev), None, None
+
+
+def neighbor_rows(x: torch.Tensor, nbh: Neighborhood,
+                  plain: bool = False) -> torch.Tensor:
+    """``x[idx]`` (N, M, ...) for per-atom rows ``x``; differentiable, with
+    a deterministic gradient unless ``plain``."""
+    idx = nbh.idx.long()
+    if plain or not (x.requires_grad and torch.is_grad_enabled()):
+        return x[idx]
+    rev = nbh.rev if nbh.rev is not None else reverse_index(nbh.idx)
+    return _GatherRows.apply(x, idx, rev)
 
 
 def gather_blocks(pos: torch.Tensor, types: torch.Tensor, table: NeighborTable,
-                  box: torch.Tensor) -> Neighborhood:
-    """Full gather after a table (re)build."""
+                  box: torch.Tensor, reverse: bool = False) -> Neighborhood:
+    """Full gather after a table (re)build; ``reverse`` also builds the
+    table's transpose for the deterministic reverse sums."""
     idx = table.idx.long()
     dr = _min_image(pos[idx] - pos[:, None, :], box)
-    return Neighborhood(idx=table.idx, mask=table.mask, tj=types[idx], dr=dr)
+    return Neighborhood(idx=table.idx, mask=table.mask, tj=types[idx], dr=dr,
+                        rev=reverse_index(table.idx) if reverse else None)
 
 
 def refresh_dr(nbh: Neighborhood, pos: torch.Tensor,
@@ -100,23 +183,40 @@ def refresh_dr(nbh: Neighborhood, pos: torch.Tensor,
     return nbh._replace(dr=dr)
 
 
-def compute_from_blocks(etot, nbh: Neighborhood, spin: torch.Tensor):
-    """``etot(dr, spin) -> ()`` differentiated by autograd into
-    ``(E, F, H_eff)``: forces assembled from dE/ddr by the explicit pair
-    scatter, the effective field as -dE/dS."""
+def compute_from_blocks(etot, nbh: Neighborhood, spin: torch.Tensor,
+                        plain: bool = False):
+    """``etot(dr, spin, rows) -> ()`` differentiated by autograd into
+    ``(E, F, H_eff)``: forces assembled from dE/ddr by the pair reverse sum,
+    the effective field as -dE/dS.  ``etot`` gathers neighbor rows with
+    ``rows(x)``, so the spin gather's gradient is deterministic too;
+    ``plain`` uses ``index_add_`` and autograd's gather gradient instead
+    (the plain version the deterministic one is held against)."""
+    if not plain and nbh.rev is None:
+        nbh = nbh._replace(rev=reverse_index(nbh.idx))
     dr = nbh.dr.detach().requires_grad_(True)
     s = spin.detach().requires_grad_(True)
     with torch.enable_grad():
-        e = etot(dr, s)
+        e = etot(dr, s, lambda x: neighbor_rows(x, nbh, plain))
         g_dr, g_s = torch.autograd.grad(e, (dr, s), allow_unused=True)
     if g_s is None:             # a spin-free potential
         g_s = torch.zeros_like(spin)
-    return e.detach(), assemble_pair_forces(g_dr, nbh), -g_s
+    assemble = assemble_pair_forces_plain if plain else assemble_pair_forces
+    return e.detach(), assemble(g_dr, nbh), -g_s
 
 
 def assemble_pair_forces(g_dr: torch.Tensor, nbh: Neighborhood) -> torch.Tensor:
     """Atomic forces from dE/ddr (N, M, 3): atom i feels ``+sum_m g[i,m]``
-    and the reaction ``-g[k,m]`` from every pair (k, m) listing it."""
+    and the reaction ``-g[k,m]`` from every pair (k, m) listing it, summed
+    deterministically through the table's transpose."""
+    g = torch.where(nbh.mask[..., None], g_dr, torch.zeros_like(g_dr))
+    rev = nbh.rev if nbh.rev is not None else reverse_index(nbh.idx)
+    return torch.sum(g, dim=1) - reverse_sum(g.reshape(-1, g.shape[-1]), rev)
+
+
+def assemble_pair_forces_plain(g_dr: torch.Tensor,
+                               nbh: Neighborhood) -> torch.Tensor:
+    """:func:`assemble_pair_forces` with the reaction scattered by
+    ``index_add_`` (float atomics on the card: not bitwise reproducible)."""
     g = torch.where(nbh.mask[..., None], g_dr, torch.zeros_like(g_dr))
     direct = torch.sum(g, dim=1)
     react = torch.zeros_like(direct).index_add_(

@@ -103,3 +103,10 @@ def kinetic_energy(state: SpinLatticeState,
                    masses: torch.Tensor) -> torch.Tensor:
     m = masses[state.types.long()]
     return 0.5 * units.MVV2E * torch.sum(m[:, None] * state.vel ** 2)
+
+
+def temperature_of(state: SpinLatticeState,
+                   masses: torch.Tensor) -> torch.Tensor:
+    """Lattice temperature [K] from the kinetic energy (3N degrees)."""
+    n = state.pos.shape[0]
+    return 2.0 * kinetic_energy(state, masses) / (3.0 * n * units.KB)

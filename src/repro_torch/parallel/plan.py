@@ -3,7 +3,8 @@
 
 Only :class:`SingleDevice` - flat (N, ...) tensors on one device,
 optionally in cell-ordered rows - is ported.  The reference's
-``Replicated`` and ``Sharded`` plans raise ``NotImplementedError`` here.
+``Replicated`` plan (ROADMAP queue 1 item 9) and ``Sharded`` plan (item
+13) raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -24,4 +25,6 @@ def as_plan(plan):
     if isinstance(plan, SingleDevice):
         return plan
     raise NotImplementedError(
-        f"plan {plan!r} is not ported yet; only SingleDevice runs")
+        f"plan {plan!r} is not ported yet; only SingleDevice runs (the "
+        "Replicated plan is ROADMAP queue 1 item 9, the Sharded plan "
+        "item 13)")

@@ -8,7 +8,9 @@ longitudinal spin noise) with the reference's own ``jax.random.normal``
 draws for its five noise streams injected through ``noise=``.  Everything
 agrees within 2e-5 of each quantity's max.  Plus: |S| is conserved to f64
 roundoff over NVE steps, and a thermostatted step without a generator or
-pre-drawn noise raises.
+pre-drawn noise raises.  And the reference's two statistical tests of the
+thermostats: one spin in a field samples the Langevin function through
+``make_step``, and a Langevin lattice equilibrates to its target.
 """
 import dataclasses
 
@@ -28,8 +30,9 @@ from repro_torch.core import potential as tpot
 from repro_torch.md import integrator as tint
 from repro_torch.md import neighbor as tnb
 from repro_torch.md.lattice import b20_fege
-from repro_torch.md.state import state_from_numpy
+from repro_torch.md.state import SpinLatticeState, state_from_numpy
 from repro_torch.utils import units
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SPEC = dict(l_max=2, n_ang=2, n_rad=4, n_spin=2, basis_size=6, hidden=16)
 FIELD = (0.0, 0.1, 0.3)
@@ -187,3 +190,67 @@ def test_spin_norm_conserved_f64():
         assert float(torch.abs(norm[mag] - 1.0).max()) < 1e-12
         assert float(norm[~mag].abs().max()) == 0.0
         assert s.step == 5
+
+
+# ---------------------------------------------------------------------------
+# statistical tests of the thermostats (ports of tests/test_integrator.py)
+# ---------------------------------------------------------------------------
+
+def test_single_spin_boltzmann():
+    """One spin in a field: <cos theta> matches the Langevin function
+    L(x) = coth x - 1/x, through the legacy ``make_step`` (the sLLG
+    fluctuation-dissipation discretization)."""
+    t_k, b_z = 50.0, 10.0     # K, Tesla
+    x = 1.16 * units.MU_B * b_z / (units.KB * t_k)
+    expect = 1.0 / np.tanh(x) - 1.0 / x
+    cfg = tint.IntegratorConfig(dt=2e-3, temperature=t_k, spin_alpha=0.5,
+                                moment=1.16)
+    field_e = 1.16 * units.MU_B * b_z   # eV per unit spin
+
+    def evaluate(pos, spin):
+        return tint.ForceField(
+            energy=torch.zeros(()), force=torch.zeros_like(pos),
+            field=torch.tensor([[0.0, 0.0, field_e]]).expand(pos.shape[0],
+                                                              3))
+
+    step = tint.make_step(evaluate, cfg, torch.tensor([55.0]),
+                          torch.tensor([True]))
+    n = 256   # independent spins sampled in parallel
+    state = SpinLatticeState(
+        pos=torch.zeros((n, 3)), vel=torch.zeros((n, 3)),
+        spin=torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1),
+        types=torch.zeros((n,), dtype=torch.int32),
+        box=torch.full((3,), 100.0))
+    ff = evaluate(state.pos, state.spin)
+    gen = torch.Generator().manual_seed(0)
+    sz = []
+    for i in range(3000):
+        state, ff = step(state, ff, gen)
+        if i >= 1000:     # discard burn-in
+            sz.append(state.spin[:, 2].mean())
+    got = float(torch.stack(sz).mean())
+    assert abs(got - expect) < 0.05, f"<cos> {got} vs Langevin {expect}"
+
+
+def test_langevin_thermostat_equilibrates():
+    """A 240 K lattice under a 120 K Langevin thermostat reaches ~120 K in
+    400 steps (the fused Simulation, Heisenberg-DMI)."""
+    from repro_torch.core.hamiltonian import HeisenbergDMIModel
+    from repro_torch.md.lattice import simple_cubic
+    from repro_torch.md.simulate import Simulation
+    from repro_torch.md.state import init_state, temperature_of
+    lat = simple_cubic()
+    st = init_state(lat, (4, 4, 4), generator=torch.Generator()
+                    .manual_seed(3), temperature=240.0, spin_init="random",
+                    device="cpu")
+    cfg = tint.IntegratorConfig(dt=2e-3, temperature=120.0,
+                                lattice_gamma=5.0, spin_alpha=0.1)
+    sim = Simulation(potential=HeisenbergDMIModel(d0=0.004, ka=0.001),
+                     cfg=cfg, state=st,
+                     masses=torch.tensor(lat.masses, dtype=torch.float32),
+                     magnetic=torch.tensor(lat.moments) > 0, cutoff=5.0,
+                     capacity=8, device="cpu")
+    sim.run(400, torch.Generator().manual_seed(3), chunk=100)
+    t = float(temperature_of(sim.state, torch.tensor(lat.masses,
+                                                     dtype=torch.float32)))
+    assert 70.0 < t < 180.0, f"lattice T {t} K (target 120)"
