@@ -81,11 +81,48 @@ C. Heisenberg-DMI on the same 262,144-atom B20 lattice (Morse minimum at
    against ``index_add_`` on the same inputs (f32 within 2e-5 of max
    |ref|; two deterministic evaluations equal), and both timed;
    one ``{"md_surface": ...}`` line with phases A-C's numbers;
+D. the md_loop scenario (``launch/md_loop.py``: simple cubic 16^3 = 4,096
+   atoms, chunk 20, skin 0.2, capacity 8, 500 K): Heisenberg-DMI fused
+   against legacy (400 steps), autograd NEP-SPIN fused against legacy (60),
+   the K1/K2 path (20) against the autograd fused path, and telemetry
+   runs against bare ones in turns, with the scenario's gates (>= 3
+   rebuilds per fused run, 1 on the
+   kernel path; no kernel build or load while timed; telemetry overhead
+   under 25 %); every K1 and K2 launch of the kernel path in the warp
+   body; then K1 and K2, both bodies, on the kernel path's own table,
+   blocks and spins after its timed run against the plain versions (f32
+   1e-4; f64 1e-9 on the same inputs cast); one ``{"md_loop": ...}`` line
+   with those errors;
+E. the Replicated plan at full width: 4 copies of the main path's lattice
+   (4 x 262,144 atoms, each replica's velocities and a 0.02 A position
+   jitter from its own generator) under phase A's field cooling, 3 x 20
+   steps: K1 and K2 launches equal 1 + steps + rebuilds (one launch per
+   evaluation for all replicas), all warp; (b) K1 and K2 on an R = 4
+   batch of B20 8x8x8, both bodies, against the plain versions (f64 1e-9,
+   f32 1e-4) and each replica bitwise a flat launch; (c) a 10-step chunk
+   of the batch bitwise 4 flat Engines on its table with the same
+   generators; (d) checkpoints every chunk leave the run bitwise as it
+   was, and a resume from the chunk-1 checkpoint is bitwise the
+   uninterrupted run; (e) per-slot mode on a frozen lattice:
+   ``write_slots`` into slot 2 between chunks leaves slots 0, 1 and 3
+   bitwise unchanged; replica-steps/s, atom-steps/s, peak memory, and K1
+   and K2 per batched launch beside 4 flat launches (in turns); one
+   ``{"replica_plan": ...}`` line;
+F. the ensemble layer: ``launch/skyrmion_nucleation.py`` at
+   ``nucleation_ensemble()`` (8 x 32x32x1 films, Heisenberg-DMI, thermal
+   and cold; depth cut to ``NUCLEATION_STEPS``), parallel tempering on
+   four of its films, a 4-rung ladder over its protocol's 20-95 K, a swap
+   attempt every 10 steps for ``TEMPERING_CHUNKS`` chunks (accepts > 0),
+   ``run_sweep`` on
+   ``nucleation_ensemble_smoke()``'s grid, and ``launch/ensemble_rate.py``
+   at R = 1, 4 and 16; one ``{"ensemble": ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
     earlier body is gone; all with ptxas's report of the body timed; K1
-    and K2 with ``launches_field_cooling`` from phase A), then
+    and K2 with ``launches_field_cooling`` from phase A, and from phase E
+    ``launches_replica``, ``replica_ms`` and ``replica_flat_ms`` (one
+    batched launch at R = 4, and 4 flat launches)), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -261,8 +298,9 @@ def ptxas_of(reports: dict, library: str, *parts) -> dict:
     return hits[0]
 
 
-# the timed bodies' kernels in ptxas's reports (mangled names)
-PROD_SIZES = "SizesILi2ELi8ELi6ELi4ELi4ELi4ELi32ELi3EEEfE"
+# the timed bodies' kernels in ptxas's reports (mangled names): the warp
+# bodies' flat instantiation (BATCH false) at the production spec, f32
+PROD_SIZES = "SizesILi2ELi8ELi6ELi4ELi4ELi4ELi32ELi3EEEfLb0EE"
 PTXAS_K1_WARP = ("nep_atom_pass", "atom_pass_warp_kernel", PROD_SIZES)
 PTXAS_K1_THREAD = ("nep_atom_pass", "atom_pass_kernelIfE")
 PTXAS_K2_WARP = ("nep_force_pass", "force_pass_warp_kernel", PROD_SIZES)
@@ -1037,6 +1075,472 @@ def phase_heisenberg(torch, dev, lat) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# later slices: the md_loop scenario, the replica plan, the ensemble layer
+# ---------------------------------------------------------------------------
+
+REPLICAS = 4
+REP_CHUNKS, REP_CHUNK = 3, 20
+REP_FLAT_STEPS = 10       # (c): a chunk short enough to trip no rebuild
+REP_JITTER = 0.02         # A: each replica's positions, from its generator
+REP_KERNEL_CELLS = (8, 8, 8)   # (b): phase 2's 4,096-atom lattice
+# phase F's depth, cut for the time limit (the autograd Heisenberg-DMI
+# evaluation loops over the replicas: ~80 ms a step for 8 films); the
+# protocol keeps its shape (its knots scale with the step count)
+NUCLEATION_STEPS = 500     # of nucleation_ensemble()'s 2,000
+SWEEP_STEPS = 100          # of nucleation_ensemble_smoke()'s 300
+TEMPERING_CHUNKS = 8       # of 10 steps, on nucleation_ensemble()'s film
+
+
+def md_loop_kernels(torch, kern, ref, sim) -> dict:
+    """Phase D's kernels on the md_loop path's own inputs: the kernel
+    path's table, blocks and spins after its timed run (4,096 simple-cubic
+    atoms, M = 8, the md_loop spec), K1 and K2 in both bodies against the
+    plain versions at f32 (1e-4) and, on the same inputs cast, f64
+    (1e-9)."""
+    from repro_torch.core.potential import NEPSpinParams
+    c = sim._engine._carry
+    spec, types = sim.potential.spec, c.state.types
+    errs = {"nep_atom_pass": {}, "nep_force_pass": {}}
+    for dtype, bar, tag in ((torch.float32, 1e-4, "f32"),
+                            (torch.float64, 1e-9, "f64")):
+        params = NEPSpinParams(*(p.to(dtype) for p in sim.potential.params))
+        dr, spin = c.nbh.dr.to(dtype), c.state.spin.to(dtype)
+        sj = spin[c.nbh.idx.long()]
+        blocks = (dr, c.nbh.mask, types, c.nbh.tj, spin, sj)
+        want1 = ref.atom_pass_plain(spec, params, *blocks)
+        k2_args = (dr, c.nbh.mask, c.nbh.idx, types, c.nbh.tj, spin, sj,
+                   want1[2])
+        want2 = ref.force_pass_plain(spec, params, *k2_args)
+        for body in kern.BODIES:
+            got1 = kern.nep_atom_pass(spec, params, *blocks, body=body)
+            got2 = kern.nep_force_pass(spec, params, *k2_args, body=body)
+            torch.cuda.synchronize()
+            e1 = max(check(f"K1 md_loop {body} {o} {tag}", a, b, bar)
+                     for o, a, b in zip(("e", "hdir", "abar"), got1, want1))
+            e2 = max(check(f"K2 md_loop {body} {o} {tag}", a, b, bar)
+                     for o, a, b in zip(("F", "h2"), got2, want2))
+            errs["nep_atom_pass"][f"{body}_{tag}"] = e1
+            errs["nep_force_pass"][f"{body}_{tag}"] = e2
+    return errs
+
+
+def phase_md_loop(torch, kern, ref) -> dict:
+    """Phase D: the md_loop scenario (launch/md_loop.py) with its gates;
+    every K1 and K2 launch of the kernel path in the warp body; then both
+    kernels, both bodies, against their plain versions on the path's own
+    inputs."""
+    from repro_torch.launch.md_loop import run_scenario
+    log("phase D: the md_loop scenario, simple cubic 16^3 = 4,096 atoms, "
+        "chunk 20, skin 0.2, capacity 8, 500 K")
+    sims = {}
+    out = run_scenario("cuda", keep=sims)
+    kp = out["potentials"]["nep_kernel"]
+    for name, c in kp["fused"]["launches"].items():
+        if c["total"] == 0 or c["warp"] != c["total"] or c["thread"]:
+            raise AssertionError(f"md_loop kernel path: {name} launches {c}"
+                                 ", expected all in the warp body")
+    log(f"  vs_autodiff {kp['vs_autodiff']:.3f}; kernel-path launches "
+        f"{kp['fused']['launches']}; telemetry overhead "
+        f"{100 * out['telemetry']['overhead_vs_fused']:.1f}%")
+    out["kernel_rel_err"] = md_loop_kernels(
+        torch, kern, ref, sims["nep_kernel", "fused"])
+    del sims
+    torch.cuda.empty_cache()
+    return out
+
+
+def replica_states(torch, dev, lat, cells, dtype, seed, temperature):
+    """REPLICAS distinct states: each replica's velocities and a small
+    position jitter drawn from its own generator."""
+    from repro_torch.md.state import init_state, stack_states
+    sts = []
+    for r in range(REPLICAS):
+        g = torch.Generator(device=dev).manual_seed(seed + r)
+        st = init_state(lat, cells, generator=g, temperature=temperature,
+                        dtype=dtype, device=dev)
+        jit = REP_JITTER * torch.randn(st.pos.shape, generator=g,
+                                       dtype=dtype, device=dev)
+        sts.append(st._replace(pos=torch.remainder(st.pos + jit, st.box)))
+    return stack_states(sts)
+
+
+def replica_kernels(torch, dev, spec, lat, kern, ref) -> dict:
+    """Phase E (b): K1 and K2 on a replica batch (R = 4, B20 8x8x8, both
+    bodies) against the plain versions at f64 (1e-9) and f32 (1e-4), and
+    replica r of each batched launch bitwise against a flat launch on
+    replica r's inputs."""
+    from repro_torch.core.potential import NEPSpinParams, init_params
+    from repro_torch.md.neighbor import (cell_neighbor_table, reference_pos,
+                                         shared_blocks)
+    errs = {"nep_atom_pass": {}, "nep_force_pass": {}}
+    p64 = init_params(spec, torch.Generator(device=dev).manual_seed(41),
+                      dtype=torch.float64, device=dev)
+    for dtype, bar, tag in ((torch.float64, 1e-9, "f64"),
+                            (torch.float32, 1e-4, "f32")):
+        st = replica_states(torch, dev, lat, REP_KERNEL_CELLS, dtype, 50,
+                            0.0)
+        g = torch.Generator(device=dev).manual_seed(42)
+        spin = torch.nn.functional.normalize(torch.randn(
+            st.spin.shape, generator=g, dtype=dtype, device=dev), dim=-1)
+        spin = spin * (st.spin.norm(dim=-1, keepdim=True) > 0)
+        params = NEPSpinParams(*(p.to(dtype) for p in p64))
+        box, types = st.box[0], st.types[0]
+        tab = cell_neighbor_table(reference_pos(st.pos, box), box,
+                                  spec.cutoff, 64, cell_capacity=32)
+        nbh = shared_blocks(tab, types, st.pos, box)
+        sj = spin[:, nbh.idx.long()]
+        blocks = (nbh.dr, nbh.mask, types, nbh.tj, spin, sj)
+        want1 = ref.atom_pass_plain(spec, params, *blocks)
+        k2_args = (nbh.dr, nbh.mask, nbh.idx, types, nbh.tj, spin, sj,
+                   want1[2])
+        want2 = ref.force_pass_plain(spec, params, *k2_args)
+        for body in kern.BODIES:
+            got1 = kern.nep_atom_pass(spec, params, *blocks, body=body)
+            got2 = kern.nep_force_pass(spec, params, *k2_args, body=body)
+            torch.cuda.synchronize()
+            e1 = max(check(f"K1 R={REPLICAS} {body} {o} {tag}", a, b, bar)
+                     for o, a, b in zip(("e", "hdir", "abar"), got1, want1))
+            e2 = max(check(f"K2 R={REPLICAS} {body} {o} {tag}", a, b, bar)
+                     for o, a, b in zip(("F", "h2"), got2, want2))
+            for r in range(REPLICAS):
+                flat1 = kern.nep_atom_pass(
+                    spec, params, nbh.dr[r], nbh.mask, types, nbh.tj,
+                    spin[r], sj[r], body=body)
+                flat2 = kern.nep_force_pass(
+                    spec, params, nbh.dr[r], nbh.mask, nbh.idx, types,
+                    nbh.tj, spin[r], sj[r], want1[2][r], body=body)
+                for o, a, b in zip(("e", "hdir", "abar", "F", "h2"),
+                                   (*got1, *got2), (*flat1, *flat2)):
+                    if not torch.equal(a[r], b):
+                        raise AssertionError(
+                            f"{body} {tag}: replica {r}'s {o} of the "
+                            "batched launch is not the flat launch's")
+            if body == "warp":
+                errs["nep_atom_pass"][tag] = e1
+                errs["nep_force_pass"][tag] = e2
+        log(f"  {tag}: every replica of the batched launches bitwise the "
+            "flat launch, both bodies")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def replica_engine(torch, dev, spec, params, lat, moments, states, **kw):
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import NEPSpinPotential
+    from repro_torch.ensemble import protocol
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.parallel.plan import Replicated
+    run = main_path()
+    dtype = states.pos.dtype
+    temp, field = protocol.field_cooling(
+        FC_T["t_hot"], FC_T["t_cold"], FC_T["b_field"],
+        t_hold=FC_T["t_hold"], t_ramp=FC_T["t_ramp"])
+    cfg = kw.pop("cfg", IntegratorConfig(dt=run.dt,
+                                         lattice_gamma=run.lattice_gamma,
+                                         spin_alpha=run.spin_alpha))
+    return Engine(
+        NEPSpinPotential(spec, params, moments.to(dtype), use_kernel=True),
+        cfg, states, torch.tensor(lat.masses, dtype=dtype, device=dev),
+        torch.tensor(lat.moments, device=dev) > 0, spec.cutoff,
+        plan=kw.pop("plan", Replicated(REPLICAS)), temperature=temp,
+        field=field, capacity=run.capacity, skin=run.skin,
+        use_cell_list=True, cell_capacity=run.cell_capacity, device=dev,
+        **kw)
+
+
+def same_replicas(torch, a, b, what, slots=None):
+    for k in ("pos", "vel", "spin"):
+        x, y = getattr(a.state, k), getattr(b.state, k)
+        for r in (range(x.shape[0]) if slots is None else slots):
+            if not torch.equal(x[r], y[r]):
+                d = float((x[r] - y[r]).abs().max())
+                raise AssertionError(f"{what}: replica {r}'s {k} differs "
+                                     f"(max |diff| {d:.3e})")
+
+
+def phase_replica(torch, dev, spec, lat, moments, kern, ref) -> dict:
+    """Phase E: the Replicated plan at full width (4 x 262,144 atoms)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import init_params
+    from repro_torch.ensemble.replica import spawn_generators
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.state import init_state, stack_states, unstack_state
+    from repro_torch.parallel.plan import SingleDevice
+    from repro_torch.telemetry import peak_device_memory
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    steps = REP_CHUNKS * REP_CHUNK
+    log(f"phase E: Replicated({REPLICAS}) x B20 {run.unit_cells} = "
+        f"{REPLICAS} x {run.n_atoms} atoms, field cooling {FC_T}, "
+        f"{REP_CHUNKS} x {REP_CHUNK} steps, K1/K2 batched over the replicas")
+    errs = replica_kernels(torch, dev, spec, lat, kern, ref)
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(43),
+                         dtype=dtype, device=dev)
+
+    def states():
+        return replica_states(torch, dev, lat, run.unit_cells, dtype, 60,
+                              FC_T["t_hot"])
+
+    # (a) the run, every evaluation one K1 and one K2 launch for all R
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_md_counters(kern)
+    eng = replica_engine(torch, dev, spec, params, lat, moments, states())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(steps, spawn_generators(61, REPLICAS, dev), chunk=REP_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = peak_device_memory()
+    counts = read_md_counters(kern)
+    expect = 1 + steps + eng.n_rebuilds
+    n_atoms = eng.state.pos.shape[1]
+    log(f"  {steps} steps of {REPLICAS} replicas in {secs:.3f} s = "
+        f"{steps / secs:.3f} steps/s, {REPLICAS * steps / secs:.3f} "
+        f"replica-steps/s, {REPLICAS * n_atoms * steps / secs:.4e} "
+        f"atom-steps/s; rebuilds {eng.n_rebuilds}; launches {counts}; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    for name, (n, by_body) in counts.items():
+        if n != expect or by_body != {"warp": expect, "thread": 0}:
+            raise AssertionError(f"{name}: launches {n} by body {by_body}, "
+                                 f"expected {expect} (one per evaluation "
+                                 "for all replicas), all warp")
+    for k, v in eng.trace.values.items():
+        if v.shape[:2] != (REP_CHUNKS, REPLICAS) or not np.isfinite(v).all():
+            raise AssertionError(f"replica observable {k}: shape {v.shape} "
+                                 "or non-finite values")
+    for k in ("pos", "vel", "spin"):
+        if not bool(torch.isfinite(getattr(eng.state, k)).all()):
+            raise AssertionError(f"replica state {k} non-finite")
+    out = dict(steps_per_s=steps / secs,
+               replica_steps_per_s=REPLICAS * steps / secs,
+               atom_steps_per_s=REPLICAS * n_atoms * steps / secs,
+               seconds=secs, rebuilds=eng.n_rebuilds, launches=expect,
+               peak_memory_bytes=peak, kernel_rel_err=errs)
+
+    # K1/K2 per batched launch beside R flat launches, in turns
+    c = eng._carry
+    nbh, spin, types = c.nbh, c.states.spin, eng._types0
+    sj = spin[:, nbh.idx.long()]
+    e, hdir, abar = kern.nep_atom_pass(spec, params, nbh.dr, nbh.mask, types,
+                                       nbh.tj, spin, sj)
+    def rows(x, r):          # the batch, or replica r's rows
+        return x if r is None else x[r]
+
+    def k1(r=None):
+        return kern.nep_atom_pass(spec, params, rows(nbh.dr, r), nbh.mask,
+                                  types, nbh.tj, rows(spin, r), rows(sj, r))
+
+    def k2(r=None):
+        return kern.nep_force_pass(spec, params, rows(nbh.dr, r), nbh.mask,
+                                   nbh.idx, types, nbh.tj, rows(spin, r),
+                                   rows(sj, r), rows(abar, r))
+
+    times = {}
+    for name, fn in (("nep_atom_pass", k1), ("nep_force_pass", k2)):
+        t = {"batched": [], "flat": []}
+        for how in ("batched", "flat", "flat", "batched"):
+            t[how].append(time_ms(torch, fn if how == "batched" else (
+                lambda: [fn(r) for r in range(REPLICAS)]), 10))
+        times[name] = {"batched_ms": sum(t["batched"]) / 2,
+                       "flat_ms": sum(t["flat"]) / 2}
+    log(f"  K1/K2 at R={REPLICAS}: one batched launch vs {REPLICAS} flat "
+        f"launches (ms): {times}")
+    out["kernel_ms"] = times
+    out["blocks_bytes"] = {"dr": nbytes(nbh.dr), "sj": nbytes(sj),
+                           "abar": nbytes(abar),
+                           "table": nbytes(nbh.idx, nbh.mask, nbh.tj)}
+    del c, nbh, spin, sj, e, hdir, abar, k1, k2
+
+    # (c) one chunk of the batch bitwise 4 flat Engines with its table
+    rep = replica_engine(torch, dev, spec, params, lat, moments, states())
+    table0 = rep.table           # the shared table before the chunk
+    rep.run(REP_FLAT_STEPS, spawn_generators(62, REPLICAS, dev),
+            chunk=REP_FLAT_STEPS)
+    gens = spawn_generators(62, REPLICAS, dev)
+    st0 = states()
+    flats = []
+    for r in range(REPLICAS):
+        flat = replica_engine(torch, dev, spec, params, lat, moments,
+                              unstack_state(st0, r),
+                              plan=SingleDevice(cell_order=False),
+                              table=table0)
+        flat.run(REP_FLAT_STEPS, gens[r], chunk=REP_FLAT_STEPS)
+        if flat.n_rebuilds or rep.n_rebuilds:
+            raise AssertionError("(c) needs a chunk without rebuilds: "
+                                 f"{flat.n_rebuilds}, {rep.n_rebuilds}")
+        for k in ("pos", "vel", "spin"):
+            if not torch.equal(getattr(flat.state, k),
+                               getattr(rep.state, k)[r]):
+                raise AssertionError(f"(c) replica {r}'s {k} is not the "
+                                     "flat Engine's")
+        if flat.energy != float(rep.energy[r]):
+            raise AssertionError(f"(c) replica {r}'s energy differs")
+        flats.append(flat.energy)
+        del flat
+    log(f"  (c) a {REP_FLAT_STEPS}-step chunk of the batch is bitwise "
+        f"{REPLICAS} flat Engines on its table (energies {flats})")
+    del rep
+
+    # (d) checkpoints every chunk leave the run as it was; a resume from
+    # the chunk-1 checkpoint is bitwise the uninterrupted run
+    ckpt = SURFACE_DIR / "replica_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    again = replica_engine(torch, dev, spec, params, lat, moments, states())
+    again.ckpt_pin = REP_CHUNK
+    again.run(steps, spawn_generators(61, REPLICAS, dev), chunk=REP_CHUNK,
+              checkpoint_dir=str(ckpt), checkpoint_keep=2)
+    same_replicas(torch, eng, again, "checkpointed run")
+    fresh = replica_engine(torch, dev, spec, params, lat, moments, states())
+    gens = fresh.restore(str(ckpt), step=REP_CHUNK)
+    fresh.run(steps - REP_CHUNK, gens, chunk=REP_CHUNK)
+    same_replicas(torch, eng, fresh, "replica resume")
+    if (fresh.n_rebuilds != eng.n_rebuilds or not np.array_equal(
+            fresh.trace.values["energy"], eng.trace.values["energy"][1:])):
+        raise AssertionError("replica resume: rebuilds or trace differ")
+    log(f"  (d) the resumed run is bitwise the uninterrupted one (rebuilds "
+        f"{fresh.n_rebuilds}, trace rows)")
+    del again, fresh, eng
+
+    # (e) per-slot mode, frozen lattice: a job seated in slot 2 between
+    # chunks leaves slots 0, 1 and 3 bitwise as they were
+    frozen = IntegratorConfig(dt=run.dt, spin_alpha=run.spin_alpha,
+                              frozen_lattice=True)
+    runs = []
+    for write in (False, True):
+        e_ = replica_engine(torch, dev, spec, params, lat, moments, states(),
+                            cfg=frozen, per_slot=True)
+        gens = spawn_generators(63, REPLICAS, dev)
+        e_.run(REP_CHUNK, gens, chunk=REP_CHUNK)
+        if write:
+            job = init_state(lat, run.unit_cells, generator=torch.Generator(
+                device=dev).manual_seed(64), temperature=FC_T["t_hot"],
+                dtype=dtype, device=dev)
+            e_.write_slots([2], stack_states([job]))
+            gens[2] = torch.Generator(device=dev).manual_seed(65)
+        e_.run(REP_CHUNK, gens, chunk=REP_CHUNK)
+        runs.append(e_)
+    same_replicas(torch, runs[0], runs[1], "per-slot write_slots",
+                  slots=(0, 1, 3))
+    h = runs[1].trace.health
+    log(f"  (e) per-slot: slots 0, 1, 3 bitwise unchanged by write_slots "
+        f"into slot 2; clocks {runs[1].state.step.tolist()}; slot health "
+        f"{ {k: h[k][-1].tolist() for k in ('slot_nonfinite', 'slot_e_drift', 'slot_spin_dev')} }")
+    del runs, e_
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ensemble(torch, dev) -> dict:
+    """Phase F: the ensemble layer at the reference's sizes."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.fege_spinlattice import (
+        nucleation_ensemble, nucleation_ensemble_smoke)
+    from repro_torch.ensemble import protocol
+    from repro_torch.ensemble.replica import (ReplicaEnsemble, replicate,
+                                              spawn_generators)
+    from repro_torch.ensemble.sweep import run_sweep
+    from repro_torch.launch import ensemble_rate, skyrmion_nucleation
+    from repro_torch.launch.sweep import build_film
+    from repro_torch.md.integrator import IntegratorConfig
+    ecfg = dataclasses.replace(nucleation_ensemble(),
+                               n_steps=NUCLEATION_STEPS)
+    log(f"phase F: the ensemble layer: {ecfg.name} ({ecfg.n_replicas} x "
+        f"{ecfg.n_cells} film, {ecfg.n_steps} steps, Heisenberg-DMI), "
+        "parallel tempering, run_sweep, ensemble_rate")
+    out = {}
+    t0 = time.perf_counter()
+    q_th = skyrmion_nucleation.run(True, ecfg.n_steps, ecfg.n_replicas,
+                                   ecfg.b_field, device=dev, log=lambda *a:
+                                   None)
+    t1 = time.perf_counter()
+    q_cold = skyrmion_nucleation.run(False, ecfg.n_steps, 1, ecfg.b_field,
+                                     device=dev, log=lambda *a: None)
+    t2 = time.perf_counter()
+    chunks = ecfg.n_steps // ecfg.chunk
+    if q_th.shape != (chunks, ecfg.n_replicas) or q_cold.shape != (
+            chunks, 1) or not (np.isfinite(q_th).all()
+                               and np.isfinite(q_cold).all()):
+        raise AssertionError(f"nucleation: charges {q_th.shape}, "
+                             f"{q_cold.shape} or non-finite")
+    out["nucleation"] = dict(
+        skyrmion_nucleation.summarize(q_th, q_cold), thermal_s=t1 - t0,
+        cold_s=t2 - t1, n_atoms=int(np.prod(ecfg.n_cells)),
+        thermal_replica_steps_per_s=ecfg.n_replicas * ecfg.n_steps
+        / (t1 - t0), cold_steps_per_s=ecfg.n_steps / (t2 - t1))
+    log(f"  nucleation: {out['nucleation']}")
+
+    # tempering on the nucleation ensemble's film (32x32x1), a 4-rung
+    # ladder over its protocol's range, a swap attempt every chunk
+    lat, ham, st = build_film(ecfg, 0, dev)
+    ens = ReplicaEnsemble(
+        potential=ham, cfg=IntegratorConfig(
+            dt=ecfg.dt, lattice_gamma=ecfg.lattice_gamma,
+            spin_alpha=ecfg.spin_alpha),
+        states=replicate(st, 4),
+        masses=torch.tensor(lat.masses, dtype=torch.float32, device=dev),
+        magnetic=torch.tensor(lat.moments, device=dev) > 0, cutoff=5.0,
+        capacity=8, diag_grid=(32, 32), device=dev)
+    t0 = time.perf_counter()
+    tr = ens.run(TEMPERING_CHUNKS * 10, spawn_generators(70, 4, dev),
+                 temperature=protocol.temperature_ladder(
+                     ecfg.t_cold, ecfg.t_hot, 4),
+                 chunk=10, exchange_every=1,
+                 exchange_generator=torch.Generator().manual_seed(71))
+    # parity alternates: 2 pairs, then 1, per chunk
+    attempts = 3 * TEMPERING_CHUNKS // 2
+    if (tr.exchange_attempts != attempts
+            or not 0 < tr.exchange_accepts <= attempts):
+        raise AssertionError(f"parallel tempering: {tr.exchange_accepts} of "
+                             f"{tr.exchange_attempts} swaps accepted")
+    out["tempering"] = {"accepts": tr.exchange_accepts,
+                        "attempts": tr.exchange_attempts,
+                        "n_atoms": int(st.pos.shape[0]),
+                        "seconds": time.perf_counter() - t0}
+    log(f"  parallel tempering (4 x {ecfg.n_cells} films, ladder "
+        f"{ecfg.t_cold:g}-{ecfg.t_hot:g} K, {TEMPERING_CHUNKS} chunks of 10 "
+        f"steps): {tr.exchange_accepts} of {tr.exchange_attempts} swaps "
+        "accepted")
+
+    scfg = nucleation_ensemble_smoke()
+    lat, ham, st = build_film(scfg, 0, dev)
+    t0 = time.perf_counter()
+    pd = run_sweep(
+        st, ham, IntegratorConfig(dt=scfg.dt,
+                                  lattice_gamma=scfg.lattice_gamma,
+                                  spin_alpha=scfg.spin_alpha),
+        torch.tensor(lat.masses, dtype=torch.float32, device=dev),
+        torch.tensor(lat.moments, device=dev) > 0,
+        scfg.sweep_temperatures, scfg.sweep_fields,
+        n_replicas=scfg.n_replicas, n_steps=SWEEP_STEPS, seed=72,
+        cutoff=5.0, capacity=8, chunk=scfg.chunk, device=dev)
+    grid = (len(scfg.sweep_temperatures), len(scfg.sweep_fields))
+    for k in ("charge", "charge_abs", "charge_std", "magnetization", "pitch",
+              "energy"):
+        v = getattr(pd, k)
+        if v.shape != grid or not np.isfinite(v).all():
+            raise AssertionError(f"run_sweep: {k} {v.shape} not filled")
+    out["sweep"] = {"seconds": time.perf_counter() - t0,
+                    "charge_abs": pd.charge_abs.tolist(),
+                    "magnetization": pd.magnetization.tolist()}
+    log(f"  run_sweep {grid} x {scfg.n_replicas} replicas: "
+        f"{out['sweep']}")
+    out["rate"] = ensemble_rate.measure(dev)
+    log(f"  ensemble_rate (16x16x1, chunk 50): {out['rate']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1309,6 +1813,22 @@ def main() -> int:
             row["launches_field_cooling"] = surface["field_cooling"][
                 "profiled"]["launches"]
     print(json.dumps({"md_surface": surface}), flush=True)
+    md_loop = phase_md_loop(torch, kern, ref)
+    print(json.dumps({"md_loop": md_loop}), flush=True)
+    replica = phase_replica(torch, dev, spec, lat, moments, kern, ref)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            row["launches_replica"] = replica["launches"]
+            row["replica_ms"] = replica["kernel_ms"][row["name"]][
+                "batched_ms"]
+            row["replica_flat_ms"] = replica["kernel_ms"][row["name"]][
+                "flat_ms"]
+            row["max_rel_err_replica"] = replica["kernel_rel_err"][
+                row["name"]]
+            row["max_rel_err_md_loop"] = md_loop["kernel_rel_err"][
+                row["name"]]
+    print(json.dumps({"replica_plan": replica}), flush=True)
+    print(json.dumps({"ensemble": phase_ensemble(torch, dev)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

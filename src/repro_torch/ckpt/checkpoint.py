@@ -287,10 +287,16 @@ def load_checkpoint(directory: str, tree_like, step: int | None = None,
 def save_md(directory: str, step: int, carry, generator, *, keep: int = 3,
             async_: bool = False, pin: int | None = None) -> SaveHandle:
     """Checkpoint an MD engine's carry and the state of its run's
-    ``torch.Generator`` (None for a run that draws no noise).  Restoring
-    both at a chunk boundary reproduces the uninterrupted run bitwise."""
-    gstate = (np.zeros((0,), np.uint8) if generator is None
-              else generator.get_state().numpy())
+    ``torch.Generator`` (None for a run that draws no noise; a sequence of
+    generators, one per replica, is saved as a stack of their states).
+    Restoring both at a chunk boundary reproduces the uninterrupted run
+    bitwise."""
+    if generator is None:
+        gstate = np.zeros((0,), np.uint8)
+    elif isinstance(generator, torch.Generator):
+        gstate = generator.get_state().numpy()
+    else:
+        gstate = np.stack([g.get_state().numpy() for g in generator])
     return save_checkpoint(directory, step,
                            {"carry": carry, "generator": gstate},
                            keep=keep, async_=async_, pin=pin)
@@ -298,7 +304,8 @@ def save_md(directory: str, step: int, carry, generator, *, keep: int = 3,
 
 def load_md(directory: str, carry_like, *, step: int | None = None):
     """Restore ``(carry, generator_state, step)`` saved by :func:`save_md`;
-    ``generator_state`` is a CPU uint8 tensor, or None."""
+    ``generator_state`` is a CPU uint8 tensor ((R, S) for a stack), or
+    None."""
     tree, step = load_checkpoint(
         directory, {"carry": carry_like, "generator": np.zeros(0, np.uint8)},
         step=step, strict_shapes=False)

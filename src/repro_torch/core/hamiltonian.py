@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.core.descriptor import cutoff_fn
 from repro_torch.md.neighbor import (NeighborTable, Neighborhood,
-                                     compute_from_blocks, gather_neighbors)
+                                     compute_from_blocks, compute_replicas,
+                                     gather_neighbors)
 from repro_torch.utils import units
 
 
@@ -136,7 +137,15 @@ class HeisenbergDMIModel:
         positions enter only through ``nbh.dr``; neighbor spins are gathered
         here, since spins change between evaluations at fixed positions.
         ``plain`` sums the pair reactions with ``index_add_`` (see
-        :func:`~repro_torch.md.neighbor.compute_from_blocks`)."""
+        :func:`~repro_torch.md.neighbor.compute_from_blocks`).  A replica
+        batch (``spin`` (R, N, 3), ``field`` (R, 3)) is evaluated one
+        replica at a time, in a Python loop
+        (:func:`~repro_torch.md.neighbor.compute_replicas`)."""
+        if spin.dim() == 3:
+            return compute_replicas(
+                lambda *a: self.compute(*a, plain=plain), nbh, spin, types,
+                field)
+
         def etot(dr, s, rows):
             dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + 1e-30)
             e = torch.sum(self.atom_energies(dr, dist, nbh.mask, types,

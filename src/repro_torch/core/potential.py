@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.core.descriptor import NEPSpinSpec, descriptors
 from repro_torch.md.neighbor import (NeighborTable, Neighborhood,
-                                     compute_from_blocks, gather_neighbors)
+                                     compute_from_blocks, compute_replicas,
+                                     gather_neighbors)
 from repro_torch.utils import units
 from repro_torch.utils.device import resolve_device
 
@@ -199,9 +200,16 @@ class NEPSpinPotential:
                           device=types.device)
 
     def compute(self, nbh: Neighborhood, spin, types, field=None):
+        """``(E, F, H_eff)`` from pre-gathered blocks; a replica batch
+        (``spin`` (R, N, 3), ``field`` (R, 3)) goes through K1 and K2 once
+        for all replicas with ``use_kernel``, else through autograd one
+        replica at a time (:func:`~repro_torch.md.neighbor.compute_replicas`,
+        a Python loop)."""
         if self.use_kernel:
             from repro_torch.kernels.nep.ops import nep_compute
             return nep_compute(self.spec, self.params, nbh, spin, types,
                                field, self.moments)
+        if spin.dim() == 3:
+            return compute_replicas(self.compute, nbh, spin, types, field)
         return compute(self.spec, self.params, nbh, spin, types, field,
                        self.moments)

@@ -16,7 +16,7 @@ chunk's rows once per chunk and never reads a schedule back from the card.
 Outside the knot range the endpoint values hold (clamped); duplicate knot
 times give exact step discontinuities (quenches).  :class:`SlotSchedules`
 stacks R independent schedules, each on its own clock (the replica plan's
-per-slot mode, ROADMAP queue 1 item 9).
+per-slot mode, ``Engine(per_slot=True)``).
 """
 from __future__ import annotations
 

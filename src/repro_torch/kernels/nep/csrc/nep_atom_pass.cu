@@ -26,7 +26,8 @@
 // * atom_pass_warp_kernel (nep_atom_pass_warp_*): one warp per atom,
 //   templated on the spec's sizes (nep_common.cuh: Sizes, the list K2's
 //   warp body reads), so every loop over them unrolls; kernel.py:
-//   atom_pass_body picks it for the specs of configs/fege_spinlattice.py.
+//   atom_pass_body picks it for the specs of configs/fege_spinlattice.py
+//   and the md_loop scenario (launch/md_loop.py).
 //   As in K2, the lanes read the atom's M slots side by side (coalesced)
 //   and a ballot over mask & (r < rc) packs the live slots into a list;
 //   each lane then takes one live pair and forms, in registers, its basis
@@ -57,6 +58,15 @@
 //   nep_common.cuh; the carriers and MLP weights sit in shared memory
 //   (~15 KB f32, ~30 KB f64), the type dispatch is a direct index
 //   c[ti][tj], and the ragged edge n % BLOCK is masked by the bounds check.
+//
+// Replica axis (the Replicated plan): one launch serves nr replicas that
+// share one table.  mask, tj and ti are the table's, (n, m) and (n,); dr,
+// si, sj and the three outputs carry a leading replica axis.  The grid's y
+// axis is the replica: a block moves those pointers to its replica's rows
+// and runs the flat body unchanged, so replica r of a batched launch is
+// bitwise a launch on replica r's inputs alone.  The warp body's flat
+// instantiation (BATCH false, launched for nr = 1) leaves the move out: with
+// it, the flat launch ran 3 % slower (launch/kernel_rate.py).
 #include "nep_common.cuh"
 
 namespace nep {
@@ -97,6 +107,15 @@ atom_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   stage(s_b2, b2, nt);
   stage(s_qs, q_scale, D);
   __syncthreads();
+
+  // replica blockIdx.y: its blocks and outputs (the table is shared)
+  const size_t rep = blockIdx.y;
+  dr += rep * n * m * 3;
+  si += rep * n * 3;
+  sj += rep * n * m * 3;
+  e_out += rep * n;
+  hdir_out += rep * n * 3;
+  abar_out += rep * n * A;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -288,13 +307,14 @@ int launch_atom_pass(const void* dr, const void* mask, const void* ti,
                      const void* c_rad, const void* c_ang, const void* c_spin,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* q_scale, void* e, void* hdir,
-                     void* abar, int n, int m, Spec sp, void* stream) {
+                     void* abar, int n, int m, int nr, Spec sp,
+                     void* stream) {
   const size_t smem = atom_pass_smem(sp, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       atom_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (n + BLOCK - 1) / BLOCK;
+  const dim3 grid((n + BLOCK - 1) / BLOCK, nr);
   atom_pass_kernel<T><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
       (const T*)dr, (const bool*)mask, (const int*)ti, (const int*)tj,
       (const T*)si, (const T*)sj, (const T*)c_rad, (const T*)c_ang,
@@ -433,7 +453,7 @@ __host__ __device__ constexpr int atom_warp_count() {
   return 32 * R::LD + S::A + 2 * S::D + S::H + R::NMP;
 }
 
-template <typename S, typename T>
+template <typename S, typename T, bool BATCH>
 __global__ void __launch_bounds__(32 * AWARPS, AMIN_BLOCKS)
 atom_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                       const int* __restrict__ ti, const int* __restrict__ tj,
@@ -483,6 +503,18 @@ atom_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
 #pragma unroll
   for (int t = 0; t < R::T; ++t) acc_factors<S>(lane + 32 * t, f1[t], f2[t]);
   const int ofs = S::NR + NA * S::L + S::NO;   // sp_dot features in q
+
+  // a batch's replica blockIdx.y: its blocks and outputs (the table is
+  // shared); a flat launch (BATCH false) runs the body as it was
+  if constexpr (BATCH) {
+    const size_t rep = blockIdx.y;
+    dr += rep * n * m * 3;
+    si += rep * n * 3;
+    sj += rep * n * m * 3;
+    e_out += rep * n;
+    hdir_out += rep * n * 3;
+    abar_out += rep * n * A;
+  }
 
   for (int i = blockIdx.x * AWARPS + warp; i < n; i += gridDim.x * AWARPS) {
     // live slots, in slot order
@@ -668,15 +700,18 @@ int launch_atom_warp(const void* dr, const void* mask, const void* ti,
                      const void* c_rad, const void* c_ang, const void* c_spin,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* q_scale, void* e, void* hdir,
-                     void* abar, int n, int m, double cutoff, void* stream) {
+                     void* abar, int n, int m, int nr, double cutoff,
+                     void* stream) {
   const size_t smem =
       sizeof(T) * (atom_shared_count<S>() + AWARPS * atom_warp_count<S>()) +
       sizeof(int) * AWARPS * m;
-  auto* kern = atom_pass_warp_kernel<S, T>;
+  auto* kern = nr > 1 ? atom_pass_warp_kernel<S, T, true>
+                      : atom_pass_warp_kernel<S, T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min((n + AWARPS - 1) / AWARPS, AGRID_MAX);
+  // AGRID_MAX blocks in all, shared out over the replicas
+  const dim3 grid(min((n + AWARPS - 1) / AWARPS, max(1, AGRID_MAX / nr)), nr);
   kern<<<grid, 32 * AWARPS, smem, (cudaStream_t)stream>>>(
       (const T*)dr, (const bool*)mask, (const int*)ti, (const int*)tj,
       (const T*)si, (const T*)sj, (const T*)c_rad, (const T*)c_ang,
@@ -693,17 +728,23 @@ int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
                           const void* c_spin, const void* w1, const void* b1,
                           const void* w2, const void* b2,
                           const void* q_scale, void* e, void* hdir,
-                          void* abar, int n, int m, Spec sp, void* stream) {
+                          void* abar, int n, int m, int nr, Spec sp,
+                          void* stream) {
   if (is_atom<ProdSizes>(sp))
     return launch_atom_warp<ProdSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                           c_ang, c_spin, w1, b1, w2, b2,
-                                          q_scale, e, hdir, abar, n, m,
+                                          q_scale, e, hdir, abar, n, m, nr,
                                           sp.cutoff, stream);
   if (is_atom<SmokeSizes>(sp))
     return launch_atom_warp<SmokeSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                            c_ang, c_spin, w1, b1, w2, b2,
-                                           q_scale, e, hdir, abar, n, m,
+                                           q_scale, e, hdir, abar, n, m, nr,
                                            sp.cutoff, stream);
+  if (is_atom<LoopSizes>(sp))
+    return launch_atom_warp<LoopSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
+                                          c_ang, c_spin, w1, b1, w2, b2,
+                                          q_scale, e, hdir, abar, n, m, nr,
+                                          sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
 
@@ -715,15 +756,15 @@ int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
                       const void* c_rad, const void* c_ang,                  \
                       const void* c_spin, const void* w1, const void* b1,    \
                       const void* w2, const void* b2, const void* q_scale,   \
-                      void* e, void* hdir, void* abar, int n, int m,         \
+                      void* e, void* hdir, void* abar, int n, int m, int nr, \
                       int n_types, int K, int n_rad, int n_ang, int l_max,   \
                       int n_spin, int n_onsite, int hidden, int spin,        \
                       double cutoff, void* stream) {                         \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,  \
                  spin, cutoff};                                              \
     return nep::LAUNCH<T>(dr, mask, ti, tj, si, sj, c_rad, c_ang, c_spin,    \
-                          w1, b1, w2, b2, q_scale, e, hdir, abar, n, m, sp,  \
-                          stream);                                           \
+                          w1, b1, w2, b2, q_scale, e, hdir, abar, n, m, nr,  \
+                          sp, stream);                                       \
   }
 
 NEP_ATOM_PASS_ENTRY(nep_atom_pass_f32, float, launch_atom_pass)

@@ -171,6 +171,7 @@ struct Sizes {
 // (n_types, basis_size, n_rad, n_ang, l_max, n_spin, hidden, n_onsite)
 using ProdSizes = Sizes<2, 8, 6, 4, 4, 4, 32, 3>;    // fege_spinlattice config()
 using SmokeSizes = Sizes<2, 6, 4, 2, 2, 2, 16, 3>;   // fege_spinlattice smoke_config()
+using LoopSizes = Sizes<2, 6, 4, 2, 2, 2, 32, 3>;    // the md_loop scenario's spec
 
 // K2's warp body reads the carriers only: the sizes up to n_spin decide.
 template <typename S>

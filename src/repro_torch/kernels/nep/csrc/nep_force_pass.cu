@@ -35,7 +35,8 @@
 //   g sums)
 //   lives in registers, with the monomial exponents as immediates.
 //   Instantiated for the production spec (configs/fege_spinlattice.py:
-//   config()) and the smoke spec (smoke_config()); kernel.py:
+//   config()) and the smoke spec (smoke_config()), whose carriers the
+//   md_loop scenario's spec shares; kernel.py:
 //   force_pass_body picks it.  The lanes read the atom's M slots
 //   side by side (coalesced), and a ballot over mask & (r < rc) packs the
 //   live slots into a list, so lanes take live pairs in turn and no lane
@@ -51,6 +52,16 @@
 // * force_pass_kernel (nep_force_pass_*, the first body): one thread per atom
 //   with run-time loop bounds, so its per-pair arrays sit in local memory.
 //   It serves every other spec within the bounds of nep_common.cuh.
+//
+// Replica axis (the Replicated plan): one launch serves nr replicas that
+// share one table.  mask, tj, idx and ti are the table's, (n, m) and (n,);
+// dr, si, sj, the adjoints and both outputs carry a leading replica axis.
+// The grid's y axis is the replica: a block moves those pointers to its
+// replica's rows (so a neighbor's adjoint row is replica r's, at
+// r * n + idx) and runs the flat body unchanged, so replica r of a batched
+// launch is bitwise a launch on replica r's inputs alone.  The warp body's
+// flat instantiation (BATCH false, launched for nr = 1) leaves the move
+// out, as K1's does.
 #include "nep_common.cuh"
 
 namespace nep {
@@ -76,6 +87,16 @@ force_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   stage(s_cang, c_ang, nt * nt * sp.n_ang * K);
   if (sp.spin) stage(s_cspin, c_spin, nt * nt * sp.n_spin * K);
   __syncthreads();
+
+  // replica blockIdx.y: its blocks, adjoints and outputs (the table is
+  // shared)
+  const size_t rep = blockIdx.y;
+  dr += rep * n * m * 3;
+  si += rep * n * 3;
+  sj += rep * n * m * 3;
+  abar += rep * n * A;
+  f_out += rep * n * 3;
+  h_out += rep * n * 3;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -237,7 +258,7 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
                       const void* ti, const void* tj, const void* si,
                       const void* sj, const void* c_rad, const void* c_ang,
                       const void* c_spin, const void* abar, void* f, void* h,
-                      int n, int m, Spec sp, void* stream) {
+                      int n, int m, int nr, Spec sp, void* stream) {
   const size_t smem = (size_t)sp.n_types * sp.n_types *
                       (sp.n_rad + sp.n_ang + (sp.spin ? sp.n_spin : 0)) *
                       sp.K * sizeof(T);
@@ -245,7 +266,7 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
       force_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (n + BLOCK - 1) / BLOCK;
+  const dim3 grid((n + BLOCK - 1) / BLOCK, nr);
   force_pass_kernel<T><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
       (const T*)dr, (const bool*)mask, (const int*)idx, (const int*)ti,
       (const int*)tj, (const T*)si, (const T*)sj, (const T*)c_rad,
@@ -446,7 +467,7 @@ __device__ __forceinline__ void warp_pair(T dx, T dy, T dz, T rc, int ta,
   fz += rz * dtdr + (Pz - rz * rp) * inv;
 }
 
-template <typename S, typename T>
+template <typename S, typename T, bool BATCH>
 __global__ void __launch_bounds__(32 * WARPS)
 force_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                        const int* __restrict__ idx, const int* __restrict__ ti,
@@ -475,6 +496,17 @@ force_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   T* own = s_own + warp * A;
   T* nbs = s_nb + warp * 32 * LDA;
   int* list = s_list + warp * m;
+  // a batch's replica blockIdx.y: its blocks, adjoints and outputs (the
+  // table is shared); a flat launch (BATCH false) runs the body as it was
+  if constexpr (BATCH) {
+    const size_t rep = blockIdx.y;
+    dr += rep * n * m * 3;
+    si += rep * n * 3;
+    sj += rep * n * m * 3;
+    abar += rep * n * A;
+    f_out += rep * n * 3;
+    h_out += rep * n * 3;
+  }
   for (int i = blockIdx.x * WARPS + warp; i < n; i += gridDim.x * WARPS) {
 #pragma unroll
     for (int c0 = 0; c0 < A; c0 += 32)
@@ -547,15 +579,17 @@ int launch_warp(const void* dr, const void* mask, const void* idx,
                 const void* ti, const void* tj, const void* si,
                 const void* sj, const void* c_rad, const void* c_ang,
                 const void* c_spin, const void* abar, void* f, void* h,
-                int n, int m, double cutoff, void* stream) {
+                int n, int m, int nr, double cutoff, void* stream) {
   const size_t smem = sizeof(T) * ((S::NC + 3) / 4 * 4 + WARPS * S::A +
                                    WARPS * 32 * S::LDA) +
                       sizeof(int) * WARPS * m;
-  auto* kern = force_pass_warp_kernel<S, T>;
+  auto* kern = nr > 1 ? force_pass_warp_kernel<S, T, true>
+                      : force_pass_warp_kernel<S, T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min((n + WARPS - 1) / WARPS, WGRID_MAX);
+  // WGRID_MAX blocks in all, shared out over the replicas
+  const dim3 grid(min((n + WARPS - 1) / WARPS, max(1, WGRID_MAX / nr)), nr);
   kern<<<grid, 32 * WARPS, smem, (cudaStream_t)stream>>>(
       (const T*)dr, (const bool*)mask, (const int*)idx, (const int*)ti,
       (const int*)tj, (const T*)si, (const T*)sj, (const T*)c_rad,
@@ -570,14 +604,15 @@ int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
                            const void* sj, const void* c_rad,
                            const void* c_ang, const void* c_spin,
                            const void* abar, void* f, void* h, int n, int m,
-                           Spec sp, void* stream) {
+                           int nr, Spec sp, void* stream) {
   if (is<ProdSizes>(sp))
     return launch_warp<ProdSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
-                                     c_ang, c_spin, abar, f, h, n, m,
+                                     c_ang, c_spin, abar, f, h, n, m, nr,
                                      sp.cutoff, stream);
+  // the md_loop scenario's spec shares SmokeSizes' carriers: it runs here
   if (is<SmokeSizes>(sp))
     return launch_warp<SmokeSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
-                                      c_ang, c_spin, abar, f, h, n, m,
+                                      c_ang, c_spin, abar, f, h, n, m, nr,
                                       sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
@@ -589,13 +624,13 @@ int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
                       const void* ti, const void* tj, const void* si,         \
                       const void* sj, const void* c_rad, const void* c_ang,   \
                       const void* c_spin, const void* abar, void* f, void* h, \
-                      int n, int m, int n_types, int K, int n_rad, int n_ang, \
-                      int l_max, int n_spin, int n_onsite, int hidden,        \
-                      int spin, double cutoff, void* stream) {                \
+                      int n, int m, int nr, int n_types, int K, int n_rad,    \
+                      int n_ang, int l_max, int n_spin, int n_onsite,         \
+                      int hidden, int spin, double cutoff, void* stream) {    \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,   \
                  spin, cutoff};                                               \
     return nep::LAUNCH<T>(dr, mask, idx, ti, tj, si, sj, c_rad, c_ang,        \
-                          c_spin, abar, f, h, n, m, sp, stream);              \
+                          c_spin, abar, f, h, n, m, nr, sp, stream);          \
   }
 
 NEP_FORCE_PASS_ENTRY(nep_force_pass_f32, float, launch_force_pass)

@@ -9,6 +9,13 @@ One force call:
   4. the Zeeman term in closed form (the external field is not learned).
 
 No padding to a tile multiple: the CUDA kernels mask their own ragged edge.
+
+A replica batch (the Replicated plan: ``nbh.dr`` (R, N, M, 3), ``spin``
+(R, N, 3), ``field`` (R, 3), one shared table) takes one gather
+``spin[:, idx]``, one K1 and one K2 launch for all R, and returns energies
+(R,), forces and fields (R, N, 3); each replica's numbers are bitwise those
+of a flat call on its own inputs (each replica's sums are taken on their
+own, in the flat call's order).
 """
 from __future__ import annotations
 
@@ -21,21 +28,36 @@ from repro_torch.md.neighbor import NeighborTable, Neighborhood, gather_blocks
 from repro_torch.utils import units
 
 
+def _replica_sum(x: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``torch.sum(x)``, or for a replica batch each replica's sum (R,),
+    each taken on a fresh copy of its rows: the reduction then runs as it
+    would on a flat tensor of the same size, so its order, and its bits, are
+    the flat call's."""
+    if not batched:
+        return torch.sum(x)
+    return torch.stack([torch.sum(x[r].clone()) for r in range(x.shape[0])])
+
+
 def nep_compute(spec: NEPSpinSpec, params: NEPSpinParams, nbh: Neighborhood,
                 spin: torch.Tensor, types: torch.Tensor, field=None,
                 moments=None):
-    """``(E, F, H_eff)`` from pre-gathered neighbor blocks via K1 and K2."""
-    sj = spin[nbh.idx.long()]
+    """``(E, F, H_eff)`` from pre-gathered neighbor blocks via K1 and K2
+    (flat, or a replica batch: module docstring)."""
+    batched = spin.dim() == 3
+    idx = nbh.idx.long()
+    sj = spin[:, idx] if batched else spin[idx]
     e, hdir, abar = nep_atom_pass(spec, params, nbh.dr, nbh.mask, types,
                                   nbh.tj, spin, sj)
     force, h2 = nep_force_pass(spec, params, nbh.dr, nbh.mask, nbh.idx, types,
                                nbh.tj, spin, sj, abar)
-    energy = torch.sum(e)
+    energy = _replica_sum(e, batched)
     heff = hdir + h2
     if field is not None:
         mom = zeeman_moments(moments, types, spin)[:, None]
         b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
-        energy = energy - units.MU_B * torch.sum(mom * spin * b)
+        if batched:
+            b = b[..., None, :]
+        energy = energy - units.MU_B * _replica_sum(mom * spin * b, batched)
         heff = heff + units.MU_B * mom * b
     return energy, force, heff
 

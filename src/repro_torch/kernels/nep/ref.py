@@ -16,7 +16,9 @@ vectorized, so a CPU test can check them against autograd before any card
 time is spent.  Nothing on the main path calls them.
 
 Both plain versions walk the atoms in row blocks of ``PLAIN_ROWS`` so their
-autograd intermediates stay bounded at production sizes.
+autograd intermediates stay bounded at production sizes, and take the
+kernels' replica batches (a leading R on dr, si, sj, abar and the outputs;
+one shared table) one replica at a time.
 """
 from __future__ import annotations
 
@@ -71,11 +73,25 @@ def _atom_block(spec, params, dr, mask, ti, tj, si, sj):
     return e.detach(), -grads[-1], pack_abar(spec, dict(zip(keys, grads)))
 
 
+def _per_replica(flat, dr, *args):
+    """``flat`` on each replica of a batch (dr (R, N, M, 3)), stacked;
+    ``args`` are ``(batched, tensor)`` pairs: a batched tensor is taken per
+    replica, a shared one whole."""
+    outs = [flat(dr[r], *(x[r] if batched else x for batched, x in args))
+            for r in range(dr.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
 def atom_pass_plain(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti,
                     tj, si, sj):
     """K1 by autograd: ``(e (N,), hdir (N,3), abar (N, A))`` with
     ``hdir = -dE_i/dS_i`` at fixed accumulators and ``abar`` the packed
-    dE_i/dA_i (:mod:`repro_torch.kernels.nep.layout`)."""
+    dE_i/dA_i (:mod:`repro_torch.kernels.nep.layout`); replica batches as
+    the kernel takes them."""
+    if dr.dim() == 4:
+        return _per_replica(
+            lambda d, *a: atom_pass_plain(spec, params, d, *a), dr,
+            (False, mask), (False, ti), (False, tj), (True, si), (True, sj))
     outs = [_atom_block(spec, params, dr[b], mask[b], ti[b], tj[b], si[b],
                         sj[b]) for b in _row_blocks(dr.shape[0])]
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -137,7 +153,13 @@ def force_pass_plain(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     """K2 by autograd: ``(F (N,3), h2 (N,3))`` with
     ``F_i = sum_m dt/d(dr_im)`` and ``h2 = -dt/dS_i``; ``abar`` is K1's
     packed (N, A) buffer, gathered here through ``idx``.  The S_j gradient
-    belongs to atom j's own row and is discarded."""
+    belongs to atom j's own row and is discarded.  Replica batches as the
+    kernel takes them."""
+    if dr.dim() == 4:
+        return _per_replica(
+            lambda d, *a: force_pass_plain(spec, params, d, *a), dr,
+            (False, mask), (False, idx), (False, ti), (False, tj),
+            (True, si), (True, sj), (True, abar))
     dp = params.desc_params()
     fs, hs = [], []
     for b in _row_blocks(dr.shape[0]):

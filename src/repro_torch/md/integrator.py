@@ -18,6 +18,13 @@ two spin half-steps, k4 longitudinal, k5 lattice kick after - the reference
 splits its step key the same way) are drawn from an explicit
 ``torch.Generator``, or taken from a ``noise={"k1": ..., ...}`` dict of
 pre-drawn standard normals so a test can feed in the reference's draws.
+
+Replica batches (the Replicated plan): the same step takes state tensors
+with a leading replica axis R, one ``torch.Generator`` per replica (replica
+r draws its noise from its own generator in the flat step's order), one
+temperature per replica and fields (R, 3).  The noise scales are computed
+per replica on the host exactly as the flat step computes its one scale, so
+each replica's arithmetic is the flat step's on its own inputs.
 """
 from __future__ import annotations
 
@@ -49,13 +56,26 @@ class IntegratorConfig:
 
 
 class ForceField(NamedTuple):
-    """Output of one potential evaluation."""
+    """Output of one potential evaluation (a replica batch adds a leading
+    R to each field)."""
     energy: torch.Tensor  # ()
     force: torch.Tensor   # (N,3) eV/A
     field: torch.Tensor   # (N,3) -dE/dS, eV
 
 
 NOISE_KEYS = ("k1", "k2", "k3", "k4", "k5")
+
+
+def _scale(temp, fn, like: torch.Tensor, ndim: int):
+    """A noise scale ``fn(T)``: a Python float for one temperature, or for
+    a replica batch's temperatures (a list) an (R, 1, ...) tensor with
+    ``ndim`` trailing ones, each entry ``fn(T_r)`` computed in Python as the
+    flat step computes its scale and rounded to ``like``'s dtype as a Python
+    scalar operand would be."""
+    if not isinstance(temp, list):
+        return fn(temp)
+    return torch.tensor([fn(t) for t in temp], dtype=like.dtype,
+                        device=like.device).reshape((-1,) + (1,) * ndim)
 
 
 def _rodrigues(s: torch.Tensor, omega: torch.Tensor, dt: float) -> torch.Tensor:
@@ -77,8 +97,9 @@ def _precession_rate(field: torch.Tensor, spin: torch.Tensor,
     b = field / (cfg.moment * units.MU_B)       # Tesla
     tau = duration if duration is not None else cfg.dt
     if cfg.spin_alpha > 0.0 and noise is not None:
-        sigma = math.sqrt(2.0 * cfg.spin_alpha * units.KB * temp
-                          / (units.GYRO * cfg.moment * units.MU_B * tau))
+        sigma = _scale(temp, lambda t: math.sqrt(
+            2.0 * cfg.spin_alpha * units.KB * t
+            / (units.GYRO * cfg.moment * units.MU_B * tau)), noise, 2)
         b = b + sigma * noise
     gp = units.GYRO / (1.0 + cfg.spin_alpha ** 2)
     omega = gp * b
@@ -129,9 +150,10 @@ def _longitudinal_step(spin: torch.Tensor, ff: ForceField,
     eta = cfg.spin_longitudinal
     dnrm = eta * cfg.dt * f_long
     if noise is not None:
-        dnrm = dnrm + math.sqrt(2.0 * eta * units.KB * temp * cfg.dt) * noise
+        dnrm = dnrm + _scale(temp, lambda t: math.sqrt(
+            2.0 * eta * units.KB * t * cfg.dt), noise, 2) * noise
     new_nrm = torch.clamp(nrm + dnrm, min=1e-3)
-    return torch.where(mag_mask[:, None], shat * new_nrm, spin)
+    return torch.where(mag_mask[..., None], shat * new_nrm, spin)
 
 
 def _lattice_langevin(vel: torch.Tensor, masses: torch.Tensor,
@@ -139,9 +161,10 @@ def _lattice_langevin(vel: torch.Tensor, masses: torch.Tensor,
                       temp: float) -> torch.Tensor:
     """Exact half-step Ornstein-Uhlenbeck velocity update (OBABO)."""
     c1 = math.exp(-cfg.lattice_gamma * 0.5 * cfg.dt)
-    sigma = torch.sqrt(units.KB * temp * (1.0 - c1 ** 2)
-                       / (masses * units.MVV2E))
-    return c1 * vel + sigma[:, None] * noise
+    kt = _scale(temp, lambda t: units.KB * t * (1.0 - c1 ** 2), vel, 1)
+    # (a Python scalar over a tensor is the tensor's reciprocal times it)
+    sigma = torch.sqrt(torch.reciprocal(masses * units.MVV2E) * kt)
+    return c1 * vel + sigma[..., None] * noise
 
 
 def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
@@ -157,17 +180,27 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
     config at run time; any ``temperature`` (or ``cfg.temperature > 0``)
     turns the thermostats on, and their normal draws then come from
     ``noise[k]`` where given, else from ``generator``.
+
+    A replica batch (``state.pos`` (R, N, 3)) takes a sequence of R
+    generators, ``temperature`` None or a sequence of R values and
+    ``field`` (R, 3) (module docstring).
     """
     def step(state: SpinLatticeState, ff: ForceField, nbh,
              generator: torch.Generator | None = None, temperature=None,
              field=None, noise: dict | None = None):
+        batched = state.pos.dim() == 3
         types = state.types.long()
-        m = masses[types][:, None]
+        m = masses[types][..., None]
         mag = magnetic[types]
         dt = cfg.dt
         stochastic = (temperature is not None) or cfg.temperature > 0.0
-        temp = (cfg.temperature if temperature is None
-                else max(float(temperature), 0.0))
+        if batched:   # one temperature per replica: _scale takes the list
+            temp = ([cfg.temperature] * state.pos.shape[0]
+                    if temperature is None
+                    else [max(float(t), 0.0) for t in temperature])
+        else:
+            temp = (cfg.temperature if temperature is None
+                    else max(float(temperature), 0.0))
         noise = noise or {}
 
         def draw(key, shape):
@@ -178,36 +211,40 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
             if generator is None:
                 raise ValueError("a stochastic step needs a torch.Generator "
                                  f"or pre-drawn noise[{key!r}]")
-            return torch.randn(shape, generator=generator,
-                               dtype=state.pos.dtype, device=state.pos.device)
+            kw = dict(dtype=state.pos.dtype, device=state.pos.device)
+            if batched:   # replica r's draw from its own generator
+                return torch.stack([torch.randn(shape, generator=g, **kw)
+                                    for g in generator])
+            return torch.randn(shape, generator=generator, **kw)
 
         def field_eval(nb):
             return lambda s: compute(nb, s, state.types, field)
 
-        n = state.pos.shape[0]
+        n = state.pos.shape[-2]
         thermo_lattice = cfg.lattice_gamma > 0.0 and stochastic
         vel = state.vel
         if not cfg.frozen_lattice:
             if thermo_lattice:
-                vel = _lattice_langevin(vel, m[:, 0], cfg, draw("k1", (n, 3)),
-                                        temp)
+                vel = _lattice_langevin(vel, m[..., 0], cfg,
+                                        draw("k1", (n, 3)), temp)
             vel = vel + 0.5 * dt * ff.force / m * units.FORCE2ACC
         spin_noise = cfg.spin_alpha > 0.0
         spin, ff = _spin_half_step(
             field_eval(nbh), state.spin, ff, cfg,
             draw("k2", (n, 3)) if spin_noise else None, temp)
-        spin = torch.where(mag[:, None], spin, state.spin)
+        spin = torch.where(mag[..., None], spin, state.spin)
         if cfg.frozen_lattice:
             pos = state.pos
         else:
+            box = state.box[..., None, :]
             pos = state.pos + dt * vel
-            pos = pos - state.box * torch.floor(pos / state.box)   # wrap PBC
+            pos = pos - box * torch.floor(pos / box)   # wrap PBC
         nbh = gather(pos, nbh)
         ff = compute(nbh, spin, state.types, field)
         spin2, ff = _spin_half_step(
             field_eval(nbh), spin, ff, cfg,
             draw("k3", (n, 3)) if spin_noise else None, temp)
-        spin = torch.where(mag[:, None], spin2, spin)
+        spin = torch.where(mag[..., None], spin2, spin)
         spin = _longitudinal_step(
             spin, ff, cfg,
             draw("k4", (n, 1)) if cfg.spin_longitudinal > 0.0 else None,
@@ -215,8 +252,8 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
         if not cfg.frozen_lattice:
             vel = vel + 0.5 * dt * ff.force / m * units.FORCE2ACC
             if thermo_lattice:
-                vel = _lattice_langevin(vel, m[:, 0], cfg, draw("k5", (n, 3)),
-                                        temp)
+                vel = _lattice_langevin(vel, m[..., 0], cfg,
+                                        draw("k5", (n, 3)), temp)
         return SpinLatticeState(pos=pos, vel=vel, spin=spin,
                                 types=state.types, box=state.box,
                                 step=state.step + 1), ff, nbh

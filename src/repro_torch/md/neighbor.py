@@ -14,6 +14,13 @@ table-static blocks (idx, mask, neighbor types) and the position-dependent
 after a drift; potentials evaluate from the ``Neighborhood`` alone and
 assemble atomic forces with ``assemble_pair_forces``.
 
+Replica batches (the Replicated plan): crystalline replicas share one
+table, built from :func:`reference_pos` (the replica-mean positions);
+:func:`shared_blocks` keeps one copy of its static blocks and a per-replica
+``dr`` (R, N, M, 3), which :func:`refresh_dr` refreshes for all replicas in
+one gather; :func:`needs_rebuild` trips when any replica does, and
+:func:`compute_replicas` runs a flat ``compute`` over the batch.
+
 Deterministic reverse sums.  Two reductions run "backwards" through the
 table: the pair reaction forces (atom k collects ``-g[i, m]`` from every
 slot listing it) and the gradient of the neighbor-spin gather ``s[idx]``.
@@ -88,7 +95,8 @@ def gather_neighbors(pos: torch.Tensor, spin: torch.Tensor,
 
 def needs_rebuild(table: NeighborTable, pos: torch.Tensor, box: torch.Tensor,
                   skin: float = 0.5) -> torch.Tensor:
-    """0-d bool tensor: did any atom move more than skin/2 since the build?"""
+    """0-d bool tensor: did any atom (of any replica, for a (R, N, 3)
+    batch) move more than skin/2 since the build?"""
     dr = _min_image(pos - table.r0, box)
     return torch.max(torch.sum(dr * dr, dim=-1)) > (skin * 0.5) ** 2
 
@@ -107,7 +115,7 @@ class Neighborhood(NamedTuple):
     idx: torch.Tensor   # (N, M) int32 neighbor indices (self-padded)
     mask: torch.Tensor  # (N, M) bool
     tj: torch.Tensor    # (N, M) int32 neighbor types
-    dr: torch.Tensor    # (N, M, 3) min-imaged r_j - r_i
+    dr: torch.Tensor    # (N, M, 3) min-imaged r_j - r_i; (R, N, M, 3) shared
     rev: torch.Tensor | None = None   # (N, R) reverse_index(idx), or None
 
 
@@ -166,21 +174,62 @@ def neighbor_rows(x: torch.Tensor, nbh: Neighborhood,
     return _GatherRows.apply(x, idx, rev)
 
 
+def _pair_dr(pos: torch.Tensor, idx: torch.Tensor,
+             box: torch.Tensor) -> torch.Tensor:
+    """Min-imaged ``r_j - r_i`` per slot, (..., N, M, 3) for positions
+    (..., N, 3): one gather for every leading (replica) index."""
+    return _min_image(pos[..., idx, :] - pos[..., :, None, :], box)
+
+
 def gather_blocks(pos: torch.Tensor, types: torch.Tensor, table: NeighborTable,
                   box: torch.Tensor, reverse: bool = False) -> Neighborhood:
     """Full gather after a table (re)build; ``reverse`` also builds the
     table's transpose for the deterministic reverse sums."""
     idx = table.idx.long()
-    dr = _min_image(pos[idx] - pos[:, None, :], box)
-    return Neighborhood(idx=table.idx, mask=table.mask, tj=types[idx], dr=dr,
+    return Neighborhood(idx=table.idx, mask=table.mask, tj=types[idx],
+                        dr=_pair_dr(pos, idx, box),
                         rev=reverse_index(table.idx) if reverse else None)
 
 
 def refresh_dr(nbh: Neighborhood, pos: torch.Tensor,
                box: torch.Tensor) -> Neighborhood:
-    """Refresh only the position-dependent block (one gather per drift)."""
-    dr = _min_image(pos[nbh.idx.long()] - pos[:, None, :], box)
-    return nbh._replace(dr=dr)
+    """Refresh only the position-dependent block (one gather per drift;
+    positions (R, N, 3) refresh every replica's ``dr`` at once)."""
+    return nbh._replace(dr=_pair_dr(pos, nbh.idx.long(), box))
+
+
+def reference_pos(pos: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """Replica-mean positions (R, N, 3) -> (N, 3), each atom's
+    displacements min-imaged around replica 0: the crystalline reference a
+    replica batch's shared table is built from."""
+    p0 = pos[0]
+    return p0 + torch.mean(_min_image(pos - p0, box), dim=0)
+
+
+def shared_blocks(table: NeighborTable, types: torch.Tensor,
+                  pos: torch.Tensor, box: torch.Tensor,
+                  reverse: bool = False) -> Neighborhood:
+    """A replica batch's blocks: one copy of the table's static blocks
+    (``idx``/``mask``/``tj``, and its transpose with ``reverse``) for all
+    replicas, and a per-replica ``dr`` (R, N, M, 3) from one batched
+    gather of positions (R, N, 3); ``types`` (N,) is shared too."""
+    if pos.dim() != 3:
+        raise ValueError(f"shared_blocks takes replica-batched positions "
+                         f"(R, N, 3), got {tuple(pos.shape)}")
+    return gather_blocks(pos, types, table, box, reverse=reverse)
+
+
+def compute_replicas(compute, nbh: Neighborhood, spin: torch.Tensor,
+                     types: torch.Tensor, field=None):
+    """A flat gather-once ``compute(nbh, spin, types, field)`` over a
+    replica batch (``nbh.dr`` (R, N, M, 3), ``spin`` (R, N, 3), ``field``
+    (R, 3) or None), one replica at a time in a Python loop:
+    ``(E (R,), F (R, N, 3), H_eff (R, N, 3))``.  Each replica's numbers are
+    the flat call's on its own inputs."""
+    outs = [compute(nbh._replace(dr=nbh.dr[r]), spin[r], types,
+                    None if field is None else field[r])
+            for r in range(spin.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def compute_from_blocks(etot, nbh: Neighborhood, spin: torch.Tensor,

@@ -16,7 +16,9 @@ class SpinLatticeState(NamedTuple):
     """Coupled (R, S) state. One spin per atom (zero for nonmagnetic types).
 
     ``step`` is a host integer: the step counter never has to be read back
-    from the device.
+    from the device.  A replica batch (:func:`replicate`,
+    :func:`stack_states`) adds a leading R to every tensor and holds one
+    clock per replica in an (R,) int64 numpy array.
     """
 
     pos: torch.Tensor     # (N, 3) [A]
@@ -97,6 +99,38 @@ def init_state(
     spin = torch.where(mag_by_type[:, None], s, torch.zeros_like(s))
     return SpinLatticeState(pos=pos, vel=vel, spin=spin, types=types,
                             box=box, step=0)
+
+
+def replicate(state: SpinLatticeState, n_replicas: int) -> SpinLatticeState:
+    """Tile a flat state over a leading replica axis: tensors (R, N, ...),
+    ``box`` (R, 3), ``step`` an (R,) int64 array (each replica's clock)."""
+    def tile(x):
+        return x.unsqueeze(0).expand((n_replicas,) + x.shape).contiguous()
+
+    return SpinLatticeState(
+        pos=tile(state.pos), vel=tile(state.vel), spin=tile(state.spin),
+        types=tile(state.types), box=tile(state.box),
+        step=np.full(n_replicas, int(state.step), np.int64))
+
+
+def stack_states(states) -> SpinLatticeState:
+    """Stack distinct flat states onto a leading replica axis, each replica
+    keeping its own positions, spins and clock; all share one geometry
+    (atom count, types, box)."""
+    states = list(states)
+    if not states:
+        raise ValueError("stack_states needs at least one state")
+    return SpinLatticeState(
+        *(torch.stack([getattr(s, k) for s in states])
+          for k in ("pos", "vel", "spin", "types", "box")),
+        step=np.asarray([int(s.step) for s in states], np.int64))
+
+
+def unstack_state(states: SpinLatticeState, i: int) -> SpinLatticeState:
+    """Replica ``i`` of a batch as a flat state (views of its rows)."""
+    return SpinLatticeState(pos=states.pos[i], vel=states.vel[i],
+                            spin=states.spin[i], types=states.types[i],
+                            box=states.box[i], step=int(states.step[i]))
 
 
 def kinetic_energy(state: SpinLatticeState,

@@ -5,11 +5,18 @@ The Engine computes a small dict of health signals at every chunk boundary
 on the device and reads them back in one transfer:
 
     e_drift    total energy (potential + kinetic) at chunk end minus chunk
-               start [eV]
+               start [eV]; on the replica plan the signed drift of the
+               replica with the largest magnitude
     spin_dev   max | |s| - 1 | over magnetic atoms
     nonfinite  count of non-finite entries across positions, forces, spins
     nbr_occ    max neighbor-slot occupancy fraction (1.0 = a full row: the
                next rebuild may truncate)
+
+A replica plan in per-slot mode adds one vector per signal, one entry per
+slot (:func:`slot_signals`): ``slot_nonfinite``, ``slot_e_drift`` and
+``slot_spin_dev``.  The check gates on the scalars; the vectors ride along
+in the runlog and in :class:`HealthError`'s signals, so a failure can be
+pinned on one slot.
 
 They land in ``EngineTrace.health`` (one row per chunk).  With a telemetry
 config, :func:`check_chunk` compares them against :class:`HealthConfig` and
@@ -70,6 +77,19 @@ def spin_norm_dev(spin: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def nonfinite_count(*tensors: torch.Tensor) -> torch.Tensor:
     """Total count of non-finite entries across ``tensors``."""
     return sum(torch.sum(~torch.isfinite(t)) for t in tensors)
+
+
+def slot_signals(pos: torch.Tensor, force: torch.Tensor, spin: torch.Tensor,
+                 mag: torch.Tensor, drift: torch.Tensor) -> dict:
+    """Per-slot health vectors (R,) of a replica batch: ``pos``, ``force``,
+    ``spin`` (R, N, 3), ``mag`` (R, N) magnetic-atom mask, ``drift`` (R,)
+    each slot's energy drift."""
+    slots = range(pos.shape[0])
+    return {"slot_nonfinite": torch.stack([nonfinite_count(
+                pos[r], force[r], spin[r]) for r in slots]),
+            "slot_e_drift": drift,
+            "slot_spin_dev": torch.stack([spin_norm_dev(spin[r], mag[r])
+                                          for r in slots])}
 
 
 def occupancy_fraction(mask: torch.Tensor, dim: int = -1) -> torch.Tensor:

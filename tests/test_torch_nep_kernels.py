@@ -286,7 +286,7 @@ SMOKE = dict(cutoff=5.0, basis_size=6, n_rad=4, n_ang=2, l_max=2, n_spin=2,
 @pytest.mark.parametrize("spec_kw, body", [
     (PRODUCTION, "warp"),
     (SMOKE, "warp"),
-    (CASES[0][3], "thread"),
+    (CASES[0][3], "warp"),      # the md_loop scenario's spec
     (CASES[2][3], "thread"),
     (dict(PRODUCTION, spin=False), "thread"),
     (dict(PRODUCTION, n_types=1), "thread"),
@@ -313,35 +313,47 @@ def test_warp_specs_match_the_cuda_instantiations():
     """WARP_SPECS in kernel.py and the ``Sizes<...>`` instantiations of
     csrc/nep_common.cuh name the same specs, in the same field order
     (n_types, basis_size, n_rad, n_ang, l_max, n_spin, hidden, n_onsite),
-    and both K1's and K2's warp bodies dispatch on each of them."""
+    and both K1's and K2's warp bodies dispatch on each of them (K2's
+    ``is<S>`` matches the six carrier fields only, so a spec that shares
+    them with one K2 names runs that instantiation)."""
     import re
     from pathlib import Path
     csrc = Path(tkern.__file__).parent / "csrc"
     common = (csrc / "nep_common.cuh").read_text()
-    sizes = re.findall(r"^using \w+Sizes = Sizes<([\d,\s]+)>;", common,
-                       flags=re.M)
-    assert sorted(tuple(int(x) for x in s.split(",")) for s in sizes) == \
-        sorted(tkern.WARP_SPECS)
+    decl = dict(re.findall(r"^using (\w+Sizes) = Sizes<([\d,\s]+)>;", common,
+                           flags=re.M))
+    sizes = {name: tuple(int(x) for x in s.split(","))
+             for name, s in decl.items()}
+    assert sorted(sizes.values()) == sorted(tkern.WARP_SPECS)
     k1 = (csrc / "nep_atom_pass.cu").read_text()
     k2 = (csrc / "nep_force_pass.cu").read_text()
-    for name in re.findall(r"^using (\w+Sizes) = Sizes<", common, flags=re.M):
-        assert f"is<{name}>(sp)" in k2, name
+    k2_carriers = {sizes[name][:6] for name in sizes
+                   if f"is<{name}>(sp)" in k2}
+    for name, fields in sizes.items():
+        assert fields[:6] in k2_carriers, name
         assert f"is_atom<{name}>(sp)" in k1, name
 
 
 def test_wrappers_reject_a_warp_body_not_compiled():
     """``body="warp"`` for a spec without a warp instantiation raises on
-    any device; ``"thread"`` takes it.  Case 0's spec shares K2's carrier
-    sizes with the smoke spec but not its MLP width, so only K1 refuses."""
-    for case, k1_ok, k2_ok in ((1, False, False), (0, False, True)):
+    any device; ``"thread"`` takes it.  Case 0's spec (the md_loop
+    scenario's) has both warp bodies; at hidden 8 it shares K2's carrier
+    sizes with the smoke spec but no K1 instantiation, so only K1
+    refuses."""
+    narrow = NEPSpinSpec(**dict(CASES[0][3], hidden=8))
+    for case, spec, k1_ok, k2_ok in ((1, None, False, False),
+                                     (0, None, True, True),
+                                     (0, narrow, False, True)):
         c = _case(case)
+        spec = c["spec"] if spec is None else spec
+        params = c["params"] if spec is c["spec"] else init_params(
+            spec, torch.Generator().manual_seed(0), device="cpu")
         blocks = _port_blocks(c)
-        abar = tkern.nep_atom_pass(c["spec"], c["params"], *blocks,
-                                   body="thread")[2]
-        k2_args = (c["spec"], c["params"], blocks[0], blocks[1],
-                   c["nbh"].idx, *blocks[2:], abar)
-        for fn, args, ok in ((tkern.nep_atom_pass, (c["spec"], c["params"],
-                                                     *blocks), k1_ok),
+        abar = tkern.nep_atom_pass(spec, params, *blocks, body="thread")[2]
+        k2_args = (spec, params, blocks[0], blocks[1], c["nbh"].idx,
+                   *blocks[2:], abar)
+        for fn, args, ok in ((tkern.nep_atom_pass, (spec, params, *blocks),
+                              k1_ok),
                              (tkern.nep_force_pass, k2_args, k2_ok)):
             fn(*args, body="thread")
             if ok:
@@ -351,3 +363,63 @@ def test_wrappers_reject_a_warp_body_not_compiled():
                     fn(*args, body="warp")
             with pytest.raises(ValueError, match="no 'block' body"):
                 fn(*args, body="block")
+
+
+def _replica_blocks(c, r=3, seed=5):
+    """A replica batch on case ``c``'s table: per-replica jittered
+    positions' ``dr`` and random spins, the table shared."""
+    rng = np.random.default_rng(seed)
+    nbh = c["nbh"]
+    box, idx = _t(c["box"]), nbh.idx.long()
+    pos = _t(c["pos"]) + 0.02 * _t(rng.standard_normal((r,) + c["pos"].shape),
+                                   torch.float32)
+    dr = pos[:, idx] - pos[:, :, None, :]
+    dr = dr - box * torch.round(dr / box)
+    spin = torch.nn.functional.normalize(
+        _t(rng.standard_normal((r,) + c["spin"].shape), torch.float32),
+        dim=-1) * (_t(c["spin"]).norm(dim=-1, keepdim=True) > 0)
+    return dr, spin, spin[:, idx]
+
+
+@pytest.mark.parametrize("case", [0, 4])
+def test_batched_plain_passes_are_per_replica(case):
+    """K1's and K2's plain versions take the kernels' replica batches (a
+    leading R on dr, si, sj, abar and the outputs; one table): replica r's
+    outputs are bitwise the flat call's on replica r's inputs."""
+    c = _case(case)
+    nbh, spec, params, ti = c["nbh"], c["spec"], c["params"], c["ttypes"]
+    dr, si, sj = _replica_blocks(c)
+    k1 = tref.atom_pass_plain(spec, params, dr, nbh.mask, ti, nbh.tj, si, sj)
+    k2 = tref.force_pass_plain(spec, params, dr, nbh.mask, nbh.idx, ti,
+                               nbh.tj, si, sj, k1[2])
+    assert k1[0].shape == (3, ti.shape[0]) and k2[0].shape == si.shape
+    for r in range(3):
+        f1 = tref.atom_pass_plain(spec, params, dr[r], nbh.mask, ti, nbh.tj,
+                                  si[r], sj[r])
+        f2 = tref.force_pass_plain(spec, params, dr[r], nbh.mask, nbh.idx,
+                                   ti, nbh.tj, si[r], sj[r], k1[2][r])
+        for got, want in zip(k1 + k2, f1 + f2):
+            assert torch.equal(got[r], want)
+    # the wrappers route the batch to the same plain versions on the CPU
+    w1 = tkern.nep_atom_pass(spec, params, dr, nbh.mask, ti, nbh.tj, si, sj)
+    assert all(torch.equal(a, b) for a, b in zip(w1, k1))
+
+
+def test_batched_nep_compute_is_per_replica():
+    """``nep_compute`` on a replica batch (one gather, one K1 and one K2
+    call, a field per replica): energies, forces and fields bitwise the
+    flat call's on each replica."""
+    c = _case(0)
+    nbh, spec, params, ti = c["nbh"], c["spec"], c["params"], c["ttypes"]
+    dr, si, _ = _replica_blocks(c)
+    fields = torch.tensor([[0.0, 0.0, 0.5], [0.1, 0.0, 0.0],
+                           [0.0, -0.2, 0.3]])
+    mom = torch.tensor(c["mom"])
+    e, f, h = nep_compute(spec, params, nbh._replace(dr=dr), si, ti, fields,
+                          mom)
+    assert e.shape == (3,)
+    for r in range(3):
+        fe, ff, fh = nep_compute(spec, params, nbh._replace(dr=dr[r]), si[r],
+                                 ti, fields[r], mom)
+        assert torch.equal(e[r], fe) and torch.equal(f[r], ff)
+        assert torch.equal(h[r], fh)
