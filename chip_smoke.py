@@ -116,19 +116,53 @@ F. the ensemble layer: ``launch/skyrmion_nucleation.py`` at
    ``run_sweep`` on
    ``nucleation_ensemble_smoke()``'s grid, and ``launch/ensemble_rate.py``
    at R = 1, 4 and 16; one ``{"ensemble": ...}`` line;
+G. training and the fitted potential (f32 on the card):
+   ``launch/accuracy.py`` (B20 2x2x2 with its oracle, 24 training and 8
+   validation configurations; Adam for ``FIT_STEPS`` = 150 steps on
+   ``nepspin`` and ``nep-nospin``, the classical (J0, D0) scan) with
+   ``tests/test_system.py``'s bars on ``nepspin`` (final loss under 0.25x
+   the first, validation F and H RMSE under 0.35x their label scales);
+   ``fit_snes`` for ``SNES_GENERATIONS`` generations (cut from 100); the
+   loss and its gradient at f64 on the card against the CPU (1e-9);
+   ``launch/train.py``'s ``train_md`` at ``--cells 32`` (262,144 atoms;
+   its own fit, then 160 K, 0.1 T, dt 2 fs, 4 chunks x 25 steps through
+   ``NEPSpinPotential(use_kernel=True)``): finite values, Fe |S| in
+   (0.3, 2), K1/K2 launches 1 + steps + rebuilds, all in the body the
+   spec selects (warp); the kernel path against the autograd evaluation
+   with the fitted weights (1e-4); K1 and K2 in both bodies on the run's
+   own table, blocks and spins against the plain versions (f32 1e-4, f64
+   1e-9), and both bodies timed; one ``{"training": ...}`` line;
+H. supervised recovery on phase A's 262,144-atom field-cooling Engine
+   (K1/K2), 4 chunks x 20 steps, a checkpoint every chunk: a NaN in the
+   forces and a bit flip (bit 30 of one spin component) at step 45, the
+   flip once with the plan's own seed 0 and once with the first seed whose
+   row is of the other type (an Fe spin and a Ge spin, 0 -> 2.0), each
+   recovered bitwise to the uninterrupted run with 0 kernel builds
+   or loads after the rollback, the runlog holding fault_injected,
+   rollback, retry and recovered and ``launch/report.py`` rendering each;
+   the dt ladder on a persistent fault inert below full dt (half dt for
+   ``degrade_span`` chunks, then back); ``rebind`` on Replicated(4) at
+   phase E's size; ``launch/resilience_smoke.py`` (supervised retry, a
+   SIGKILLed child and a bitwise resume); the supervised run's wall time
+   against the clean run's and one rollback's; one ``{"resilience": ...}``
+   line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
     earlier body is gone; all with ptxas's report of the body timed; K1
-    and K2 with ``launches_field_cooling`` from phase A, and from phase E
+    and K2 with ``launches_field_cooling`` from phase A, from phase E
     ``launches_replica``, ``replica_ms`` and ``replica_flat_ms`` (one
-    batched launch at R = 4, and 4 flat launches)), then
+    batched launch at R = 4, and 4 flat launches), and from phase G
+    ``launches_training``, ``body_training``, ``max_rel_err_training`` and
+    ``ms_training`` (each body's time at the fitted spec)), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1540,6 +1574,372 @@ def phase_ensemble(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the seventh slice: training and the fitted potential, supervised recovery
+# ---------------------------------------------------------------------------
+
+FIT_STEPS = 150            # train_md's --fit-steps
+SNES_GENERATIONS = 20      # of fit_snes's 100 (cut for the time limit)
+TRAIN_MD = dict(cells=32, steps=100)   # 262,144 atoms, 4 chunks of 25
+RES_CHUNKS, RES_CHUNK, RES_FAULT_STEP = 4, 20, 45
+
+
+def phase_training(torch, dev, kern, ref, random_weight_k) -> dict:
+    """Phase G: the accuracy table, SNES, the loss and its gradient on the
+    card against the CPU at f64, train_md at 262,144 atoms through K1/K2,
+    and both kernels in both bodies on that run's own inputs.
+    ``random_weight_k`` is phase 3's final temperature (random weights),
+    printed beside the fitted potential's."""
+    from repro_torch.core.potential import NEPSpinParams, compute
+    from repro_torch.core.training import Dataset, fit_snes, loss_and_grad
+    from repro_torch.kernels.nep.ops import nep_compute
+    from repro_torch.launch import accuracy, train
+    log("phase G: training (launch/accuracy.py: B20 2x2x2, 24 + 8 "
+        f"configurations, Adam {FIT_STEPS} steps; SNES "
+        f"{SNES_GENERATIONS} generations), then train_md at "
+        f"{TRAIN_MD['cells']}^3 cells through K1/K2")
+    acc = accuracy.main(["--device", str(dev), "--steps", str(FIT_STEPS)])
+    table = {k: {m: acc[k][m] for m in ("e_rmse_per_atom", "f_rmse",
+                                         "h_rmse", "fit_s")}
+             for k in ("nepspin", "nep-nospin", "classical-fit")}
+    nep, tr, val = acc["nepspin"], acc["train"], acc["val"]
+    spec, params, hist = nep["spec"], nep["params"], nep["loss"]
+    f_scale = float(torch.sqrt(torch.mean(val.f_ref ** 2)))
+    h_scale = float(torch.sqrt(torch.mean(val.h_ref ** 2)))
+    gates = {"loss_ratio": hist[-1] / hist[0],
+             "f_over_scale": nep["f_rmse"] / f_scale,
+             "h_over_scale": nep["h_rmse"] / h_scale}
+    log(f"  nepspin loss {hist[0]:.4f} -> {hist[-1]:.4f}; validation F "
+        f"{nep['f_rmse']:.4f} of scale {f_scale:.4f}, H {nep['h_rmse']:.4f} "
+        f"of {h_scale:.4f}; gates {gates}")
+    if not (gates["loss_ratio"] < 0.25 and gates["f_over_scale"] < 0.35
+            and gates["h_over_scale"] < 0.35):
+        raise AssertionError(f"fit bars (loss < 0.25 x first, F and H RMSE "
+                             f"< 0.35 x scale) not met: {gates}")
+    adam_ms = 1e3 * nep["fit_s"] / FIT_STEPS
+
+    # SNES at a reduced number of generations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, snes_hist = fit_snes(spec, tr, torch.Generator(device=dev)
+                            .manual_seed(5), generations=SNES_GENERATIONS)
+    snes_ms = 1e3 * (time.perf_counter() - t0) / SNES_GENERATIONS
+    log(f"  SNES {SNES_GENERATIONS} generations: best {snes_hist[0]:.4f} -> "
+        f"{snes_hist[-1]:.4f}, {snes_ms:.1f} ms a generation (a loop over "
+        "32 members)")
+
+    # the loss and its gradient, card against CPU, f64
+    p64 = NEPSpinParams(*(p.detach().double() for p in params))
+    ds64 = Dataset(*(t.double() if t.is_floating_point() else t for t in tr))
+    l_gpu, g_gpu = loss_and_grad(spec, p64, ds64)
+    cpu = torch.device("cpu")
+    l_cpu, g_cpu = loss_and_grad(
+        spec, NEPSpinParams(*(p.to(cpu) for p in p64)),
+        Dataset(*(t.to(cpu) for t in ds64)))
+    grad_err = max(rel_err(a.cpu(), b) for a, b in zip(g_gpu, g_cpu))
+    loss_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    log(f"  loss and gradient at f64, card vs CPU: loss rel {loss_err:.3e}, "
+        f"gradient rel {grad_err:.3e} (bar 1e-9)")
+    if not (loss_err < 1e-9 and grad_err < 1e-9):
+        raise AssertionError(f"f64 loss {loss_err:.3e} / gradient "
+                             f"{grad_err:.3e} off the CPU's")
+
+    # train_md: fit, then MD with the fitted weights through K1/K2
+    args = train.parse_args(["--arch", "fege-spinlattice", "--cells",
+                             str(TRAIN_MD["cells"]), "--steps",
+                             str(TRAIN_MD["steps"]), "--fit-steps",
+                             str(FIT_STEPS), "--use-kernel", "--device",
+                             str(dev)])
+    keep = {}
+    reset_md_counters(kern)
+    md = train.train_md(args, keep=keep)
+    counts = read_md_counters(kern)
+    sim = keep["sim"]
+    expect = 1 + md["steps"] + md["rebuilds"]
+    bodies = {"nep_atom_pass": kern.atom_pass_body(md["spec"]),
+              "nep_force_pass": kern.force_pass_body(md["spec"])}
+    for name, (n, by_body) in counts.items():
+        want = {b: (expect if b == bodies[name] else 0) for b in kern.BODIES}
+        if n != expect or by_body != want:
+            raise AssertionError(f"train_md {name}: launches {n} by body "
+                                 f"{by_body}, expected {want}")
+    st = sim.state
+    for k in ("pos", "vel", "spin"):
+        if not bool(torch.isfinite(getattr(st, k)).all()):
+            raise AssertionError(f"train_md: non-finite {k}")
+    fe = st.types == 0
+    smag = torch.linalg.norm(st.spin[fe], dim=-1)
+    smin, smax = float(smag.min()), float(smag.max())
+    vals = [md["pitch"]] + md["chunk_temperatures"] + [
+        r["charge"] for r in md["rows"]] + [r["energy"] for r in md["rows"]]
+    if not (all(math.isfinite(v) for v in vals) and 0.3 < smin
+            and smax < 2.0):
+        raise AssertionError(f"train_md: values {vals}, Fe |S| in "
+                             f"[{smin}, {smax}]")
+    log(f"  train_md: {md['n_atoms']} atoms, {md['steps']} steps "
+        f"{md['steps_per_s']:.3f} steps/s, rebuilds {md['rebuilds']}, "
+        f"launches {counts}; T after each chunk "
+        f"{[round(t, 1) for t in md['chunk_temperatures']]} K (random "
+        f"weights, phase 3: {random_weight_k:.1f} K); Q {[r['charge'] for r in md['rows']]}"
+        f"; pitch {md['pitch']:.2f} A; Fe |S| in [{smin:.3f}, {smax:.3f}]")
+
+    # the kernel path against the autograd evaluation, fitted weights
+    c = sim._engine._carry
+    field = torch.tensor([0.0, 0.0, args.field], dtype=st.pos.dtype,
+                         device=dev)
+    mom = sim.potential.moments
+    ek = nep_compute(md["spec"], sim.potential.params, c.nbh, c.state.spin,
+                     c.state.types, field, mom)
+    ea = compute(md["spec"], sim.potential.params, c.nbh, c.state.spin,
+                 c.state.types, field, mom)
+    path_err = max(check(f"train_md nep_compute {n} vs autograd", a, b,
+                         1e-4) for n, a, b in zip("EFH", ek, ea))
+    del ek, ea
+    # K1 and K2 in both bodies on the run's own inputs, and their times
+    errs = md_loop_kernels(torch, kern, ref, sim)
+    sj = c.state.spin[c.nbh.idx.long()]
+    blocks = (c.nbh.dr, c.nbh.mask, c.state.types, c.nbh.tj, c.state.spin,
+              sj)
+    p = sim.potential.params
+    a1 = kern.nep_atom_pass(md["spec"], p, *blocks)
+    k2 = (md["spec"], p, c.nbh.dr, c.nbh.mask, c.nbh.idx, c.state.types,
+          c.nbh.tj, c.state.spin, sj, a1[2])
+    ms = {"nep_atom_pass": {}, "nep_force_pass": {}}
+    for body in ("warp", "thread", "thread", "warp"):
+        ms["nep_atom_pass"].setdefault(body, []).append(time_ms(
+            torch, lambda: kern.nep_atom_pass(md["spec"], p, *blocks,
+                                              body=body), 10))
+        ms["nep_force_pass"].setdefault(body, []).append(time_ms(
+            torch, lambda: kern.nep_force_pass(*k2, body=body), 10))
+    ms = {k: {b: sum(v) / len(v) for b, v in t.items()}
+          for k, t in ms.items()}
+    log(f"  K1/K2 at the fitted spec, {md['n_atoms']} atoms, by body (ms): "
+        f"{ms}")
+    out = {"accuracy": table, "gates": gates, "loss_first": hist[0],
+           "loss_last": hist[-1], "adam_ms_per_step": adam_ms,
+           "snes_ms_per_generation": snes_ms, "snes_best": snes_hist,
+           "f64_loss_rel_err": loss_err, "f64_grad_rel_err": grad_err,
+           "train_md": {k: md[k] for k in (
+               "fit", "loss_first", "loss_last", "fit_s", "n_atoms", "steps", "steps_per_s", "md_s",
+               "chunk_temperatures", "rows", "pitch", "rebuilds")},
+           "fe_spin_norm": [smin, smax], "launches": counts,
+           "bodies": bodies, "kernel_path_vs_autograd": path_err,
+           "kernel_rel_err": errs, "kernel_ms": ms,
+           "random_weight_k": random_weight_k}
+    del sim, keep, c, blocks, a1, k2
+    torch.cuda.empty_cache()
+    return out
+
+
+def supervised_fc(torch, dev, spec, lat, moments, kern, fault, sub,
+                  config=None, seed=0):
+    """A supervised field-cooling run (phase A's engine) with one fault
+    plan; returns (engine, supervisor, injector, wall s, rollback s)."""
+    from repro_torch.resilience import (FaultPlan, Supervisor,
+                                        SupervisorConfig, install_faults)
+    from repro_torch.telemetry import HealthConfig, Telemetry
+    _, eng = fc_engine(torch, dev, spec, lat, moments, kern)
+    log_path = sub / "run.jsonl"
+    inj = install_faults(eng, FaultPlan(faults=(fault,), seed=seed),
+                         runlog=log_path)
+    restore, spent = eng.restore, []
+
+    def timed_restore(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    eng.restore = timed_restore
+    sup = Supervisor(config or SupervisorConfig(max_retries=2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup.run(eng, RES_CHUNKS * RES_CHUNK,
+            torch.Generator(device=dev).manual_seed(23), chunk=RES_CHUNK,
+            checkpoint_dir=str(sub / "ckpt"),
+            telemetry=Telemetry(runlog=log_path,
+                                health=HealthConfig(max_spin_dev=1e-3)))
+    torch.cuda.synchronize()
+    return eng, sup, inj, time.perf_counter() - t0, spent
+
+
+def phase_resilience(torch, dev, spec, lat, moments, kern) -> dict:
+    """Phase H: supervised recovery on phase A's 262,144-atom field-cooling
+    Engine (K1/K2): NaN and bit-flip faults recovered bitwise with 0 builds
+    after the rollback, the dt ladder, rebind on the Replicated plan, and
+    launch/resilience_smoke.py on the card."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.ensemble.replica import spawn_generators
+    from repro_torch.launch import resilience_smoke
+    from repro_torch.launch.report import runlog_report
+    from repro_torch.resilience import Fault, SupervisorConfig
+    from repro_torch.telemetry import read_runlog
+    root = SURFACE_DIR / "resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = RES_CHUNKS * RES_CHUNK
+    log(f"phase H: supervised recovery on phase A's engine, {RES_CHUNKS} x "
+        f"{RES_CHUNK} steps, a checkpoint every chunk, faults at step "
+        f"{RES_FAULT_STEP}")
+    # the uninterrupted run; the carry's row types at the faulted chunk's
+    # start (the same rows in the supervised runs, bitwise the same up to
+    # there)
+    _, clean = fc_engine(torch, dev, spec, lat, moments, kern)
+    hot_types = []
+
+    def at_fault_chunk(e):
+        if e._step_now() == RES_FAULT_STEP // RES_CHUNK * RES_CHUNK:
+            hot_types.append(e._carry.state.types.cpu().numpy())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean.run(steps, torch.Generator(device=dev).manual_seed(23),
+              chunk=RES_CHUNK, callback=at_fault_chunk)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    out = {"clean_s": clean_s}
+    # the bit flip hits one spin component of the row the plan's seed
+    # picks: an Fe spin's flip blows up, a Ge spin's (0 -> 2.0) is caught
+    # only because the spin-norm signal holds non-magnetic spins at 0.
+    # The plan's own seed 0, then the first seed whose row is of the other
+    # type, so both cases run whatever seed 0 picks.
+    rows = np.arange(hot_types[0].size)
+
+    def flip_row_type(seed):
+        row = np.random.default_rng(np.random.SeedSequence([seed, 0])) \
+            .choice(rows, size=1, replace=False)[0]
+        return "Fe" if hot_types[0][row] == 0 else "Ge"
+
+    other_seed = next(s for s in range(1, 64)
+                      if flip_row_type(s) != flip_row_type(0))
+    flip = Fault(kind="bit_flip", step=RES_FAULT_STEP, leaf="spin", bit=30)
+    for tag, fault, seed in (
+            ("nan", Fault(kind="nan", step=RES_FAULT_STEP, leaf="force"), 0),
+            ("bit_flip", flip, 0),
+            ("bit_flip_other_row", flip, other_seed)):
+        reset_md_counters(kern)
+        eng, sup, inj, wall, spent = supervised_fc(
+            torch, dev, spec, lat, moments, kern, fault, root / tag,
+            seed=seed)
+        events = [e["event"] for e in sup.events]
+        if events != ["rollback", "retry", "recovered"]:
+            raise AssertionError(f"{tag}: supervisor events {events}")
+        for k in ("pos", "vel", "spin"):
+            if not torch.equal(getattr(clean.state, k),
+                               getattr(eng.state, k)):
+                raise AssertionError(f"{tag}: recovered {k} is not the "
+                                     "uninterrupted run's")
+        records = read_runlog(root / tag / "run.jsonl")
+        kinds = [r["event"] for r in records]
+        for ev in ("fault_injected", "rollback", "retry", "recovered"):
+            if ev not in kinds:
+                raise AssertionError(f"{tag}: runlog lacks {ev}: {kinds}")
+        first_rb = kinds.index("rollback")
+        after = [r["compiles"] for r in records[first_rb:]
+                 if r["event"] == "chunk"]
+        if not after or any(after):
+            raise AssertionError(f"{tag}: builds after the rollback {after}")
+        text = runlog_report(root / tag / "run.jsonl")
+        lines = [ln.strip() for ln in text.splitlines()]
+        for token in (f"fault_injected: {fault.kind} at step "
+                      f"{RES_FAULT_STEP}", "rollback #1", "retry #1",
+                      "recovered after 1"):
+            if not any(ln.startswith(token) for ln in lines):
+                raise AssertionError(f"{tag}: report lacks {token!r}:\n"
+                                     f"{text}")
+        rb = next(e for e in sup.events if e["event"] == "rollback")
+        row = flip_row_type(seed) if fault.kind == "bit_flip" else None
+        log(f"  {tag} (seed {seed}{f', {row} row' if row else ''}): "
+            f"{events}, kind {rb['kind']} at step {rb['step']}, "
+            f"bitwise the uninterrupted run; builds after the rollback "
+            f"{after}; supervised {wall:.3f} s vs clean {clean_s:.3f} s, "
+            f"rollback (restore) {spent[0]:.3f} s; launches "
+            f"{read_md_counters(kern)}")
+        out[tag] = {"events": events, "kind": rb["kind"], "seed": seed,
+                    "row": row,
+                    "supervised_s": wall, "rollback_s": spent[0],
+                    "builds_after_rollback": after,
+                    "report": [ln for ln in lines if ln.startswith((
+                        "fault_injected", "rollback", "retry",
+                        "recovered"))]}
+        if tag == "nan":
+            log("  runlog report:\n" + text)
+        del eng
+    # the dt ladder: a persistent fault that a smaller step fixes
+    eng, sup, inj, wall, spent = supervised_fc(
+        torch, dev, spec, lat, moments, kern,
+        Fault(kind="nan", step=RES_FAULT_STEP, leaf="spin", once=False,
+              while_dt_ge=clean.cfg.dt), root / "ladder",
+        SupervisorConfig(max_retries=4, degrade_after=2))
+    events = [e["event"] for e in sup.events]
+    degrade = next((e for e in sup.events if e["event"] == "degrade"), {})
+    if (events != ["rollback", "retry", "rollback", "degrade",
+                   "degrade_restore", "retry", "recovered"]
+            or degrade.get("action") != "dt"
+            or degrade.get("dt") != clean.cfg.dt * 0.5
+            or eng.cfg.dt != clean.cfg.dt or eng._step_now() != steps
+            or len(inj.fired) != 2
+            or not bool(torch.isfinite(eng.state.spin).all())):
+        raise AssertionError(f"dt ladder: events {events}, degrade "
+                             f"{degrade}, dt {eng.cfg.dt}, step "
+                             f"{eng._step_now()}, fired {len(inj.fired)}")
+    log(f"  dt ladder: {events}; dt {degrade['prev_dt']} -> {degrade['dt']} "
+        f"for {degrade['span_steps']} steps, then back; {wall:.3f} s")
+    out["dt_ladder"] = {"events": events, "span_steps":
+                        degrade["span_steps"], "seconds": wall}
+    del eng, clean
+    torch.cuda.empty_cache()
+
+    # rebind on the Replicated plan at phase E's size, one chunk each side
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import init_params
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(43),
+                         dtype=dtype, device=dev)
+    reng = replica_engine(torch, dev, spec, params, lat, moments,
+                          replica_states(torch, dev, lat, run.unit_cells,
+                                         dtype, 60, FC_T["t_hot"]))
+    gens = spawn_generators(61, REPLICAS, dev)
+    reng.run(RES_CHUNK, gens, chunk=RES_CHUNK)
+    before = {k: getattr(reng.state, k).clone() for k in ("pos", "vel",
+                                                          "spin")}
+    step0, dt0 = reng._step_now(), reng.cfg.dt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reng.rebind(cfg=dataclasses.replace(reng.cfg, dt=0.5 * dt0))
+    torch.cuda.synchronize()
+    rebind_s = time.perf_counter() - t0
+    for k, v in before.items():
+        if not torch.equal(getattr(reng.state, k), v):
+            raise AssertionError(f"replica rebind changed {k}")
+    reng.run(RES_CHUNK, gens, chunk=RES_CHUNK)
+    if (reng._step_now() != step0 + RES_CHUNK or reng.cfg.dt != 0.5 * dt0
+            or not bool(torch.isfinite(reng.state.pos).all())):
+        raise AssertionError("replica run after rebind")
+    log(f"  Replicated({REPLICAS}) x {run.n_atoms} atoms: rebind to dt "
+        f"{0.5 * dt0} in {rebind_s:.3f} s (state bitwise kept, table and "
+        f"forces rebuilt), then {RES_CHUNK} steps to step "
+        f"{reng._step_now()}")
+    out["replica_rebind_s"] = rebind_s
+    del reng, before
+    torch.cuda.empty_cache()
+
+    # launch/resilience_smoke.py on the card: supervised retry and the
+    # SIGKILL child with a bitwise resume
+    smoke = resilience_smoke.main(["--device", str(dev)])
+    out["resilience_smoke"] = {
+        "events": smoke["supervised"]["events"],
+        "retry_compiles": smoke["supervised"]["retry_compiles"],
+        "latest_checkpoint": smoke["kill_resume"]["latest"],
+        "child_rc": smoke["kill_resume"]["child_rc"]}
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -1564,7 +1964,7 @@ def main() -> int:
     from repro_torch.md.integrator import IntegratorConfig
     from repro_torch.md.lattice import b20_fege
     from repro_torch.md.neighbor import cell_neighbor_table, gather_blocks
-    from repro_torch.md.state import init_state
+    from repro_torch.md.state import init_state, temperature_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1703,6 +2103,9 @@ def main() -> int:
         f"observables {[(k, v.tolist()) for k, v in eng.trace.values.items()]}")
     if not spin_dev < 1e-4:
         raise AssertionError(f"|S| drifted by {spin_dev}")
+    t_random = float(temperature_of(st, masses))
+    log(f"  lattice temperature after {steps} steps (random weights): "
+        f"{t_random:.1f} K")
 
     # ---- phase 4: at the main path's shapes: compare, time, bound ----------
     log("phase 4: kernels at the main path's shapes (f32)")
@@ -1829,6 +2232,17 @@ def main() -> int:
                 row["name"]]
     print(json.dumps({"replica_plan": replica}), flush=True)
     print(json.dumps({"ensemble": phase_ensemble(torch, dev)}), flush=True)
+    training = phase_training(torch, dev, kern, ref, t_random)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            row["launches_training"] = training["launches"][row["name"]][0]
+            row["body_training"] = training["bodies"][row["name"]]
+            row["max_rel_err_training"] = training["kernel_rel_err"][
+                row["name"]]
+            row["ms_training"] = training["kernel_ms"][row["name"]]
+    print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"resilience": phase_resilience(
+        torch, dev, spec, lat, moments, kern)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,17 +108,19 @@ def zeeman_moments(moments, types, like: torch.Tensor) -> torch.Tensor:
 def _zeeman(spin, types, field, moments) -> torch.Tensor:
     mom = zeeman_moments(moments, types, spin)
     b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
-    return -units.MU_B * torch.sum(mom[:, None] * spin * b)
+    return -units.MU_B * torch.sum(mom[:, None] * spin * b, dim=(-2, -1))
 
 
 def energy(spec: NEPSpinSpec, params: NEPSpinParams, pos: torch.Tensor,
            spin: torch.Tensor, types: torch.Tensor, table: NeighborTable,
            box: torch.Tensor, field=None, moments=None) -> torch.Tensor:
     """Total energy E(R, S) [eV]; ``field`` (3,) Tesla adds the Zeeman term
-    -mu_B * m_t * sum_i S_i . B (the external field is not learned)."""
+    -mu_B * m_t * sum_i S_i . B (the external field is not learned).  A
+    batch of configurations (:func:`~repro_torch.md.neighbor.
+    gather_neighbors`) gives one energy each, (C,)."""
     dr, dist, sj, tj, mask = gather_neighbors(pos, spin, types, table, box)
     e = torch.sum(atom_energies(spec, params, dr, dist, mask, types, tj, spin,
-                                sj))
+                                sj), dim=-1)
     if field is not None:
         e = e + _zeeman(spin, types, field, moments)
     return e
@@ -127,15 +129,27 @@ def energy(spec: NEPSpinSpec, params: NEPSpinParams, pos: torch.Tensor,
 def energy_forces_field(spec: NEPSpinSpec, params: NEPSpinParams,
                         pos: torch.Tensor, spin: torch.Tensor,
                         types: torch.Tensor, table: NeighborTable,
-                        box: torch.Tensor, field=None, moments=None):
+                        box: torch.Tensor, field=None, moments=None, *,
+                        create_graph: bool = False):
     """(E, F = -dE/dR (N,3) [eV/A], H_eff = -dE/dS (N,3)) by autograd
-    through the gather: the whole-evaluation surface."""
+    through the gather: the whole-evaluation surface.  A batch of
+    configurations (``pos``/``spin`` (C, N, 3), ``table`` (C, N, M)) gives
+    E (C,) and each configuration's F and H_eff: E_c depends on
+    configuration c alone, so the gradient of sum_c E_c is theirs.
+
+    ``create_graph`` keeps the graph of all three, so a loss on the forces
+    and fields differentiates into ``params`` (training); without it the
+    outputs are detached (MD)."""
     p = pos.detach().requires_grad_(True)
     s = spin.detach().requires_grad_(True)
     with torch.enable_grad():
         e = energy(spec, params, p, s, types, table, box, field, moments)
-        g_p, g_s = torch.autograd.grad(e, (p, s))
-    return e.detach(), -g_p, -g_s
+        g_p, g_s = torch.autograd.grad(torch.sum(e), (p, s),
+                                       create_graph=create_graph,
+                                       allow_unused=True)
+    if g_s is None:             # a spin-free spec without a field
+        g_s = torch.zeros_like(spin)
+    return (e if create_graph else e.detach()), -g_p, -g_s
 
 
 def compute(spec: NEPSpinSpec, params: NEPSpinParams, nbh: Neighborhood,

@@ -745,6 +745,11 @@ int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
                                           c_ang, c_spin, w1, b1, w2, b2,
                                           q_scale, e, hdir, abar, n, m, nr,
                                           sp.cutoff, stream);
+  if (is_atom<TrainSizes>(sp))
+    return launch_atom_warp<TrainSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
+                                           c_ang, c_spin, w1, b1, w2, b2,
+                                           q_scale, e, hdir, abar, n, m, nr,
+                                           sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
 

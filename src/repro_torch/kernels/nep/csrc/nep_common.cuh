@@ -172,6 +172,7 @@ struct Sizes {
 using ProdSizes = Sizes<2, 8, 6, 4, 4, 4, 32, 3>;    // fege_spinlattice config()
 using SmokeSizes = Sizes<2, 6, 4, 2, 2, 2, 16, 3>;   // fege_spinlattice smoke_config()
 using LoopSizes = Sizes<2, 6, 4, 2, 2, 2, 32, 3>;    // the md_loop scenario's spec
+using TrainSizes = Sizes<2, 6, 4, 2, 2, 3, 32, 3>;   // launch/train.py's fitted spec
 
 // K2's warp body reads the carriers only: the sizes up to n_spin decide.
 template <typename S>

@@ -614,6 +614,10 @@ int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
     return launch_warp<SmokeSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
                                       c_ang, c_spin, abar, f, h, n, m, nr,
                                       sp.cutoff, stream);
+  if (is<TrainSizes>(sp))
+    return launch_warp<TrainSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
+                                      c_ang, c_spin, abar, f, h, n, m, nr,
+                                      sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
 

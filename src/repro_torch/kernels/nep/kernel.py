@@ -41,12 +41,13 @@ from repro_torch.kernels.nep.ref import atom_pass_plain, force_pass_plain
 SPEC_BOUNDS = {"n_types": 4, "n_rad": 8, "n_ang": 8, "n_spin": 8,
                "l_max": 4, "basis_size": 16, "hidden": 64, "n_onsite": 4}
 # specs with compiled warp-per-atom bodies (csrc/nep_common.cuh: ProdSizes,
-# SmokeSizes, LoopSizes): (n_types, basis_size, n_rad, n_ang, l_max, n_spin,
-# hidden, n_onsite) of configs/fege_spinlattice.py config() and
-# smoke_config() and of the md_loop scenario (launch/md_loop.py), with spin.
-# K2 reads no MLP, so its body matches on the first six fields.
+# SmokeSizes, LoopSizes, TrainSizes): (n_types, basis_size, n_rad, n_ang,
+# l_max, n_spin, hidden, n_onsite) of configs/fege_spinlattice.py config()
+# and smoke_config(), of the md_loop scenario (launch/md_loop.py) and of the
+# fitted potential of launch/train.py, with spin.  K2 reads no MLP, so its
+# body matches on the first six fields.
 WARP_SPECS = ((2, 8, 6, 4, 4, 4, 32, 3), (2, 6, 4, 2, 2, 2, 16, 3),
-              (2, 6, 4, 2, 2, 2, 32, 3))
+              (2, 6, 4, 2, 2, 2, 32, 3), (2, 6, 4, 2, 2, 3, 32, 3))
 BODIES = ("warp", "thread")
 MAX_REPLICAS = 65535                 # the CUDA grid's y extent
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}

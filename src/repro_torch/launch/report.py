@@ -1,0 +1,262 @@
+"""Render run reports from engine runlogs (port of the runlog half of
+``repro.launch.report``).
+
+    PYTHONPATH=src python -m repro_torch.launch.report run.jsonl [more.jsonl]
+
+A runlog is the JSONL event stream ``Engine.run(telemetry=...)`` writes:
+the report gives the throughput, builds after the first chunk, the
+energy-drift curve, the health verdicts, straggled chunks, every
+resilience event (fault injection, rollback, retry, degradation, give-up;
+one line each, the reference's) and the final status.
+
+Not ported yet: the serving journal's report (``journal_report`` and the
+serving events, ROADMAP queue 1 item 12) and the dry-run roofline tables
+(``summary``, item 14); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+import os
+import sys
+
+_BLOCKS = "▁▂▃▄▅▆▇█"
+
+_RESIL_EVENTS = ("fault_injected", "rollback", "retry", "degrade",
+                 "degrade_restore", "recovered", "give_up",
+                 "elastic_restore", "evict")
+
+
+def sparkline(values) -> str:
+    """Unicode sparkline of a numeric series (non-finite entries -> 'x')."""
+    vals = []
+    for v in values:
+        try:
+            v = float(v)
+        except (TypeError, ValueError):
+            v = float("nan")
+        vals.append(v)
+    finite = [v for v in vals if math.isfinite(v)]
+    if not finite:
+        return "x" * len(vals)
+    lo, hi = min(finite), max(finite)
+    span = (hi - lo) or 1.0
+    out = []
+    for v in vals:
+        if not math.isfinite(v):
+            out.append("x")
+        else:
+            out.append(_BLOCKS[int((v - lo) / span * (len(_BLOCKS) - 1))])
+    return "".join(out)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    if not xs:
+        return None
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n:.0f} B"
+        n /= 1024
+    return f"{n:.1f} GiB"
+
+
+def _is_num(x) -> bool:
+    try:
+        float(x)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def _fmt_s(s) -> str:
+    return f"{s:.2f} s" if isinstance(s, (int, float)) else "?"
+
+
+def straggler_chunks(wall_times, *, window: int = 50,
+                     threshold: float = 1.5,
+                     min_samples: int = 4) -> list[int]:
+    """Indices of straggled chunks: a chunk whose wall time exceeds
+    ``threshold`` x the median of the trailing ``window`` records (once
+    ``min_samples`` are in).  The first (warm-up) chunk is never flagged
+    (the reference's ``ckpt.elastic.straggler_chunks``)."""
+    import numpy as np
+    times, flagged = [], []
+    for i, w in enumerate(wall_times):
+        times.append(float(w))
+        if len(times) > window:
+            times.pop(0)
+        if (len(times) >= min_samples and i > 0
+                and float(w) > threshold * float(np.median(times))):
+            flagged.append(i)
+    return flagged
+
+
+def _fmt_resil(e: dict) -> str:
+    """One report line per resilience event record."""
+    ev = e.get("event")
+    step = e.get("step", "?")
+    if ev == "fault_injected":
+        return (f"fault_injected: {e.get('kind')} at step "
+                f"{e.get('fault_step', step)} (leaf {e.get('leaf')})")
+    if ev == "rollback":
+        return (f"rollback #{e.get('attempt', '?')}: {e.get('kind')} at "
+                f"step {step} -> checkpoint {e.get('checkpoint')}")
+    if ev == "retry":
+        return (f"retry #{e.get('attempt', '?')}: resumed at step {step}, "
+                f"{e.get('remaining', '?')} steps remaining")
+    if ev == "degrade":
+        if e.get("action") == "capacity":
+            return (f"degrade: cell_capacity {e.get('prev_capacity')} -> "
+                    f"{e.get('cell_capacity')} at step {step}")
+        if e.get("action") == "dt":
+            return (f"degrade: dt {e.get('prev_dt')} -> {e.get('dt')} for "
+                    f"{e.get('span_steps')} steps at step {step}")
+        return f"degrade: {e.get('kind')} at step {step} (no action)"
+    if ev == "degrade_restore":
+        return f"degrade_restore: dt back to {e.get('dt')} at step {step}"
+    if ev == "evict":
+        return (f"evict: job {e.get('job', '?')} (tenant "
+                f"{e.get('tenant', '?')}) off slot {e.get('slot', '?')} "
+                f"for {e.get('kind')} at step {step}")
+    if ev == "recovered":
+        return f"recovered after {e.get('attempts')} attempt(s) at step {step}"
+    if ev == "give_up":
+        return (f"give_up: {e.get('kind')} after {e.get('attempts')} "
+                f"attempt(s) at step {step}")
+    if ev == "elastic_restore":
+        f_, t_ = e.get("from_layout", {}), e.get("to_layout", {})
+        return (f"elastic_restore at step {step}: "
+                f"{f_.get('devices', '?')} -> {t_.get('devices', '?')} "
+                f"device(s), cells {f_.get('cells')} -> {t_.get('cells')}, "
+                f"capacity {f_.get('cell_capacity')} -> "
+                f"{t_.get('cell_capacity')}")
+    return f"{ev}: {e}"
+
+
+def runlog_report(path: str | os.PathLike) -> str:
+    """Render one runlog into a human-readable report string."""
+    from repro_torch.telemetry.runlog import read_runlog
+
+    events = read_runlog(path, tolerant=True)
+    start = next((e for e in events if e.get("event") == "run_start"), {})
+    # a supervised run appends retry segments to one file: the LAST
+    # run_end is the final word, chunk records span all segments
+    end = next((e for e in reversed(events)
+                if e.get("event") == "run_end"), None)
+    chunks = [e for e in events if e.get("event") == "chunk"]
+    segments = sum(1 for e in events if e.get("event") == "run_start")
+    resil = [e for e in events if e.get("event") in _RESIL_EVENTS]
+
+    lines = [f"## Run report: {path}", ""]
+    prov = start.get("provenance", {})
+    card = prov.get("nvidia_smi") or prov.get("device_name") or "no card"
+    lines.append(
+        f"- plan `{start.get('plan', '?')}` | potential "
+        f"`{start.get('potential', '?')}` | {start.get('n_atoms', '?')} atoms"
+        f" | `{start.get('device', '?')}` ({card}; torch "
+        f"{prov.get('torch_version', '?')}, CUDA "
+        f"{prov.get('cuda_version', '?')})")
+    lines.append(
+        f"- schedule: {start.get('n_steps', '?')} steps in chunks of "
+        f"{start.get('chunk', '?')} (dt {start.get('dt_ps', '?')} ps)")
+
+    if not chunks:
+        lines.append("- no chunk records (run failed before first boundary)")
+    else:
+        rates = [c["steps_per_s"] for c in chunks
+                 if _is_num(c.get("steps_per_s"))]
+        # steady state: skip the first chunk (kernel builds and loads)
+        steady = [c["steps_per_s"] for c in chunks[1:]
+                  if _is_num(c.get("steps_per_s"))] or rates
+        if rates:
+            lines.append(
+                f"- throughput: median {_median(rates):.1f} steps/s "
+                f"(steady-state {_median(steady):.1f} steps/s over "
+                f"{len(chunks)} chunk(s))")
+        compiles = [c.get("compiles", 0) for c in chunks]
+        post_warm = sum(compiles[1:])
+        lines.append(
+            f"- kernel builds and loads: {compiles[0]} warmup, {post_warm} "
+            "after warmup" + ("  <-- RECOMPILE" if post_warm else ""))
+        drifts = [c.get("health", {}).get("e_drift") for c in chunks]
+        if any(d is not None for d in drifts):
+            worst = max((abs(float(d)) for d in drifts
+                         if d is not None and _is_num(d)
+                         and math.isfinite(float(d))), default=None)
+            lines.append(
+                f"- energy drift per chunk: {sparkline(drifts)} "
+                f"(max |drift| {worst:.3e})" if worst is not None
+                else f"- energy drift per chunk: {sparkline(drifts)}")
+        verdicts = {}
+        for c in chunks:
+            v = c.get("verdict", "?")
+            verdicts[v] = verdicts.get(v, 0) + 1
+        lines.append("- health: " + ", ".join(
+            f"{n}x {v}" for v, n in sorted(verdicts.items())))
+        walls = [c.get("wall_s") for c in chunks]
+        if all(_is_num(w) for w in walls) and len(walls) >= 2:
+            slow = straggler_chunks(walls)
+            if slow:
+                lines.append(
+                    f"- stragglers: {len(slow)} chunk(s) over 1.5x the "
+                    f"trailing median wall time: "
+                    + ", ".join(f"#{i} ({walls[i]:.2f}s)" for i in slow))
+
+    if resil:
+        counts = {}
+        for e in resil:
+            counts[e["event"]] = counts.get(e["event"], 0) + 1
+        lines.append("- resilience: " + ", ".join(
+            f"{n}x {k}" for k, n in sorted(counts.items()))
+            + (f" across {segments} run segment(s)" if segments > 1 else ""))
+        for e in resil:
+            lines.append("  " + _fmt_resil(e))
+
+    if end is None:
+        lines.append("- status: **incomplete** (no run_end record)")
+    else:
+        status = end.get("status", "?")
+        mark = "" if status == "ok" else " **<-- FAILED**"
+        lines.append(
+            f"- status: {status}{mark} | {end.get('total_steps', '?')} steps "
+            f"in {_fmt_s(end.get('total_wall_s'))}")
+        if end.get("error"):
+            lines.append(f"  error: {end['error']}")
+        if end.get("peak_memory_bytes"):
+            lines.append(
+                f"- peak device memory: "
+                f"{_fmt_bytes(end['peak_memory_bytes'])}")
+    return "\n".join(lines)
+
+
+def journal_report(path) -> str:
+    """The serving journal's report: ROADMAP queue 1 item 12 (serve/)."""
+    raise NotImplementedError("journal_report renders the serving journal, "
+                              "ROADMAP queue 1 item 12 (serve/)")
+
+
+def summary(recs=None) -> str:
+    """The dry-run roofline tables: ROADMAP queue 1 item 14."""
+    raise NotImplementedError("the dry-run roofline summary is ROADMAP "
+                              "queue 1 item 14 (launch and tooling)")
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        summary()
+    for i, path in enumerate(argv):
+        if i:
+            print()
+        print(runlog_report(path))
+
+
+if __name__ == "__main__":
+    main()

@@ -52,9 +52,16 @@ own generator, per-slot health vectors, and :meth:`Engine.write_slots` to
 seat a new job in a slot between chunks, evaluated by the same routine as
 every other evaluation, so the other slots keep their bits.
 
-Not ported yet (they raise ``NotImplementedError``): ``Engine.rebind``
-(ROADMAP queue 1 item 11), the ``Sharded`` plan with elastic restore, and
-the replica axis across several cards (``shard_replicas``; item 13).
+Resilience (:mod:`repro_torch.resilience`): ``_fault_injector``, when set,
+is called at every chunk start on either plan with ``(engine, carry, n)``
+and returns the (possibly corrupted) carry; :meth:`Engine.rebind` swaps the
+integrator config or the skin at a chunk boundary (the supervisor's dt
+ladder); ``evict_slot_hook`` is the serving layer's rung of the
+supervisor's ladder.
+
+Not ported yet (they raise ``NotImplementedError``): the ``Sharded`` plan
+with elastic restore, ``rebind(plan=...)`` onto it, and the replica axis
+across several cards (``shard_replicas``; ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -250,6 +257,11 @@ class Engine:
                              f"{self.state.pos.dtype}")
         self._last_ckpt = None      # newest checkpoint written by save()
         self.ckpt_pin = None        # a step save() must never collect
+        self._fault_injector = None  # resilience hook: (engine, carry, n)
+                                     # -> carry at each chunk start
+        self.evict_slot_hook = None  # serving hook: (HealthError) -> info
+                                     # dict, or None; the supervisor calls
+                                     # it to evict one poisoned per-slot job
         if self._replica:
             r = self.plan.replicas
             if self.state.pos.dim() == 2:
@@ -822,6 +834,11 @@ class Engine:
         while done < n_steps:
             n = min(chunk, n_steps - done)
             emit = self._emit_for(n)
+            if self._fault_injector is not None:
+                # resilience hook (repro_torch.resilience.faults): carry
+                # corruption at the chunk boundary, kept in self._carry
+                carry = self._fault_injector(self, carry, n)
+                self._carry = carry
             targ_c = self._chunk_arg(targ, carry, n, vec=False)
             farg_c = self._chunk_arg(farg, carry, n, vec=True)
             t_chunk = time.perf_counter()
@@ -892,11 +909,37 @@ class Engine:
             info["per_slot"] = True
         return info
 
-    def rebind(self, **kwargs):
-        """Rebuild the loop around a new config / skin / plan (the
-        supervisor's degradation lever): not ported yet."""
-        raise NotImplementedError("Engine.rebind is ROADMAP queue 1 item 11 "
-                                  "(the resilience supervisor)")
+    def rebind(self, *, cfg: IntegratorConfig | None = None,
+               skin: float | None = None, plan=None) -> None:
+        """Rebuild the loop around a new config / skin / plan at a chunk
+        boundary: the supervisor's degradation lever.
+
+        The carry is synced to ``self.state`` (input atom order), the knobs
+        are swapped and the plan's setup re-runs from that state, as at
+        construction.  Positions, velocities, spins and the step carry over
+        bitwise (and the run's generators, which the caller holds); the
+        neighbor table and the forces are rebuilt.  A new ``plan`` re-lays
+        the Sharded plan (a new cell capacity or mesh), ROADMAP queue 1
+        item 13.
+        """
+        if plan is not None:
+            raise NotImplementedError(
+                "rebind(plan=...) re-lays the Sharded plan's cells and mesh, "
+                "ROADMAP queue 1 item 13")
+        self._sync_observation()
+        if cfg is not None:
+            self.cfg = cfg
+        if skin is not None:
+            self.skin = skin
+        self.table = None
+        count = self._carry.n_rebuilds      # cumulative across rebinds
+        if self._replica:
+            self._setup_replica()
+            self._carry = self._carry._replace(n_rebuilds=count)
+            return
+        self._setup_flat()
+        self._init_carry(field_now=self._value_now(
+            self._norm_arg(self.field, vec=True), vec=True))
 
     # ------------------------------------------------------------------
     def _ckpt_tree(self, c) -> dict:

@@ -86,11 +86,20 @@ def gather_neighbors(pos: torch.Tensor, spin: torch.Tensor,
     """Per-neighbor quantities from a table: (dr (N,M,3) min-imaged
     r_j - r_i, dist (N,M), neighbor spins (N,M,3), neighbor types (N,M),
     mask (N,M)).  Differentiable in ``pos`` and ``spin`` (the whole-
-    evaluation surfaces differentiate through it)."""
+    evaluation surfaces differentiate through it).
+
+    A batch of configurations (``pos``/``spin`` (C, N, 3), each with its
+    own table, ``table.idx`` (C, N, M); ``types`` (N,) shared) gathers
+    configuration c's rows for its own table: the outputs gain the
+    leading C."""
     idx = table.idx.long()
-    dr = _min_image(pos[idx] - pos[:, None, :], box)
+    n = pos.shape[-2]
+    lead = idx.shape[:-2]
+    rows = idx + n * torch.arange(int(np.prod(lead)), device=idx.device
+                                  ).reshape(lead + (1, 1))
+    dr = _min_image(pos.reshape(-1, 3)[rows] - pos[..., :, None, :], box)
     dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + 1e-30)
-    return dr, dist, spin[idx], types[idx], table.mask
+    return dr, dist, spin.reshape(-1, 3)[rows], types[idx], table.mask
 
 
 def needs_rebuild(table: NeighborTable, pos: torch.Tensor, box: torch.Tensor,

@@ -1,0 +1,24 @@
+"""Fault tolerance for long engine campaigns: inject, detect, recover (port
+of ``repro.resilience``).
+
+* :mod:`.faults` - deterministic, seeded fault injection at chunk
+  boundaries (NaN, bit-flip SDC, host crash) through the engine's
+  ``_fault_injector`` hook, on the flat and the replica plan.
+* :mod:`.supervisor` - :class:`Supervisor` wraps ``Engine.run`` with
+  rollback-retry: on a :class:`~repro_torch.telemetry.monitor.HealthError`
+  it restores the newest checkpoint (carry and generators), pins it, backs
+  off and retries; repeated same-class failures climb the degradation
+  ladder (evict one slot through the engine's ``evict_slot_hook``, or a
+  reduced-dt span through ``Engine.rebind``).  Every action lands in the
+  runlog as a structured event that :mod:`repro_torch.launch.report`
+  renders.
+
+The Sharded plan's faults (``overflow``, ``halo``), the capacity rung and
+elastic restore are ROADMAP queue 1 item 13.
+"""
+from repro_torch.resilience.faults import (Fault, FaultInjector, FaultPlan,
+                                           install_faults)
+from repro_torch.resilience.supervisor import Supervisor, SupervisorConfig
+
+__all__ = ["Fault", "FaultPlan", "FaultInjector", "install_faults",
+           "Supervisor", "SupervisorConfig"]

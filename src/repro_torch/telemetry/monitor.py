@@ -7,7 +7,10 @@ on the device and reads them back in one transfer:
     e_drift    total energy (potential + kinetic) at chunk end minus chunk
                start [eV]; on the replica plan the signed drift of the
                replica with the largest magnitude
-    spin_dev   max | |s| - 1 | over magnetic atoms
+    spin_dev   max | |s| - 1 | over magnetic atoms, and |s| over the
+               others, whose spin is 0 (a corrupted non-magnetic spin
+               would otherwise feed its neighbours' spin descriptors
+               unseen)
     nonfinite  count of non-finite entries across positions, forces, spins
     nbr_occ    max neighbor-slot occupancy fraction (1.0 = a full row: the
                next rebuild may truncate)
@@ -60,7 +63,7 @@ class HealthConfig:
 
     fail_on_nonfinite: bool = True
     max_energy_drift: float | None = None   # |e_drift| bound [eV]
-    max_spin_dev: float | None = None       # | |s|-1 | bound
+    max_spin_dev: float | None = None       # spin_dev bound
     warn_occupancy: float = 1.0             # neighbor occupancy warn level
 
 
@@ -69,9 +72,10 @@ class HealthConfig:
 # ---------------------------------------------------------------------------
 
 def spin_norm_dev(spin: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Max ``| |s| - 1 |`` over rows where ``mask`` is True (0 if none)."""
-    dev = torch.abs(torch.linalg.norm(spin, dim=-1) - 1.0)
-    return torch.max(torch.where(mask, dev, torch.zeros_like(dev)))
+    """Max ``| |s| - 1 |`` over rows where ``mask`` (magnetic) is True and
+    ``|s|`` over the other rows, which must hold 0."""
+    norm = torch.linalg.norm(spin, dim=-1)
+    return torch.max(torch.where(mask, torch.abs(norm - 1.0), norm))
 
 
 def nonfinite_count(*tensors: torch.Tensor) -> torch.Tensor:

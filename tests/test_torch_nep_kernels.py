@@ -268,13 +268,15 @@ def test_wrappers_dispatch_cpu_to_plain_and_check_inputs():
     (PRODUCTION, "warp"),
     (dict(cutoff=5.0, basis_size=6, n_rad=4, n_ang=2, l_max=2, n_spin=2,
           n_types=2, hidden=16), "warp"),
+    (dict(CASES[0][3], n_spin=3), "warp"),   # launch/train.py's fitted spec
     (CASES[2][3], "thread"),
     (dict(PRODUCTION, spin=False), "thread"),
     (dict(PRODUCTION, n_types=1), "thread"),
 ])
 def test_force_pass_body_choice(spec_kw, body):
     """K2's warp body serves the specs it is compiled for (the production
-    and smoke specs of configs/fege_spinlattice.py); any other spec within
+    and smoke specs of configs/fege_spinlattice.py, the fitted spec of
+    launch/train.py); any other spec within
     SPEC_BOUNDS goes to the thread-per-atom body."""
     assert tkern.force_pass_body(NEPSpinSpec(**spec_kw)) == body
 
@@ -287,6 +289,7 @@ SMOKE = dict(cutoff=5.0, basis_size=6, n_rad=4, n_ang=2, l_max=2, n_spin=2,
     (PRODUCTION, "warp"),
     (SMOKE, "warp"),
     (CASES[0][3], "warp"),      # the md_loop scenario's spec
+    (dict(CASES[0][3], n_spin=3), "warp"),   # launch/train.py's fitted spec
     (CASES[2][3], "thread"),
     (dict(PRODUCTION, spin=False), "thread"),
     (dict(PRODUCTION, n_types=1), "thread"),
