@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--serve-only]
 
-Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero, printing
-no result, without them.  Phases (each raises on failure):
+``--serve-only`` runs phases 1 and I alone (the job server in a fresh
+process) and prints no result line.  Needs one CUDA card and the CUDA
+toolkit (``nvcc``); exits nonzero, printing no result, without them.
+Phases (each raises on failure):
 
 1. the card's name and power limit; build every kernel from ``csrc/``;
    ptxas's registers, stack frame and spills of each kernel body;
@@ -146,6 +148,34 @@ H. supervised recovery on phase A's 262,144-atom field-cooling Engine
    SIGKILLed child and a bitwise resume); the supervised run's wall time
    against the clean run's and one rollback's; one ``{"resilience": ...}``
    line;
+I. the batched simulation job server (``repro_torch.serve``): (a)
+   ``launch/serve_smoke.py``: ``launch/serve.py``'s Heisenberg-DMI fleet
+   at f64 through a packed 2-slot server and a solo 1-slot server, every
+   stream and final state bitwise, no kernel build or load after a
+   bucket's first chunk, the accounting closed; (b) the card-scale
+   NEP-SPIN fleet (production spec, random weights, K1/K2, f32, frozen
+   lattice, chunk 20, obs_every 10): 6 jobs on each of B20 16^3 (32,768
+   atoms) and 32^3 (262,144), 4 slots per bucket, budgets 40/60/80 steps
+   (backfills), a 300 K hold, a 300 -> 100 K anneal, a 0.2 T field and
+   field cooling; each bucket's evaluations equal 1 + steps + backfills
+   and the K1 and K2 launches their sum (one launch per evaluation for all
+   slots), all in the warp body, 0 steady builds and warmup no larger
+   than the kernel libraries, the accounting closed; K1 and K2 (warp)
+   on each bucket's own blocks and spins after that drain against their
+   plain versions, f32 within 1e-4 and f64 within 1e-9 (the large
+   bucket's first 8,192 rows of every slot); every small-bucket job and
+   two large ones bitwise their solo runs; four timed drains after the
+   first, journal off / on / on / off, each bitwise the first: jobs/s,
+   slot-steps/s and atom-steps/s over the journal-off drains, the same
+   rates over their segments with every slot busy, the journal's
+   overhead per pair; peak memory; a journaled fleet abandoned after two
+   ticks, ``SimServer.recover`` and the resubmission timed, then
+   drained: the accounting closed and the resumed jobs' remaining
+   streams bitwise; (c) a NaN temperature schedule among three
+   small-bucket jobs evicted through the supervisor's ``evict_slot_hook``,
+   the three bitwise their solo runs; (d) ``launch/serve_chaos_smoke.py`` (faults, a SIGKILLed child,
+   recovery, the remaining streams bitwise, f64); one ``{"serving": ...}``
+   line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
@@ -154,7 +184,8 @@ H. supervised recovery on phase A's 262,144-atom field-cooling Engine
     ``launches_replica``, ``replica_ms`` and ``replica_flat_ms`` (one
     batched launch at R = 4, and 4 flat launches), and from phase G
     ``launches_training``, ``body_training``, ``max_rel_err_training`` and
-    ``ms_training`` (each body's time at the fitted spec)), then
+    ``ms_training`` (each body's time at the fitted spec), and from phase
+    I ``launches_serving`` and ``max_rel_err_serving``), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -1941,7 +1972,393 @@ def phase_resilience(torch, dev, spec, lat, moments, kern) -> dict:
 
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase I: the batched simulation job server
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_CHUNK, SERVE_OBS_EVERY = 4, 20, 10
+SERVE_JOBS = 6                                # per bucket
+SERVE_LARGE_SOLO = 2                          # large-bucket jobs run solo
+# the rows of every slot held against the plain versions, by bucket size
+# (all 262,144 at R = 4 would take the plain versions ~20 s a dtype);
+# other buckets whole
+SERVE_KERNEL_ROWS = {262144: 8192}
+# the timed drains, each on a fresh server after phase I's first drain:
+# two pairs of journal off / on in alternating order
+SERVE_TIMED = ("off", "on", "on", "off")
+
+
+def serve_fleet(torch, dev, spec):
+    """The card-scale fleet (cell fege-serve-1card): NEP-SPIN at the
+    production spec, random weights from a seed, K1/K2, f32, frozen
+    lattice, budgets 40/60/80 and four protocols per bucket."""
+    from repro_torch.launch.serve import (NEP_CELLS, NEP_SEED,
+                                          build_nep_fleet, nep_potential)
+    return build_nep_fleet(nep_potential(spec, NEP_SEED, device=dev),
+                           NEP_CELLS, SERVE_JOBS, SERVE_OBS_EVERY)
+
+
+def serve_cfg(root, name, **kw):
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(runlog=str(root / f"{name}.jsonl"),
+                       workdir=str(root / name), chunk=SERVE_CHUNK, **kw)
+
+
+def drain_fleet(torch, cfg, jobs):
+    """(server, handles, wall s of submit + drain)."""
+    from repro_torch.serve import SimServer
+    srv = SimServer(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [srv.submit(j) for j in jobs]
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in hs:
+        if h.status != "done":
+            raise AssertionError(f"{h.job.name}: {h.status} ({h.error})")
+    return srv, hs, wall
+
+
+def busy_segments(runlog, atoms_of, into) -> None:
+    """Add the drain's segments in which every slot held a job (the
+    fleet's tail excluded) to ``into``, by bucket size: their count,
+    slot-steps and wall (each segment's own: the chunk, the supervisor's
+    checkpoints and the backfill's evaluation)."""
+    from repro_torch.telemetry import read_runlog
+    for rec in read_runlog(runlog):
+        if rec["event"] == "serve_chunk" and not rec["idle"]:
+            v = into.setdefault(atoms_of[rec["bucket"]], {
+                "segments": 0, "slot_steps": 0, "wall_s": 0.0})
+            v["segments"] += 1
+            v["slot_steps"] += len(rec["slots"]) * rec["steps"]
+            v["wall_s"] += rec["wall_s"]
+
+
+def serve_kernels(torch, kern, ref, engine, rows=None) -> dict:
+    """Phase I (b): K1 and K2 (warp body) on a bucket's own inputs after
+    the packed drain - its shared blocks, the (slots, N, 3) spins and
+    their ``sj`` - against the plain versions at f32 (1e-4) and, on the
+    same inputs cast, f64 (1e-9); with ``rows``, the plain versions on
+    the first ``rows`` atoms of every slot (K2's on K1's whole ``abar``,
+    which both sides read through ``idx``)."""
+    from repro_torch.core.potential import NEPSpinParams
+    c, spec, types = engine._carry, engine.potential.spec, engine._types0
+    nbh = c.nbh
+    n = rows or types.shape[0]
+    errs = {"nep_atom_pass": {}, "nep_force_pass": {}}
+    for dtype, bar, tag in ((torch.float32, 1e-4, "f32"),
+                            (torch.float64, 1e-9, "f64")):
+        params = NEPSpinParams(*(p.to(dtype)
+                                 for p in engine.potential.params))
+        dr, spin = nbh.dr.to(dtype), c.states.spin.to(dtype)
+        sj = spin[:, nbh.idx.long()]
+        got1 = kern.nep_atom_pass(spec, params, dr, nbh.mask, types,
+                                  nbh.tj, spin, sj, body="warp")
+        got2 = kern.nep_force_pass(spec, params, dr, nbh.mask, nbh.idx,
+                                   types, nbh.tj, spin, sj, got1[2],
+                                   body="warp")
+        torch.cuda.synchronize()
+        head = (dr[:, :n], nbh.mask[:n])
+        want1 = ref.atom_pass_plain(spec, params, *head, types[:n],
+                                    nbh.tj[:n], spin[:, :n], sj[:, :n])
+        want2 = ref.force_pass_plain(spec, params, *head, nbh.idx[:n],
+                                     types[:n], nbh.tj[:n], spin[:, :n],
+                                     sj[:, :n], got1[2])
+        what = f"serving {types.shape[0]}" + (f"[:{n}]" if rows else "")
+        errs["nep_atom_pass"][tag] = max(
+            check(f"K1 {what} {o} {tag}", a[:, :n], b, bar)
+            for o, a, b in zip(("e", "hdir", "abar"), got1, want1))
+        errs["nep_force_pass"][tag] = max(
+            check(f"K2 {what} {o} {tag}", a[:, :n], b, bar)
+            for o, a, b in zip(("F", "h2"), got2, want2))
+        del dr, spin, sj, got1, got2, want1, want2
+    return errs
+
+
+def phase_serve(torch, dev, spec, kern, ref) -> dict:
+    """Phase I: the job server (launch/serve.py's fleet at f64, packed vs
+    solo bitwise), the card-scale NEP-SPIN fleet through K1/K2 (launch
+    counts per bucket, K1/K2 against their plain versions on each
+    bucket's inputs, packed vs solo bitwise, jobs/s and busy slot-steps/s
+    over warm drains, journal overhead over alternating pairs, recovery),
+    eviction of a poisoned job, and the chaos smoke."""
+    import collections
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.launch import serve_chaos_smoke, serve_smoke
+    from repro_torch.launch.serve import NEP_CELLS
+    from repro_torch.launch.serve_smoke import same_job
+    from repro_torch.md.engine import Engine
+    from repro_torch.ensemble import protocol
+    from repro_torch.serve import SimServer
+    from repro_torch.telemetry import read_runlog
+    root = SURFACE_DIR / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    t_phase = time.perf_counter()
+
+    def release(srv_dir):
+        shutil.rmtree(root / srv_dir, ignore_errors=True)
+        gc.collect()     # an engine and its packer's hook form a cycle
+        torch.cuda.empty_cache()
+
+    # (a) the CLI fleet: Heisenberg-DMI, f64, packed 2 slots vs solo
+    t0 = time.perf_counter()
+    out["cli_fleet"] = serve_smoke.main(["--device", str(dev)])
+    out["cli_fleet"]["seconds"] = time.perf_counter() - t0
+    log(f"phase I (a): launch/serve.py's fleet at f64, packed vs solo "
+        f"bitwise, 0 steady builds, accounting closes "
+        f"({out['cli_fleet']['seconds']:.1f} s)")
+
+    # (b) the card-scale fleet.  The first drain counts evaluations (a
+    # wrapper around the engine's evaluation) and launches, and leaves
+    # each bucket's inputs for the kernel check; it also warms the phase
+    # (kernel libraries, allocator), so the timed drains after it do not
+    # depend on what ran before phase I
+    log(f"phase I (b): NEP-SPIN fleet, {SERVE_JOBS} jobs on each of "
+        f"{[8 * a * b * c for a, b, c in NEP_CELLS]} atoms, "
+        f"{SERVE_SLOTS} slots, chunk {SERVE_CHUNK}, obs_every "
+        f"{SERVE_OBS_EVERY}")
+    evals = collections.Counter()
+    replica_eval = Engine._replica_eval
+
+    def counted(self, *a):
+        evals[int(self.state.pos.shape[1])] += 1
+        return replica_eval(self, *a)
+
+    Engine._replica_eval = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # by earlier phases
+        reset_md_counters(kern)
+        srv, packed, first_wall = drain_fleet(
+            torch, serve_cfg(root, "packed", slots=SERVE_SLOTS),
+            serve_fleet(torch, dev, spec))
+        launches = read_md_counters(kern)
+        peak = torch.cuda.max_memory_allocated() - held
+    finally:
+        Engine._replica_eval = replica_eval
+    acct = srv.accounting
+    buckets = {}
+    for key, rt in srv.buckets.items():
+        n = int(rt.engine.state.pos.shape[1])
+        expect = 1 + rt.segments * SERVE_CHUNK + rt.backfills
+        b = acct.buckets[key.id]
+        buckets[n] = {"segments": rt.segments, "backfills": rt.backfills,
+                      "evaluations": evals[n], "expect": expect,
+                      "warmup_compiles": b["warmup_compiles"],
+                      "steady_compiles": b["steady_compiles"],
+                      "slot_steps": b["ok_slot_steps"]}
+        if evals[n] != expect:
+            raise AssertionError(f"bucket of {n} atoms: {evals[n]} "
+                                 f"evaluations, expected 1 + steps + "
+                                 f"backfills = {expect}")
+    total = sum(v["expect"] for v in buckets.values())
+    for name, (n, by_body) in launches.items():
+        if n != total or by_body != {"warp": total, "thread": 0}:
+            raise AssertionError(f"{name}: {n} launches {by_body}, expected "
+                                 f"{total} = sum over buckets of 1 + steps "
+                                 "+ backfills, all warp")
+    n_libs = len(_build.SOURCES)
+    for n, v in buckets.items():
+        if v["steady_compiles"] or v["warmup_compiles"] > n_libs:
+            raise AssertionError(f"bucket of {n} atoms: builds {v}")
+    if not acct.consistent():
+        raise AssertionError(f"accounting: {acct.summary()}")
+    slot_steps = acct.computed_slot_steps
+    atom_steps = sum(n * v["slot_steps"] for n, v in buckets.items())
+    # K1 and K2 on the serving path's own inputs, each bucket
+    t0 = time.perf_counter()
+    kernel_err = {}
+    for rt in srv.buckets.values():
+        n = int(rt.engine.state.pos.shape[1])
+        kernel_err[n] = serve_kernels(torch, kern, ref, rt.engine,
+                                      rows=SERVE_KERNEL_ROWS.get(n))
+    log(f"  K1/K2 on each bucket's inputs vs plain: {kernel_err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # where the drain's time goes, from its runlog: the chunks' own wall
+    # (integration and the chunk-end readback) and the segments' (plus the
+    # supervisor's checkpoints), per bucket; the rest is the host's
+    # seating, harvest and submission
+    atoms_of = {k.id: int(rt.engine.state.pos.shape[1])
+                for k, rt in srv.buckets.items()}
+    bucket_id = None
+    for rec in read_runlog(srv.cfg.runlog):
+        if rec["event"] == "run_start":
+            bucket_id = rec.get("bucket")
+        elif rec["event"] == "chunk" and bucket_id is not None:
+            v = buckets[atoms_of[bucket_id]]
+            v["chunk_wall_s"] = v.get("chunk_wall_s", 0.0) + rec["wall_s"]
+        elif rec["event"] == "serve_chunk":
+            v = buckets[atoms_of[rec["bucket"]]]
+            v["segment_wall_s"] = (v.get("segment_wall_s", 0.0)
+                                   + rec["wall_s"])
+    for n, v in buckets.items():
+        v["ms_per_step"] = 1e3 * v["chunk_wall_s"] / (v["segments"]
+                                                      * SERVE_CHUNK)
+    log(f"  first drain (counted): {len(packed)} jobs in {first_wall:.3f} "
+        f"s, peak {peak / 2**30:.2f} GiB above the phase's start; K1/K2 "
+        f"launches {launches}; "
+        f"buckets {buckets}; idle slot-steps {acct.idle_steps}")
+    del srv
+    release("packed")
+
+    # packed vs solo, bitwise: every small-bucket job, two large ones
+    fleet = serve_fleet(torch, dev, spec)
+    solo_jobs = fleet[:SERVE_JOBS + SERVE_LARGE_SOLO]
+    srv, solo, solo_wall = drain_fleet(
+        torch, serve_cfg(root, "solo", slots=1), solo_jobs)
+    for h, g in zip(packed, solo):
+        same_job(h, g, "packed vs solo")
+    log(f"  packed vs solo bitwise: {len(solo)} jobs (solo {solo_wall:.3f} "
+        "s)")
+    del srv
+    release("solo")
+
+    # the timed drains, warm and uncounted: journal off and on in
+    # alternating pairs, each bitwise the first drain
+    walls = {"off": [], "on": []}
+    busy = {}
+    for i, mode in enumerate(SERVE_TIMED):
+        name = f"timed{i}-{mode}"
+        kw = ({"journal_dir": str(root / f"{name}-wal")} if mode == "on"
+              else {})
+        srv, hs, wall = drain_fleet(
+            torch, serve_cfg(root, name, slots=SERVE_SLOTS, **kw), fleet)
+        for h, g in zip(hs, packed):
+            same_job(h, g, f"timed drain {i} (journal {mode})")
+        if not srv.accounting.consistent():
+            raise AssertionError(f"timed drain {i}: accounting")
+        walls[mode].append(wall)
+        if mode == "off":
+            busy_segments(srv.cfg.runlog, atoms_of, busy)
+        del srv, hs
+        release(name)
+    off = sum(walls["off"]) / len(walls["off"])
+    on = sum(walls["on"]) / len(walls["on"])
+    pairs = [100.0 * (walls["on"][k] / walls["off"][k] - 1.0)
+             for k in range(len(walls["off"]))]
+    overhead = 100.0 * (on / off - 1.0)
+    # a difference between the pairs larger than the overhead itself
+    # leaves its sign unresolved
+    resolved = abs(pairs[0] - pairs[1]) <= abs(overhead)
+    for n, v in busy.items():
+        v["slot_steps_per_s"] = v["slot_steps"] / v["wall_s"]
+        v["atom_steps_per_s"] = n * v["slot_steps_per_s"]
+    busy_wall = sum(v["wall_s"] for v in busy.values())
+    busy_rate = sum(v["slot_steps"] for v in busy.values()) / busy_wall
+    busy_atoms = sum(n * v["slot_steps"] for n, v in busy.items()) / busy_wall
+    log(f"  timed drains (journal off {walls['off']}, on {walls['on']} s): "
+        f"{len(packed) / off:.3f} jobs/s, {slot_steps / off:.1f} "
+        f"slot-steps/s, {atom_steps / off:.4e} atom-steps/s; segments "
+        f"with every slot busy {busy_rate:.1f} slot-steps/s, "
+        f"{busy_atoms:.4e} atom-steps/s (by bucket {busy}); journal "
+        f"overhead {overhead:+.2f} % (pairs {pairs[0]:+.2f}, "
+        f"{pairs[1]:+.2f} %: {'resolved' if resolved else 'unresolved'})")
+
+    # recovery: abandon a journaled fleet after two ticks, replay the WAL
+    # and resubmit; the drain that follows closes the accounting and the
+    # resumed jobs' remaining streams are bitwise the uninterrupted ones
+    rcfg = serve_cfg(root, "recover", slots=SERVE_SLOTS,
+                     journal_dir=str(root / "recover-wal"))
+    srv = SimServer(rcfg)
+    for j in serve_fleet(torch, dev, spec):
+        srv.submit(j)
+    srv._tick()
+    srv._tick()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv = SimServer.recover(rcfg)
+    handles = [srv.submit(j) for j in serve_fleet(torch, dev, spec)]
+    replay_s = time.perf_counter() - t0
+    deduped = sum(h.status == "done" for h in handles)
+    resumed = [h for h in handles if h.rows_base > 0]
+    srv.drain()
+    torch.cuda.synchronize()
+    racct = srv.accounting
+    if (not resumed or not racct.consistent() or racct.recoveries != 1
+            or any(b["steady_compiles"] for b in racct.buckets.values())
+            or any(h.status != "done" for h in handles)):
+        raise AssertionError(f"recovery: resumed {len(resumed)}, "
+                             f"{racct.summary()}")
+    for h, g in zip(handles, packed):
+        if h.rows_base > 0:
+            same_job(h, g, "recovered", skip_rows=h.rows_base)
+    log(f"  recover after two ticks: replay + resubmit {replay_s:.4f} s; "
+        f"{deduped} deduplicated, {len(resumed)} resumed bitwise")
+    del srv, handles
+    release("recover")
+    out["card_fleet"] = {
+        "jobs": len(packed), "first_wall_s": first_wall,
+        "timed_wall_s": walls, "jobs_per_s": len(packed) / off,
+        "slot_steps_per_s": slot_steps / off,
+        "atom_steps_per_s": atom_steps / off,
+        "busy_segments": busy, "busy_slot_steps_per_s": busy_rate,
+        "busy_atom_steps_per_s": busy_atoms,
+        "peak_memory_bytes": peak, "buckets": buckets,
+        "launches": {k: v[0] for k, v in launches.items()},
+        "kernel_rel_err": kernel_err,
+        "idle_slot_steps": acct.idle_steps,
+        "solo_bitwise_jobs": len(solo), "solo_wall_s": solo_wall,
+        "journal_overhead_pct": overhead,
+        "journal_overhead_pairs_pct": pairs,
+        "journal_overhead_resolved": resolved,
+        "recover_replay_s": replay_s, "recover_deduplicated": deduped,
+        "recover_resumed": len(resumed)}
+
+    # (c) eviction on the card: a NaN temperature schedule beside three
+    # small-bucket jobs, which stay bitwise their solo runs
+    poison = protocol.Schedule(times=np.asarray([0.0, 1.0], np.float32),
+                               values=np.full(2, np.nan, np.float32))
+    jobs = serve_fleet(torch, dev, spec)[:SERVE_JOBS]
+    bad = dataclasses.replace(jobs[3], temperature=poison, name="poisoned",
+                              tenant="eve")
+    srv = SimServer(serve_cfg(root, "evict", slots=SERVE_SLOTS))
+    hs = [srv.submit(j) for j in (jobs[0], jobs[1], jobs[2], bad)]
+    t0 = time.perf_counter()
+    srv.drain()
+    torch.cuda.synchronize()
+    evict_s = time.perf_counter() - t0
+    eacct = srv.accounting
+    if hs[3].status != "evicted" or len(eacct.evictions) != 1:
+        raise AssertionError(f"eviction: {hs[3].status} {hs[3].error}")
+    for h, g in zip(hs[:3], solo[:3]):
+        same_job(h, g, "batch-mate of an evicted job")
+    if not eacct.consistent():
+        raise AssertionError(f"eviction: accounting {eacct.summary()}")
+    ev = eacct.evictions[0]
+    log(f"  (c) eviction: {hs[3].job.name} evicted off slot {ev['slot']} "
+        f"for {ev['kind']}, 3 batch-mates bitwise their solo runs "
+        f"({evict_s:.3f} s)")
+    out["eviction"] = {"slot": ev["slot"], "kind": ev["kind"],
+                       "seconds": evict_s, "mates_bitwise": 3}
+    del srv, hs, packed, solo
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the chaos smoke at its own size: faults, a SIGKILLed child,
+    # recovery, the remaining streams bitwise
+    t0 = time.perf_counter()
+    out["chaos"] = serve_chaos_smoke.main(["--device", str(dev)])
+    out["chaos"]["seconds"] = time.perf_counter() - t0
+    log(f"phase I (d): launch/serve_chaos_smoke.py: {out['chaos']} ")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase I: {out['seconds']:.1f} s")
+    return out
+
+def main(argv) -> int:
+    if argv not in ([], ["--serve-only"]):
+        print("usage: chip_smoke.py [--serve-only]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1993,6 +2410,11 @@ def main() -> int:
     spec = config().spec
     lat = b20_fege()
     moments = torch.tensor([1.16, 0.0], device=dev)
+    if argv == ["--serve-only"]:
+        print(json.dumps({"serving": phase_serve(torch, dev, spec, kern,
+                                                 ref)}), flush=True)
+        print(card, flush=True)
+        return 0
 
     # ---- phase 2: kernels vs plain versions, 4,096 atoms --------------------
     log("phase 2: kernels vs plain versions, B20 8x8x8, production spec")
@@ -2243,6 +2665,17 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"resilience": phase_resilience(
         torch, dev, spec, lat, moments, kern)}), flush=True)
+    reset_md_counters(kern)
+    serve = phase_serve(torch, dev, spec, kern, ref)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            fleet = serve["card_fleet"]
+            row["launches_serving"] = fleet["launches"][row["name"]]
+            row["max_rel_err_serving"] = {
+                tag: max(e[row["name"]][tag]
+                         for e in fleet["kernel_rel_err"].values())
+                for tag in ("f32", "f64")}
+    print(json.dumps({"serving": serve}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2252,4 +2685,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

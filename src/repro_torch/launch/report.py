@@ -1,4 +1,4 @@
-"""Render run reports from engine runlogs (port of the runlog half of
+"""Render run reports from engine runlogs and serving journals (port of
 ``repro.launch.report``).
 
     PYTHONPATH=src python -m repro_torch.launch.report run.jsonl [more.jsonl]
@@ -7,11 +7,13 @@ A runlog is the JSONL event stream ``Engine.run(telemetry=...)`` writes:
 the report gives the throughput, builds after the first chunk, the
 energy-drift curve, the health verdicts, straggled chunks, every
 resilience event (fault injection, rollback, retry, degradation, give-up;
-one line each, the reference's) and the final status.
+one line each, the reference's), the serving server's lifecycle events
+with the per-tenant accounting table, and the final status.  A serving
+journal (``journal.jsonl``, :mod:`repro_torch.serve.journal`) renders as
+a lifecycle report (:func:`journal_report`).
 
-Not ported yet: the serving journal's report (``journal_report`` and the
-serving events, ROADMAP queue 1 item 12) and the dry-run roofline tables
-(``summary``, item 14); both raise ``NotImplementedError``.
+Not ported yet: the dry-run roofline tables (``summary``, ROADMAP queue 1
+item 14); it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ _BLOCKS = "▁▂▃▄▅▆▇█"
 _RESIL_EVENTS = ("fault_injected", "rollback", "retry", "degrade",
                  "degrade_restore", "recovered", "give_up",
                  "elastic_restore", "evict")
+
+# serve-layer lifecycle events (the chatty per-segment `serve_chunk`
+# stream is summarized by the tenant table, not listed per event)
+_SERVE_EVENTS = ("job_requeued", "job_expired", "job_cancelled",
+                 "job_shed", "recover", "recovery_discard",
+                 "bucket_failed")
 
 
 def sparkline(values) -> str:
@@ -140,6 +148,117 @@ def _fmt_resil(e: dict) -> str:
     return f"{ev}: {e}"
 
 
+def _fmt_serve(e: dict) -> str:
+    """One report line per serve-layer lifecycle event record."""
+    ev = e.get("event")
+    if ev == "job_requeued":
+        return (f"job_requeued: {e.get('job', '?')} (tenant "
+                f"{e.get('tenant', '?')}) attempt #{e.get('attempt', '?')} "
+                f"on bucket {e.get('bucket', '?')}")
+    if ev == "job_expired":
+        tail = "requeued" if e.get("requeue") else "permanent"
+        return (f"job_expired: {e.get('job', '?')} (tenant "
+                f"{e.get('tenant', '?')}) hit its {e.get('kind', '?')} "
+                f"budget ({tail})")
+    if ev == "job_cancelled":
+        return (f"job_cancelled: {e.get('job', '?')} (tenant "
+                f"{e.get('tenant', '?')}) at a chunk boundary")
+    if ev == "job_shed":
+        return (f"job_shed: {e.get('job', '?')} (tenant "
+                f"{e.get('tenant', '?')}) via {e.get('policy', '?')} policy")
+    if ev == "recover":
+        buckets = e.get("buckets") or []
+        return (f"recover: journal replayed, {len(buckets)} bucket(s) "
+                f"re-warmed ({', '.join(buckets) or '-'})")
+    if ev == "recovery_discard":
+        return (f"recovery_discard: {e.get('slot_steps', '?')} orphan "
+                f"slot-steps on bucket {e.get('bucket', '?')} (computed "
+                f"after the last durable commit, recomputed on replay)")
+    if ev == "bucket_failed":
+        return f"bucket_failed: {e.get('bucket', '?')} ({e.get('error')})"
+    return f"{ev}: {e}"
+
+
+def _tenant_table(path) -> list:
+    """Per-tenant outcome summary table (accounting replay)."""
+    from repro_torch.serve.accounting import Accounting
+
+    acct = Accounting.from_runlog(path, tolerant=True)
+    if not acct.tenants:
+        return []
+    lines = ["", "### Per-tenant outcomes", "",
+             "| tenant | submitted | done | failed | evicted | requeued |"
+             " expired | cancelled | shed | charged steps |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
+    for name in sorted(acct.tenants):
+        t = acct.tenants[name]
+        lines.append(
+            f"| {name} | {t['jobs_submitted']} | {t['jobs_done']} "
+            f"| {t['jobs_failed']} | {t['jobs_evicted']} "
+            f"| {t['jobs_requeued']} | {t['jobs_expired']} "
+            f"| {t['jobs_cancelled']} | {t['jobs_shed']} "
+            f"| {t['charged_steps']} |")
+    lines.append("")
+    inv = "closes exactly" if acct.consistent() else "**VIOLATED**"
+    lines.append(
+        f"accounting invariant (charged {acct.charged_steps} + idle "
+        f"{acct.idle_steps} == computed {acct.computed_slot_steps}): {inv}")
+    return lines
+
+
+def journal_report(path: str | os.PathLike) -> str:
+    """Render a serving journal (WAL) into a lifecycle report."""
+    from repro_torch.telemetry.runlog import read_runlog
+
+    events = read_runlog(path, tolerant=True)
+    lines = [f"## Journal report: {path}", ""]
+    counts: dict = {}
+    tenants: dict = {}
+    for e in events:
+        ev = e.get("event")
+        counts[ev] = counts.get(ev, 0) + 1
+        if ev in ("completed", "failed", "cancelled", "shed",
+                  "deduplicated") and e.get("tenant") is not None:
+            t = tenants.setdefault(e["tenant"], {})
+            t[ev] = t.get(ev, 0) + 1
+    lines.append("- events: " + ", ".join(
+        f"{n}x {k}" for k, n in sorted(counts.items())))
+    commits = [e for e in events if e.get("event") == "commit"]
+    if commits:
+        last: dict = {}
+        for c in commits:
+            last[c.get("bucket")] = c
+        for b in sorted(last):
+            c = last[b]
+            seats = c.get("slots") or {}
+            lines.append(
+                f"- bucket {b}: {c.get('segment', '?')} segment(s) "
+                f"committed, ckpt step {c.get('ckpt_step', '?')}, "
+                f"{len(seats)} seated job(s)")
+    recov = [e for e in events if e.get("event") == "recovered"]
+    for r in recov:
+        lines.append(
+            f"- recovered: {len(r.get('interrupted') or [])} re-seated, "
+            f"{len(r.get('queued') or [])} re-queued of "
+            f"{r.get('jobs', '?')} journaled job(s)")
+    if tenants:
+        lines.append("- terminal outcomes by tenant: " + "; ".join(
+            f"{t}: " + ", ".join(f"{n}x {k}" for k, n in sorted(v.items()))
+            for t, v in sorted(tenants.items())))
+    return "\n".join(lines)
+
+
+def _is_journal(path) -> bool:
+    if os.path.basename(str(path)) == "journal.jsonl":
+        return True
+    try:
+        with open(path) as fh:
+            first = fh.readline()
+        return ('"journal_start"' in first or '"submitted"' in first)
+    except OSError:
+        return False
+
+
 def runlog_report(path: str | os.PathLike) -> str:
     """Render one runlog into a human-readable report string."""
     from repro_torch.telemetry.runlog import read_runlog
@@ -153,6 +272,7 @@ def runlog_report(path: str | os.PathLike) -> str:
     chunks = [e for e in events if e.get("event") == "chunk"]
     segments = sum(1 for e in events if e.get("event") == "run_start")
     resil = [e for e in events if e.get("event") in _RESIL_EVENTS]
+    serve = [e for e in events if e.get("event") in _SERVE_EVENTS]
 
     lines = [f"## Run report: {path}", ""]
     prov = start.get("provenance", {})
@@ -219,6 +339,16 @@ def runlog_report(path: str | os.PathLike) -> str:
         for e in resil:
             lines.append("  " + _fmt_resil(e))
 
+    if serve:
+        counts = {}
+        for e in serve:
+            counts[e["event"]] = counts.get(e["event"], 0) + 1
+        lines.append("- serving: " + ", ".join(
+            f"{n}x {k}" for k, n in sorted(counts.items())))
+        for e in serve:
+            lines.append("  " + _fmt_serve(e))
+        lines.extend(_tenant_table(path))
+
     if end is None:
         lines.append("- status: **incomplete** (no run_end record)")
     else:
@@ -236,12 +366,6 @@ def runlog_report(path: str | os.PathLike) -> str:
     return "\n".join(lines)
 
 
-def journal_report(path) -> str:
-    """The serving journal's report: ROADMAP queue 1 item 12 (serve/)."""
-    raise NotImplementedError("journal_report renders the serving journal, "
-                              "ROADMAP queue 1 item 12 (serve/)")
-
-
 def summary(recs=None) -> str:
     """The dry-run roofline tables: ROADMAP queue 1 item 14."""
     raise NotImplementedError("the dry-run roofline summary is ROADMAP "
@@ -255,7 +379,10 @@ def main(argv=None):
     for i, path in enumerate(argv):
         if i:
             print()
-        print(runlog_report(path))
+        if _is_journal(path):
+            print(journal_report(path))
+        else:
+            print(runlog_report(path))
 
 
 if __name__ == "__main__":

@@ -256,7 +256,15 @@ class Engine:
             raise ValueError(f"masses are {self.masses.dtype}, the state "
                              f"{self.state.pos.dtype}")
         self._last_ckpt = None      # newest checkpoint written by save()
+        self._last_ckpt_step = None  # and its step tag
         self.ckpt_pin = None        # a step save() must never collect
+        self.ckpt_step_offset = 0   # added to _step_now() for checkpoint
+                                    # tags: a per-slot bucket's slot-0
+                                    # clock resets on backfill, so the
+                                    # serving packer rebases saves onto its
+                                    # monotonic bucket clock
+        self.run_tags = {}          # extra run_start header fields (the
+                                    # serving layer's bucket id)
         self._fault_injector = None  # resilience hook: (engine, carry, n)
                                      # -> carry at each chunk start
         self.evict_slot_hook = None  # serving hook: (HealthError) -> info
@@ -307,8 +315,10 @@ class Engine:
         return self.state.step if c is None else c.state.step
 
     def ckpt_step(self) -> int:
-        """The step tag :meth:`save` would use now (the carry's clock)."""
-        return self._step_now()
+        """The step tag :meth:`save` would use now: the carry's clock plus
+        ``ckpt_step_offset``, the unit of ``ckpt_pin`` and of a journal's
+        recovery refs."""
+        return self._step_now() + int(self.ckpt_step_offset)
 
     # ------------------------------------------------------------------
     # schedule arguments
@@ -907,6 +917,7 @@ class Engine:
                 "device": str(self.device)}
         if self.per_slot:
             info["per_slot"] = True
+        info.update(self.run_tags or {})
         return info
 
     def rebind(self, *, cfg: IntegratorConfig | None = None,
@@ -956,10 +967,10 @@ class Engine:
         its current state - on the replica plan the list of one per
         replica, saved as a stack; None for a run that draws no noise) at a
         chunk boundary.  Returns the checkpoint's path."""
-        path = save_md(directory, self.ckpt_step(),
-                       self._ckpt_tree(self._carry), generator, keep=keep,
-                       pin=self.ckpt_pin)
-        self._last_ckpt = path
+        step = self.ckpt_step()
+        path = save_md(directory, step, self._ckpt_tree(self._carry),
+                       generator, keep=keep, pin=self.ckpt_pin)
+        self._last_ckpt, self._last_ckpt_step = path, step
         return path
 
     def restore(self, directory: str, step: int | None = None):

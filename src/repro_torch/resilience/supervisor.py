@@ -6,8 +6,10 @@ always good, which makes recovery mechanical:
 
 1. ``Engine.run`` raises a structured
    :class:`~repro_torch.telemetry.monitor.HealthError` at a chunk boundary.
-2. The supervisor restores the newest checkpoint - the carry and the run's
-   generator(s), so the re-run draws the same noise - **pins** it so the
+2. The supervisor restores the newest checkpoint this run wrote - the
+   carry and the run's generator(s), written into the caller's own
+   generator objects, so the re-run draws the same noise - **pins** it so
+   the
    checkpoint GC never collects the rollback target, waits out the
    backoff, and re-runs the remaining steps.
 3. A plain retry reuses the kernels already built and loaded: with an
@@ -53,6 +55,22 @@ def backoff_delay(attempt: int, base: float, factor: float = 2.0,
     if base <= 0 or attempt <= 0:
         return 0.0
     return min(base * factor ** (attempt - 1), cap)
+
+
+def restore_into(generator, restored):
+    """Write the generator states that ``Engine.restore`` returned into the
+    caller's own ``torch.Generator`` objects (one, or a sequence of one per
+    replica), so a caller that goes on with its generators after a
+    supervised run continues from the rolled-back draws; returns the
+    caller's generators (the restored ones when the caller passed None)."""
+    if generator is None or restored is None:
+        return restored if generator is None else generator
+    if isinstance(restored, list):
+        for mine, saved in zip(generator, restored):
+            mine.set_state(saved.get_state())
+    else:
+        generator.set_state(restored.get_state())
+    return generator
 
 
 class Strikes:
@@ -147,8 +165,9 @@ class Supervisor:
         the resume point.  A checkpoint is written before the first step,
         so even a chunk-0 fault has a rollback target.  ``generator`` is
         the run's ``torch.Generator`` (on the replica plan the list of one
-        per replica); after a rollback the run continues with the
-        generator(s) restored from the checkpoint.  Keep ``n_steps`` a
+        per replica); a rollback writes the checkpoint's generator states
+        into these same objects (:func:`restore_into`), so a caller that
+        runs on with them after this call continues the clean trajectory.  Keep ``n_steps`` a
         multiple of ``chunk`` so checkpoints stay chunk-aligned.
 
         A :class:`HealthError` rolls the engine back to the last-good
@@ -192,7 +211,11 @@ class Supervisor:
                     raise
                 if cfg.backoff_s:
                     time.sleep(attempts * cfg.backoff_s)
-                generator = engine.restore(checkpoint_dir)
+                # the newest checkpoint THIS run wrote, not the newest in
+                # the directory: a crashed earlier run (a serving bucket's
+                # previous incarnation) may have left higher step tags
+                generator = restore_into(generator, engine.restore(
+                    checkpoint_dir, step=engine._last_ckpt_step))
                 engine.ckpt_pin = engine.ckpt_step()
                 if seg_tel is not None:
                     seg_tel = dataclasses.replace(seg_tel, append=True)

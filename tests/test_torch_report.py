@@ -132,8 +132,16 @@ def test_incomplete_and_failed_runs(tmp_path):
 
 
 def test_later_items_name_themselves(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        report.journal_report(tmp_path / "journal.jsonl")
+    # item 12 (serve/) is in: a journal renders through main() as a
+    # lifecycle report (tests/test_torch_serve_reference.py holds it line
+    # for line against the reference's)
+    from repro_torch.serve.journal import JobJournal
+    journal = JobJournal(str(tmp_path / "wal"))
+    journal.write("journal_start", slots=2, chunk=10, schedule_knots=8)
+    journal.write("commit", bucket="b0", segment=1, ckpt_step=10, slots={})
+    report.main([journal.path])
+    assert "- bucket b0: 1 segment(s) committed, ckpt step 10" in \
+        capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 14"):
         report.main([])
     path = str(tmp_path / "r.jsonl")
