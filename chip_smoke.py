@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--serve-only]
+    python3 chip_smoke.py [--serve-only | --sharded-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
-process) and prints no result line.  Needs one CUDA card and the CUDA
+process), ``--sharded-only`` phases 1 and J; neither prints the result
+line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
 
@@ -176,6 +177,26 @@ I. the batched simulation job server (``repro_torch.serve``): (a)
    the three bitwise their solo runs; (d) ``launch/serve_chaos_smoke.py`` (faults, a SIGKILLed child,
    recovery, the remaining streams bitwise, f64); one ``{"serving": ...}``
    line;
+J. the Sharded plan (``torch.distributed``; ``parallel/{plan,halo,domain}``):
+   (a) the main path's run (262,144 atoms, K1/K2, f32, 300 K, 0.2 T, 3 x
+   20 steps) through ``Engine(plan=Sharded())`` on one NCCL rank: E, F and
+   H_eff at construction within 1e-4 of the flat Engine's, K1 and K2
+   launches 1 + steps + rebuilds, all warp, one drift-pos exchange a
+   step; steps/s beside phase 3's, rebuilds, migrations, the halo ledger,
+   the resolved cells, peak memory; K1/K2 on the rank's own slots
+   against the plain versions (the first ``SHARDED_KERNEL_ROWS``, K2
+   through the local-first table over the owned + halo-ring adjoint
+   rows; f32 1e-4); (c) a checkpoint after chunk 1 restored into a fresh
+   Engine, chunks 2-3 ``torch.equal`` to the uninterrupted run; (b) two
+   gloo ranks on the one card (1-D ``"sx"``, allgather halos through the
+   host: no scaling figure): B20 8^3 (4,096 atoms, 600 K, a 0.25 A
+   jitter) at f64 for 40 NVE steps, NEP-SPIN through K1/K2 and
+   Heisenberg-DMI midpoint (2 iterations), each with >= 1 rebuild and
+   migrations, within 1e-9 of the flat Engine on the card; the main
+   path's 262,144 atoms at f32 for 2 x 20 steps (finite, launches 1 +
+   steps + rebuilds on each rank, all warp); K1/K2 on each rank's slots
+   against the plain versions (f32 1e-4, f64 1e-9); one ``{"sharded":
+   ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
@@ -185,7 +206,9 @@ I. the batched simulation job server (``repro_torch.serve``): (a)
     batched launch at R = 4, and 4 flat launches), and from phase G
     ``launches_training``, ``body_training``, ``max_rel_err_training`` and
     ``ms_training`` (each body's time at the fitted spec), and from phase
-    I ``launches_serving`` and ``max_rel_err_serving``), then
+    I ``launches_serving`` and ``max_rel_err_serving``, and from phase J
+    ``launches_sharded``, ``ms_sharded`` (each on the one rank's 400,896
+    slots) and ``max_rel_err_sharded``), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -194,6 +217,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2355,9 +2379,381 @@ def phase_serve(torch, dev, spec, kern, ref) -> dict:
     log(f"phase I: {out['seconds']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase J: the Sharded plan (torch.distributed), K1/K2 on the cell-major
+# slots with the q_Fp adjoint halo between them
+# ---------------------------------------------------------------------------
+
+SHARDED_DIR = SURFACE_DIR / "sharded"
+SHARDED_SMALL = dict(unit_cells=(8, 8, 8), temperature=600.0, jitter=0.25,
+                     skin=0.3, steps=40, chunk=20)   # (b): 4,096 atoms, f64
+SHARDED_FULL_CHUNKS = 2                      # (b): 262,144 atoms at f32
+SHARDED_KERNEL_ROWS = 8192                   # slots compared at full width
+
+
+def sharded_kernels(torch, kern, ref, eng, bar, rows=None,
+                    timed: bool = False) -> dict:
+    """K1 and K2 (the bodies the spec selects) on an Engine's own slot
+    blocks after its run - K2 reading the local-first table and the
+    owned + halo-ring adjoint rows, as the plan launches them - against the
+    plain versions on the same inputs; the first ``rows`` slots (all by
+    default).  Returns ``({kernel: rel err}, {kernel: ms})``, the times
+    (with ``timed``, else empty) of each kernel on all the rank's
+    slots."""
+    from repro_torch.parallel.halo import exchange_halo
+    c = eng._carry
+    spec, params = eng.potential.spec, eng.potential.params
+    k, m = c.state.types.shape[-1], c.nbh.idx.shape[-1]
+    n = c.state.types.numel()
+    rows = n if rows is None else min(rows, n)
+    occ = c.state.types.reshape(-1) >= 0
+    ti = torch.where(occ, c.state.types.reshape(-1),
+                     torch.zeros_like(c.state.types.reshape(-1)))
+    blocks = (c.nbh.dr.reshape(n, m, 3)[:rows].contiguous(),
+              c.nbh.mask.reshape(n, m)[:rows].contiguous(),
+              ti[:rows].contiguous(),
+              c.nbh.tj.reshape(n, m)[:rows].contiguous(),
+              c.state.spin.reshape(n, 3)[:rows].contiguous(),
+              c.nbh.sj.reshape(n, m, 3)[:rows].contiguous())
+    got = kern.nep_atom_pass(spec, params, *blocks)
+    want = ref.atom_pass_plain(spec, params, *blocks)
+    err = {"nep_atom_pass": max(rel_err(a, b) for a, b in zip(got, want))}
+    # every slot's adjoints, exchanged as the plan does (no ledger open)
+    _, _, abar = kern.nep_atom_pass(spec, params, c.nbh.dr.reshape(n, m, 3),
+                                    c.nbh.mask.reshape(n, m), ti,
+                                    c.nbh.tj.reshape(n, m),
+                                    c.state.spin.reshape(n, 3),
+                                    c.nbh.sj.reshape(n, m, 3))
+    abar = torch.where(occ[:, None], abar, torch.zeros_like(abar))
+    rp = eng._rplan
+    ext = exchange_halo(abar.reshape(*rp.local_shape, k, -1), rp.axes,
+                        allgather=rp.allgather)
+    from repro_torch.parallel.domain import local_first_index
+    _, ring = local_first_index(rp.local_shape, k, abar.device)
+    abar_rows = torch.cat([abar, ext.reshape(-1, abar.shape[-1])[ring]])
+    k2 = (spec, params, blocks[0], blocks[1], c.nbh.lf[:rows].contiguous(),
+          blocks[2], blocks[3], blocks[4], blocks[5], abar_rows)
+    got = kern.nep_force_pass(*k2)
+    want = ref.force_pass_plain(*k2)
+    torch.cuda.synchronize()
+    err["nep_force_pass"] = max(rel_err(a, b) for a, b in zip(got, want))
+    for name, e in err.items():
+        if not e < bar:
+            raise AssertionError(f"{name} on the sharded slots: relative "
+                                 f"error {e:.3e} >= {bar:g}")
+    ms = {}
+    if timed:
+        full = (c.nbh.dr.reshape(n, m, 3), c.nbh.mask.reshape(n, m), ti,
+                c.nbh.tj.reshape(n, m), c.state.spin.reshape(n, 3),
+                c.nbh.sj.reshape(n, m, 3))
+        ms["nep_atom_pass"] = time_ms(
+            torch, lambda: kern.nep_atom_pass(spec, params, *full), 10)
+        ms["nep_force_pass"] = time_ms(
+            torch, lambda: kern.nep_force_pass(
+                spec, params, full[0], full[1], c.nbh.lf, full[2], full[3],
+                full[4], full[5], abar_rows), 10)
+    return err, ms
+
+
+def _sharded_same(torch, a, b, bar, what) -> float:
+    """Max |a - b| over pos, vel, spin of two flat states; raises past
+    ``bar``."""
+    err = max(float((getattr(a, k) - getattr(b, k)).abs().max())
+              for k in ("pos", "vel", "spin"))
+    if not err < bar:
+        raise AssertionError(f"{what}: max |diff| {err:.3e} >= {bar:g}")
+    return err
+
+
+def _sharded_rank(rank: int, out: str, device: str) -> None:
+    """Phase J (b), one of two gloo ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.fege_spinlattice import config, main_path
+    from repro_torch.core.hamiltonian import HeisenbergDMIModel
+    from repro_torch.core.potential import NEPSpinPotential, init_params
+    from repro_torch.kernels.nep import kernel as kern
+    from repro_torch.kernels.nep import ref
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.lattice import b20_fege
+    from repro_torch.md.state import init_state
+    from repro_torch.parallel.plan import Sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    spec, lat = config().spec, b20_fege()
+    moments = torch.tensor([1.16, 0.0], device=dev)
+    res = {"rank": rank}
+    small = SHARDED_SMALL
+    f64 = torch.float64
+
+    def engine(pot, cfg, state, plan, **kw):
+        return Engine(pot, cfg, state,
+                      torch.tensor(lat.masses, dtype=state.pos.dtype,
+                                   device=dev),
+                      torch.tensor(lat.moments, device=dev) > 0,
+                      getattr(pot, "cutoff", spec.cutoff), plan=plan,
+                      capacity=64, device=dev, **kw)
+
+    # NEP-SPIN at f64 through K1/K2, and Heisenberg-DMI with midpoint
+    g = torch.Generator(device=dev).manual_seed(40)
+    st = init_state(lat, small["unit_cells"], generator=g,
+                    temperature=small["temperature"], spin_init="random",
+                    dtype=f64, device=dev)
+    # a position jitter puts atoms near cell faces, so rebuilds migrate
+    jitter = small["jitter"] * torch.randn(st.pos.shape, generator=g,
+                                           dtype=f64, device=dev)
+    st = st._replace(pos=torch.remainder(st.pos + jitter, st.box))
+    pots = {"nep_f64": (NEPSpinPotential(spec, init_params(
+                spec, g, dtype=f64, device=dev), moments.to(f64),
+                use_kernel=True), IntegratorConfig(dt=config().dt)),
+            "heisenberg_f64": (HeisenbergDMIModel(**HEIS_B20),
+                               IntegratorConfig(dt=config().dt, midpoint=True,
+                                                midpoint_iters=2))}
+    for name, (pot, cfg) in pots.items():
+        reset_md_counters(kern)
+        sh = engine(pot, cfg, st, Sharded(), skin=small["skin"])
+        drift0 = sh.halo_ledger.counts.get("drift-pos", 0)
+        t0 = time.perf_counter()
+        sh.run(small["steps"], chunk=small["chunk"])
+        torch.cuda.synchronize()
+        row = {"steps_per_s": small["steps"] / (time.perf_counter() - t0),
+               "rebuilds": sh.n_rebuilds, "migrated": sh.n_migrated,
+               "drift_pos_per_step": (sh.halo_ledger.counts["drift-pos"]
+                                      - drift0) / small["steps"],
+               "cells": list(sh._rplan.dspec.cells),
+               "cell_capacity": sh._rplan.dspec.capacity,
+               "launches": read_md_counters(kern)}
+        if sh.n_rebuilds < 1 or sh.n_migrated < 1:
+            raise AssertionError(f"{name}: {sh.n_rebuilds} rebuilds, "
+                                 f"{sh.n_migrated} migrations")
+        if row["drift_pos_per_step"] != 1:
+            raise AssertionError(f"{name}: {row['drift_pos_per_step']} "
+                                 "drift-pos exchanges a step")
+        if rank == 0:
+            flat = engine(pot, cfg, st, None, skin=small["skin"],
+                          use_cell_list=True, cell_capacity=32)
+            flat.run(small["steps"], chunk=small["chunk"])
+            row["vs_flat"] = _sharded_same(torch, sh.state, flat.state, 1e-9,
+                                           f"{name} sharded vs flat")
+            row["flat_rebuilds"] = flat.n_rebuilds
+            del flat
+        if name == "nep_f64":
+            row["kernel_rel_err"] = sharded_kernels(torch, kern, ref, sh,
+                                                    1e-9)[0]
+        res[name] = row
+        dist.barrier()
+        del sh
+
+    # NEP-SPIN at full width, f32
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(lat, run.unit_cells, generator=g,
+                       temperature=run.temperature, dtype=dtype, device=dev)
+    pot = NEPSpinPotential(spec, init_params(spec, g, dtype=dtype,
+                                             device=dev),
+                           moments.to(dtype), use_kernel=True)
+    cfg = IntegratorConfig(dt=run.dt, lattice_gamma=run.lattice_gamma,
+                           spin_alpha=run.spin_alpha)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_md_counters(kern)
+    t0 = time.perf_counter()
+    sh = engine(pot, cfg, state, Sharded(), skin=run.skin,
+                temperature=run.temperature, field=run.field)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = SHARDED_FULL_CHUNKS * run.chunk
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    t0 = time.perf_counter()
+    sh.run(steps, gen, chunk=run.chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_md_counters(kern)
+    expect = 1 + steps + sh.n_rebuilds
+    for kname, (n, bodies) in launches.items():
+        if n != expect or bodies != {"warp": expect, "thread": 0}:
+            raise AssertionError(f"rank {rank} {kname}: {n} launches "
+                                 f"{bodies}, expected {expect}, all warp")
+    for kname in ("pos", "vel", "spin"):
+        t = getattr(sh.state, kname)
+        if t.shape != (run.n_atoms, 3) or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"full width {kname}: non-finite or shape "
+                                 f"{tuple(t.shape)}")
+    res["nep_full_f32"] = {
+        "steps_per_s": steps / wall, "setup_s": setup_s,
+        "rebuilds": sh.n_rebuilds, "migrated": sh.n_migrated,
+        "launches": launches, "expect": expect,
+        "cells": list(sh._rplan.dspec.cells),
+        "local_cells": list(sh._rplan.local_shape),
+        "cell_capacity": sh._rplan.dspec.capacity,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "halo": sh.halo_ledger.snapshot(),
+        "kernel_rel_err": sharded_kernels(torch, kern, ref, sh, 1e-4,
+                                          rows=SHARDED_KERNEL_ROWS)[0]}
+    with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_sharded(torch, dev, spec, lat, moments, kern, ref,
+                  flat_steps_per_s) -> dict:
+    """Phase J: (a) the main path on one NCCL rank with a resume from its
+    chunk-1 checkpoint (c), then (b) two gloo ranks on the one card."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import NEPSpinPotential, init_params
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.state import init_state
+    from repro_torch.parallel.plan import Sharded
+    from repro_torch.parallel.ranks import spawn
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    steps = run.chunks * run.chunk
+    log(f"phase J (a): Engine(plan=Sharded()) on one NCCL rank, B20 "
+        f"{run.unit_cells} = {run.n_atoms} atoms, {run.chunks} x "
+        f"{run.chunk} steps, K1/K2 on the cell-major slots")
+    dist.init_process_group("nccl", init_method="file://" + str(
+        SHARDED_DIR / "rendezvous"), world_size=1, rank=0)
+    out = {}
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        state = init_state(lat, run.unit_cells, generator=g,
+                           temperature=run.temperature, dtype=dtype,
+                           device=dev)
+        params = init_params(spec, g, dtype=dtype, device=dev)
+        pot = NEPSpinPotential(spec, params, moments.to(dtype),
+                               use_kernel=True)
+        cfg = IntegratorConfig(dt=run.dt, lattice_gamma=run.lattice_gamma,
+                               spin_alpha=run.spin_alpha)
+        masses = torch.tensor(lat.masses, dtype=dtype, device=dev)
+        magnetic = torch.tensor(lat.moments, device=dev) > 0
+        kw = dict(temperature=run.temperature, field=run.field,
+                  capacity=run.capacity, skin=run.skin, device=dev)
+        flat = Engine(pot, cfg, state, masses, magnetic, spec.cutoff,
+                      use_cell_list=True, cell_capacity=run.cell_capacity,
+                      **kw)
+
+        def sharded():
+            return Engine(pot, cfg, state, masses, magnetic, spec.cutoff,
+                          plan=Sharded(), **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_md_counters(kern)
+        t0 = time.perf_counter()
+        eng = sharded()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated()
+        rp = eng._rplan
+        construct = {}
+        for name, a, b in (("E", torch.as_tensor(eng.energy),
+                            torch.as_tensor(flat.energy)),
+                           ("F", eng._ff.force, flat._ff.force),
+                           ("H", eng._ff.field, flat._ff.field)):
+            construct[name] = check(f"J(a) {name} sharded vs flat", a, b,
+                                    1e-4)
+        del flat
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        drift0 = eng.halo_ledger.counts.get("drift-pos", 0)
+        ck = SHARDED_DIR / "ckpt"
+        t0 = time.perf_counter()
+        eng.run(run.chunk, gen, chunk=run.chunk)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.save(str(ck), gen)
+        t2 = time.perf_counter()
+        eng.run(steps - run.chunk, gen, chunk=run.chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2 + (t1 - t0)
+        run_peak = torch.cuda.max_memory_allocated()
+        launches = read_md_counters(kern)
+        expect = 1 + steps + eng.n_rebuilds
+        for name, (n, bodies) in launches.items():
+            if n != expect or bodies != {"warp": expect, "thread": 0}:
+                raise AssertionError(f"J(a) {name}: {n} launches {bodies}, "
+                                     f"expected 1 + steps + rebuilds = "
+                                     f"{expect}, all warp")
+        drift = (eng.halo_ledger.counts["drift-pos"] - drift0) / steps
+        if drift != 1:
+            raise AssertionError(f"J(a): {drift} drift-pos exchanges a step")
+        for name in ("pos", "vel", "spin"):
+            t = getattr(eng.state, name)
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"J(a) {name} not finite")
+        n_slots = int(eng._carry.state.types.numel())
+        out["one_rank"] = {
+            "steps_per_s": steps / wall,
+            "flat_steps_per_s_phase3": flat_steps_per_s,
+            "setup_s": setup_s, "save_s": t2 - t1,
+            "rebuilds": eng.n_rebuilds, "migrated": eng.n_migrated,
+            "launches": launches[kern.nep_atom_pass.__name__][0],
+            "drift_pos_per_step": drift, "construct_rel_err": construct,
+            "cells": list(rp.dspec.cells), "cell_capacity":
+            rp.dspec.capacity, "slots": n_slots,
+            "slots_per_atom": n_slots / run.n_atoms,
+            "setup_peak_gib": setup_peak / 2 ** 30,
+            "run_peak_gib": run_peak / 2 ** 30,
+            "halo": eng.halo_ledger.snapshot()}
+        log(f"  J(a): {out['one_rank']}")
+        (out["one_rank"]["kernel_rel_err"],
+         out["one_rank"]["kernel_ms"]) = sharded_kernels(
+            torch, kern, ref, eng, 1e-4, rows=SHARDED_KERNEL_ROWS,
+            timed=True)
+
+        # (c) the chunk-1 checkpoint into a fresh Engine, chunks 2-3
+        fresh = sharded()
+        t0 = time.perf_counter()
+        gen2 = fresh.restore(str(ck))
+        restore_s = time.perf_counter() - t0
+        fresh.run(steps - run.chunk, gen2, chunk=run.chunk)
+        torch.cuda.synchronize()
+        for name in ("pos", "vel", "spin"):
+            if not torch.equal(getattr(fresh.state, name),
+                               getattr(eng.state, name)):
+                raise AssertionError(f"J(c): resumed {name} differs")
+        if (fresh.state.step, fresh.n_rebuilds) != (eng.state.step,
+                                                    eng.n_rebuilds):
+            raise AssertionError("J(c): step or rebuild count differs")
+        out["resume"] = {"bitwise": True, "restore_s": restore_s,
+                         "checkpoint_mb": dir_bytes(ck) / 1e6}
+        log(f"  J(c): resume bitwise, {out['resume']}")
+        del eng, fresh
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    log("phase J (b): two gloo ranks on the one card (gloo copies the "
+        "allgather halos through the host: no scaling figure)")
+    t0 = time.perf_counter()
+    spawn(_sharded_rank, 2, str(SHARDED_DIR), str(dev), backend="gloo",
+          workdir=str(SHARDED_DIR))
+    out["two_ranks"] = [json.loads((SHARDED_DIR / f"rank_{r}.json")
+                                   .read_text()) for r in range(2)]
+    out["two_ranks_s"] = time.perf_counter() - t0
+    for r in out["two_ranks"]:
+        log(f"  J(b) rank {r['rank']}: {r}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    return out
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--serve-only"]):
-        print("usage: chip_smoke.py [--serve-only]", file=sys.stderr)
+    if argv not in ([], ["--serve-only"], ["--sharded-only"]):
+        print("usage: chip_smoke.py [--serve-only | --sharded-only]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2413,6 +2809,11 @@ def main(argv) -> int:
     if argv == ["--serve-only"]:
         print(json.dumps({"serving": phase_serve(torch, dev, spec, kern,
                                                  ref)}), flush=True)
+        print(card, flush=True)
+        return 0
+    if argv == ["--sharded-only"]:
+        print(json.dumps({"sharded": phase_sharded(
+            torch, dev, spec, lat, moments, kern, ref, None)}), flush=True)
         print(card, flush=True)
         return 0
 
@@ -2494,6 +2895,7 @@ def main(argv) -> int:
     eng.run(steps, g, chunk=run.chunk)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    flat_rate = steps / run_s
     launches = {"nep_atom_pass": kern.nep_atom_pass.launches,
                 "nep_force_pass": kern.nep_force_pass.launches}
     body_launches = {"nep_atom_pass": dict(kern.nep_atom_pass.body_launches),
@@ -2676,6 +3078,21 @@ def main(argv) -> int:
                          for e in fleet["kernel_rel_err"].values())
                 for tag in ("f32", "f64")}
     print(json.dumps({"serving": serve}), flush=True)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(torch, dev, spec, lat, moments, kern, ref,
+                            flat_rate)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            row["launches_sharded"] = sharded["one_rank"]["launches"]
+            row["ms_sharded"] = sharded["one_rank"]["kernel_ms"][row["name"]]
+            errs = [sharded["one_rank"]["kernel_rel_err"][row["name"]]] + [
+                r["nep_full_f32"]["kernel_rel_err"][row["name"]]
+                for r in sharded["two_ranks"]]
+            row["max_rel_err_sharded"] = {
+                "f32": max(errs), "f64": max(
+                    r["nep_f64"]["kernel_rel_err"][row["name"]]
+                    for r in sharded["two_ranks"])}
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ per-chunk :class:`EnsembleTrace` of the paper's Fig. 4/9 observables.
 
 Not ported yet: ``sharded_replica_mesh`` and ``run_sharded_sweep`` (the
 replica axis composed with a spatial mesh over several cards; ROADMAP queue
-1 item 13).
+1 item 13b).
 """
 from __future__ import annotations
 

@@ -204,7 +204,10 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     """K2: ``(F (N,3), h2 (N,3))`` from K1's packed adjoints ``abar``
     (N, A), read through ``idx`` (N,M) int32 for each neighbor; a replica
     batch adds a leading R to dr, si, sj, abar and the outputs, and reads
-    replica r's neighbor rows.  ``body``
+    replica r's neighbor rows.  A flat launch also takes ``abar`` with
+    more rows than atoms, (n_src >= N, A): row i is atom i's own and
+    ``idx`` may point at any row below n_src (the Sharded plan's owned
+    slots followed by the halo ring).  ``body``
     defaults to :func:`force_pass_body`; ``"thread"`` runs the
     thread-per-atom body for any spec, ``"warp"`` raises for a spec it was
     not compiled for (on any device)."""
@@ -214,7 +217,11 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
                                 abar)
     n, m, lead = _check_common(spec, params, dr, mask, ti, tj, si, sj)
     _check("idx", idx, (n, m), torch.int32, dr.device)
-    _check("abar", abar, lead + (n, acc_width(spec)), dr.dtype, dr.device)
+    n_src = n if lead else max(abar.shape[0], n)
+    _check("abar", abar, lead + (n_src, acc_width(spec)), dr.dtype,
+           dr.device)
+    if n_src > n and n * m and int(idx.max()) >= n_src:
+        raise ValueError(f"idx points past abar's {n_src} rows")
     f = torch.empty(lead + (n, 3), dtype=dr.dtype, device=dr.device)
     h2 = torch.empty(lead + (n, 3), dtype=dr.dtype, device=dr.device)
     if f.numel() == 0:

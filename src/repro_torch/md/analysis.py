@@ -5,10 +5,14 @@ charge, and the helix pitch from the spin structure factor (port of
 Binned sums (the spin grid of the charge, the slab profile of the pitch)
 go through :func:`segment_sum`, which adds in fixed point, so they read
 the same bits on every run, on the card too, where a float ``index_add_``
-adds with atomics in no fixed order.  It reads nothing back to the host,
-so a streamed observable stays on the device.  Each ``accumulate_*``
-function takes ``plain=True`` for the ``index_add_`` form it is held
-against.
+adds with atomics in no fixed order.  It raises where a bin's sum could
+leave the fixed-point range rather than wrap.  That check reads one value
+back to the host per call, unless a :class:`RangeGuard` is open: it then
+collects the largest bin bound on the device for the caller to check
+once (the Engine does so with a chunk's health signals).  Each
+``accumulate_*`` function takes ``plain=True`` for the ``index_add_``
+form it is held against, and ``reduce`` to combine the fixed-point parts
+of several ranks.
 """
 from __future__ import annotations
 
@@ -27,27 +31,102 @@ def magnetization(spin: torch.Tensor,
 
 
 _FIXED = 2.0 ** 40     # the fixed-point grid of segment_sum
+FIXED_RANGE = 2.0 ** 23   # int64 holds |sum| < 2^63 / 2^40 on that grid
+
+
+def fixed_point_sums(values: torch.Tensor, keys: torch.Tensor, n: int):
+    """The parts of :func:`segment_sum` before its range check: per-bin
+    int64 sums of the values on the 2^-40 grid, per-bin sums of |values|
+    (a bound on every partial sum, in float64) and the count of non-finite
+    values.  All three add exactly (or, the bound, without wrapping), so
+    ranks may all-reduce them before :func:`from_fixed_point`."""
+    out_shape = (n,) + values.shape[1:]
+    v64 = values.to(torch.float64)
+    fixed = torch.round(v64 * _FIXED).to(torch.int64)
+    acc = torch.zeros(out_shape, dtype=torch.int64,
+                      device=values.device).index_add_(0, keys, fixed)
+    bound = torch.zeros(out_shape, dtype=torch.float64,
+                        device=values.device).index_add_(0, keys, v64.abs())
+    bad = torch.sum(~torch.isfinite(values)).reshape(1)
+    return acc, bound, bad
+
+
+class RangeGuard:
+    """Defers :func:`segment_sum`'s range check.  Inside ``with guard:`` a
+    call keeps its largest finite bin bound on the device (``bound``, a
+    float64 scalar, None until a call) instead of reading it back; the
+    caller reads it with its own transfer and passes it to :meth:`check`.
+    Guards nest; the innermost collects."""
+
+    def __init__(self):
+        self.bound = None
+
+    def add(self, largest: torch.Tensor) -> None:
+        self.bound = (largest if self.bound is None
+                      else torch.maximum(self.bound, largest))
+
+    @staticmethod
+    def check(largest: float) -> None:
+        """Raises ``OverflowError`` where a bin's |values| added up to
+        2^23 or more (its int64 sums could have wrapped)."""
+        if largest >= FIXED_RANGE:
+            raise OverflowError(
+                f"segment_sum: a bin's |values| add up to {largest:.6g} "
+                ">= 2^23, past the int64 fixed-point range; the sum would "
+                "wrap")
+
+    def __enter__(self) -> "RangeGuard":
+        _GUARDS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for i in range(len(_GUARDS) - 1, -1, -1):
+            if _GUARDS[i] is self:
+                del _GUARDS[i]
+                break
+
+
+_GUARDS: list[RangeGuard] = []
+
+
+def from_fixed_point(acc: torch.Tensor, bound: torch.Tensor,
+                     bad: torch.Tensor, dtype) -> torch.Tensor:
+    """Bin sums from :func:`fixed_point_sums`' parts.  Where a bin's
+    partial sums could reach the int64 range (its |values| add up to 2^23
+    or more) it raises ``OverflowError`` instead of returning a wrapped
+    sum: at once, or, inside a :class:`RangeGuard`, when the guard's
+    caller checks.  A non-finite value makes every bin NaN."""
+    largest = torch.max(torch.where(torch.isfinite(bound), bound,
+                                    torch.zeros_like(bound)))
+    if _GUARDS:
+        _GUARDS[-1].add(largest)
+    else:
+        RangeGuard.check(float(largest))
+    out = (acc.to(torch.float64) / _FIXED).to(dtype)
+    return torch.where(bad == 0, out, torch.full_like(out, float("nan")))
 
 
 def segment_sum(values: torch.Tensor, keys: torch.Tensor, n: int,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, reduce=None) -> torch.Tensor:
     """``out[b] = sum of values[i] over keys[i] == b`` for b < n.
 
     Deterministic: every value is rounded to a multiple of 2^-40 and the
     sums are taken in int64, where addition is exact, so the order in which
     the card's atomic adds land cannot change a bit.  float32 values of
-    magnitude >= 2^-16 lie on that grid exactly; a bin's sum must stay
-    below 2^23 in magnitude.  A non-finite value makes every bin NaN.
-    ``plain`` is the float ``index_add_`` it is held against."""
-    out_shape = (n,) + values.shape[1:]
+    magnitude >= 2^-16 lie on that grid exactly.  A bin whose |values| add
+    up to 2^23 or more raises ``OverflowError`` (the int64 sums could wrap
+    past it), which reads one value back to the host unless a
+    :class:`RangeGuard` defers the check.  A non-finite value makes every
+    bin NaN.  ``reduce(acc, bound, bad) -> (acc, bound, bad)``
+    combines the parts of several ranks (all-reduced sums) before the
+    check.  ``plain`` is the float ``index_add_`` it is held against."""
     if plain:
-        return values.new_zeros(out_shape).index_add_(0, keys, values)
-    fixed = torch.round(values.to(torch.float64) * _FIXED).to(torch.int64)
-    acc = torch.zeros(out_shape, dtype=torch.int64,
-                      device=values.device).index_add_(0, keys, fixed)
-    out = (acc.to(torch.float64) / _FIXED).to(values.dtype)
-    return torch.where(torch.isfinite(values).all(), out,
-                       torch.full_like(out, float("nan")))
+        out = values.new_zeros((n,) + values.shape[1:])
+        return out.index_add_(0, keys, values)
+    parts = fixed_point_sums(values, keys, n)
+    if reduce is not None:
+        parts = reduce(*parts)
+    return from_fixed_point(*parts, values.dtype)
 
 
 def _bin(pos: torch.Tensor, box: torch.Tensor, axis: int, n: int):
@@ -72,11 +151,12 @@ def spins_on_grid(pos: torch.Tensor, spin: torch.Tensor, box: torch.Tensor,
 def accumulate_spin_profile(pos: torch.Tensor, spin: torch.Tensor,
                             box: torch.Tensor, axis: int = 0, n_bins: int = 64,
                             weight: torch.Tensor | None = None,
-                            plain: bool = False) -> torch.Tensor:
+                            plain: bool = False, reduce=None) -> torch.Tensor:
     """Raw per-slab spin sums (n_bins, 3) along ``axis`` (the accumulation
     half of :func:`helix_pitch`)."""
     s = spin if weight is None else spin * weight[:, None].to(spin.dtype)
-    return segment_sum(s, _bin(pos, box, axis, n_bins), n_bins, plain)
+    return segment_sum(s, _bin(pos, box, axis, n_bins), n_bins, plain,
+                       reduce)
 
 
 def pitch_from_profile(acc: torch.Tensor, box: torch.Tensor,
@@ -137,12 +217,12 @@ def accumulate_spin_grid(pos: torch.Tensor, spin: torch.Tensor,
                          box: torch.Tensor, grid: tuple[int, int] = (32, 32),
                          plane: tuple[int, int] = (0, 1),
                          weight: torch.Tensor | None = None,
-                         plain: bool = False) -> torch.Tensor:
+                         plain: bool = False, reduce=None) -> torch.Tensor:
     """Raw per-cell spin sums (G0*G1, 3) on the projection plane."""
     ax, ay = plane
     flat = _bin(pos, box, ax, grid[0]) * grid[1] + _bin(pos, box, ay, grid[1])
     s = spin if weight is None else spin * weight[:, None].to(spin.dtype)
-    return segment_sum(s, flat, grid[0] * grid[1], plain)
+    return segment_sum(s, flat, grid[0] * grid[1], plain, reduce)
 
 
 def charge_from_grid(acc: torch.Tensor,

@@ -18,7 +18,8 @@ then it steps.  On top of that loop:
   ``charge``, ``skyrmion_count``, ``pitch`` (:mod:`repro_torch.md.analysis`)
   at chunk ends, or every ``obs_every`` steps; they stay on the device
   until the chunk ends and come back with the health signals in one
-  transfer;
+  transfer, which also carries the range check of their fixed-point bin
+  sums (:class:`repro_torch.md.analysis.RangeGuard`);
 * **callbacks** - ``run(callback=...)`` sees the engine after every chunk,
   its observation state synced, and may swap ``engine.state``;
 * **checkpoint-restart** - :meth:`Engine.save` / :meth:`Engine.restore`
@@ -59,12 +60,29 @@ integrator config or the skin at a chunk boundary (the supervisor's dt
 ladder); ``evict_slot_hook`` is the serving layer's rung of the
 supervisor's ladder.
 
-Not ported yet (they raise ``NotImplementedError``): the ``Sharded`` plan
-with elastic restore, ``rebind(plan=...)`` onto it, and the replica axis
-across several cards (``shard_replicas``; ROADMAP queue 1 item 13).
+The ``Sharded`` plan (:mod:`repro_torch.parallel.plan`) runs one trajectory
+over a ``torch.distributed`` mesh, one process per rank, each holding its
+slab of the cell-major ``(cx, cy, cz, K, ...)`` layout
+(:mod:`repro_torch.parallel.domain`) on its own device.  The chunk is the
+same Python loop; a step makes one fused halo exchange after the drift
+(positions, and spins unless midpoint iterations re-exchange them), the
+potential's adjoint round (the reaction fold, or K1 -> q_Fp halo -> K2
+with ``use_kernel``) and ONE fused scalar ``all_reduce`` (the energy and
+the next step's skin test, read back once).  A rebuild migrates atoms to
+their new cells in one fused exchange and counts what a full cell or a
+jump past the stencil drops; the run raises ``HealthError(kind=
+"overflow")`` at the chunk boundary.  ``Engine.state`` and ``_ff`` are
+gathered into the original atom order on every rank at a run's end.  Each
+rank draws its noise from its own ``torch.Generator``.
+
+Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1 item
+13b): elastic restore onto another mesh, ``rebind(plan=...)``, replicas
+composed with the spatial mesh, and the replica axis across several cards
+(``shard_replicas``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, NamedTuple
@@ -72,25 +90,36 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.ckpt.checkpoint import latest_step, load_md, save_md
+from repro_torch.ckpt.checkpoint import (latest_step, load_checkpoint,
+                                         load_md, save_checkpoint, save_md)
 from repro_torch.ensemble.protocol import host_rows
-from repro_torch.md.analysis import (helix_pitch, magnetization,
+from repro_torch.md.analysis import (RangeGuard, accumulate_spin_grid,
+                                     accumulate_spin_profile,
+                                     charge_from_grid, helix_pitch,
+                                     magnetization, pitch_from_profile,
                                      skyrmion_count, topological_charge)
 from repro_torch.md.integrator import (ForceField, IntegratorConfig,
                                        make_fused_step)
 from repro_torch.md.neighbor import (NeighborTable, Neighborhood, cell_order,
                                      gather_blocks, make_table_builder,
                                      needs_rebuild, reference_pos, refresh_dr,
-                                     shared_blocks)
+                                     reverse_index, shared_blocks)
 from repro_torch.md.state import (SpinLatticeState, kinetic_energy,
                                   replicate, unstack_state)
-from repro_torch.parallel.plan import Replicated, as_plan
+from repro_torch.parallel.domain import (DomainNbh, build_local_table,
+                                         local_first_index,
+                                         make_domain_evaluator,
+                                         make_domain_kernel_evaluator,
+                                         migrate_cells, pack_domain)
+from repro_torch.parallel.halo import HaloTrace
+from repro_torch.parallel.plan import Replicated, Sharded, as_plan
 from repro_torch.telemetry import (HealthError, TelemetrySession,
                                    as_telemetry, check_chunk, maybe_trace,
                                    phase)
 from repro_torch.telemetry.monitor import (nonfinite_count,
                                            occupancy_fraction, slot_signals,
                                            spin_norm_dev)
+from repro_torch.utils import units
 from repro_torch.utils.device import resolve_device
 
 
@@ -116,6 +145,24 @@ class ReplicaCarry(NamedTuple):
     table: NeighborTable      # shared
     nbh: Neighborhood
     n_rebuilds: int
+
+
+class DomainCarry(NamedTuple):
+    """Loop state of the Sharded plan: this rank's slab of the cell-major
+    layout.  ``types == -1`` marks empty slots; ``aid`` carries the
+    original atom id through migrations, as ``FusedCarry.perm`` does on
+    the flat plan."""
+
+    state: SpinLatticeState   # (cx, cy, cz, K, ...) blocks; box, step
+    ff: ForceField            # energy global, forces / fields blocked
+    nbh: Any                  # parallel.domain.DomainNbh
+    aid: torch.Tensor         # (cx, cy, cz, K) int32, -1 = empty
+    r0: torch.Tensor          # (cx, cy, cz, K, 3) positions at the rebuild
+    trip: bool                # the next step's skin test, reduced with the
+                              # energy at the end of the previous step
+    n_rebuilds: int
+    n_migrated: int           # atoms that changed cell, all ranks
+    n_dropped: np.ndarray     # (ranks,) atoms lost at migrations per rank
 
 
 class EngineTrace(NamedTuple):
@@ -171,6 +218,60 @@ def make_flat_observe(names, masses, magnetic, diag_grid, pitch_axis=0,
     return scoped
 
 
+def _slot_kinetic(state: SpinLatticeState, masses) -> torch.Tensor:
+    """Lattice kinetic energy of a rank's occupied slots."""
+    m = masses[torch.clamp(state.types.long(), min=0)]
+    ke = torch.where(state.types[..., None] >= 0,
+                     m[..., None] * state.vel ** 2,
+                     torch.zeros_like(state.vel))
+    return 0.5 * units.MVV2E * torch.sum(ke)
+
+
+def make_domain_observe(names, masses, magnetic, diag_grid, pitch_axis,
+                        pitch_bins, reduce_sum, reduce_fixed) -> Callable:
+    """Observable pipeline over cell-blocked (cx, cy, cz, K, ...) tensors:
+    each rank's partial sums over its occupied slots are reduced across
+    ranks (``reduce_sum``; the binned spin sums as fixed-point parts,
+    ``reduce_fixed``) and finished with :mod:`repro_torch.md.analysis`'s
+    accumulate/finish splits.  ``ff.energy`` is already global."""
+    names = _check_names(names)
+
+    def observe(state: SpinLatticeState, ff: ForceField) -> dict:
+        occ = state.types >= 0
+        tc = torch.clamp(state.types.long(), min=0)
+        vals = {}
+        if "energy" in names:
+            vals["energy"] = ff.energy
+        if "kinetic" in names:
+            vals["kinetic"] = reduce_sum(_slot_kinetic(state, masses))
+        if "magnetization" in names:
+            mag = magnetic[tc] & occ
+            msum = reduce_sum(torch.sum(torch.where(
+                mag[..., None], state.spin, torch.zeros_like(state.spin))
+                .reshape(-1, 3), dim=0))
+            mcnt = reduce_sum(torch.sum(mag).reshape(1).to(msum.dtype))
+            vals["magnetization"] = msum / torch.clamp(mcnt, min=1.0)
+        posf, spinf = state.pos.reshape(-1, 3), state.spin.reshape(-1, 3)
+        w = occ.reshape(-1)
+        if "charge" in names or "skyrmion_count" in names:
+            q = charge_from_grid(accumulate_spin_grid(
+                posf, spinf, state.box, grid=diag_grid, weight=w,
+                reduce=reduce_fixed), diag_grid)
+            vals["charge"] = q
+            vals["skyrmion_count"] = skyrmion_count(q)
+        if "pitch" in names:
+            vals["pitch"] = pitch_from_profile(accumulate_spin_profile(
+                posf, spinf, state.box, axis=pitch_axis, n_bins=pitch_bins,
+                weight=w, reduce=reduce_fixed), state.box, pitch_axis)
+        return {k: vals[k] for k in names}
+
+    def scoped(state, ff):
+        with phase("observe"):
+            return observe(state, ff)
+
+    return scoped
+
+
 def _permute_atoms(state: SpinLatticeState, order) -> SpinLatticeState:
     return state._replace(pos=state.pos[order], vel=state.vel[order],
                           spin=state.spin[order], types=state.types[order])
@@ -193,6 +294,8 @@ def _arg_at(arg, i: int):
 
 
 _UNSET = object()
+# the key under which a chunk's fixed-point range bound rides the readback
+_RANGE = "_fixed_point_range"
 
 
 def _replica_ff(ffs: ForceField, r: int) -> ForceField:
@@ -201,14 +304,15 @@ def _replica_ff(ffs: ForceField, r: int) -> ForceField:
 
 @dataclasses.dataclass
 class Engine:
-    """Single-device MD engine, flat or replicated (see the module
-    docstring).
+    """MD engine: flat or replicated on one device, or sharded over the
+    ranks of a mesh (see the module docstring).
 
     ``state``, ``masses``, ``magnetic`` and the potential's parameters must
     already live on ``device`` (default ``"cuda"``; an engine asked for the
     card on a host without one raises).  ``table``, if given, is the
     initial neighbor table in ``state``'s row order (the shared table on
-    the replica plan).
+    the replica plan; the Sharded plan builds its own).  On the Sharded
+    plan every rank constructs the engine with the same flat state.
     """
 
     potential: Any
@@ -238,12 +342,13 @@ class Engine:
         self.device = resolve_device(self.device)
         self.plan = as_plan(self.plan)
         self._replica = isinstance(self.plan, Replicated)
+        self._sharded = isinstance(self.plan, Sharded)
         self.observables = _check_names(self.observables)
         if self.obs_every is not None and self.obs_every < 1:
             raise ValueError("obs_every must be >= 1")
         if self.per_slot and not self._replica:
             raise ValueError("per_slot=True requires the Replicated plan")
-        if not hasattr(self.potential, "compute"):
+        if not (hasattr(self.potential, "compute") or self._sharded):
             raise ValueError("the engine requires a potential with the "
                              "gather-once .compute() surface")
         for name, t in (("state.pos", self.state.pos),
@@ -270,6 +375,13 @@ class Engine:
         self.evict_slot_hook = None  # serving hook: (HealthError) -> info
                                      # dict, or None; the supervisor calls
                                      # it to evict one poisoned per-slot job
+        if self._sharded:
+            if self.table is not None:
+                raise ValueError("the Sharded plan builds its own per-rank "
+                                 "tables; pass no table")
+            self._halo = HaloTrace()
+            self._setup_domain()
+            return
         if self._replica:
             r = self.plan.replicas
             if self.state.pos.dim() == 2:
@@ -573,8 +685,7 @@ class Engine:
         if devices is not None and len(list(devices)) > 1:
             raise NotImplementedError(
                 "the replica axis over several cards is ROADMAP queue 1 "
-                "item 13 (with the Sharded plan); the port's Replicated plan "
-                "runs on one card")
+                "item 13b; the port's Replicated plan runs on one card")
         return self
 
     def write_slots(self, slots, states: SpinLatticeState, *,
@@ -685,6 +796,351 @@ class Engine:
         if self.per_slot:
             h.update(slot_signals(st.pos, ffs.force, st.spin, mag, drift))
         return h
+
+    # ==================================================================
+    # the Sharded plan
+    # ==================================================================
+    def _setup_domain(self):
+        """Resolve the plan against the state, bin it into the cell grid,
+        build this rank's step closure, table and forces."""
+        pot = self.potential
+        self._use_kernel = bool(getattr(pot, "use_kernel", False))
+        if not (hasattr(pot, "pair_energies") or self._use_kernel):
+            raise ValueError("the Sharded plan needs a potential with the "
+                             "pair_energies/site_moments surface (or the "
+                             "NEP kernels, use_kernel=True)")
+        if self._use_kernel and self.cfg.midpoint:
+            raise ValueError("the kernel-routed Sharded evaluator computes "
+                             "forces through the q_Fp adjoint exchange and "
+                             "does not support self-consistent midpoint "
+                             "configs")
+        if self.state.pos.dim() != 2:
+            raise ValueError("the Sharded plan takes one flat (N, ...) state")
+        rp = self.plan.resolve(self.state.box, self.state.pos, self.cutoff,
+                               self.skin,
+                               self.state.pos.dtype == torch.float32)
+        self._rplan = rp
+        self._n_atoms = n = self.state.pos.shape[0]
+        packed, extras = pack_domain(
+            rp.dspec, self.state.pos, self.state.vel, self.state.spin,
+            self.state.types, extras={"aid": np.arange(n, dtype=np.int32)})
+        self._build_domain_step()
+        blk = self._local_block
+        start = SpinLatticeState(
+            pos=blk(packed.pos), vel=blk(packed.vel), spin=blk(packed.spin),
+            types=blk(packed.types), box=self.state.box,
+            step=int(self.state.step))
+        field = self._value_now(self._norm_arg(self.field, vec=True),
+                                vec=True)
+        count0 = (self._carry.n_rebuilds
+                  if getattr(self, "_carry", None) is not None else 0)
+        with self._halo:
+            st, ff, nbh, aid, moved, dropped = self._domain_rebuild(
+                start, blk(extras["aid"]), field)
+            _, dropped = self._count_rebuild(moved, dropped)
+            ff = ff._replace(energy=self._reduce_sum(ff.energy))
+        self._carry = DomainCarry(st, ff, nbh, aid, st.pos, False, count0, 0,
+                                  dropped)
+        self._check_dropped()
+        self._sync_domain()
+
+    def _local_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slab of a global (CX, CY, CZ, ...) host grid, on the
+        engine's device."""
+        rp = self._rplan
+        sl = tuple(slice(o, o + c) for o, c in zip(rp.offsets,
+                                                   rp.local_shape))
+        return t[sl].to(self.device).contiguous()
+
+    def _build_domain_step(self):
+        rp = self._rplan
+        dspec, local, axes, ag = rp.dspec, rp.local_shape, rp.axes, \
+            rp.allgather
+        # midpoint iterations evaluate at updated spins, so they exchange
+        # spin ghosts per evaluation; otherwise one fused (pos, spin)
+        # exchange per drift and one adjoint round per evaluation
+        sig = self._spin_in_gather = not self.cfg.midpoint
+        if self._use_kernel:
+            refresh, compute = make_domain_kernel_evaluator(
+                self.potential, dspec, axes, local, allgather=ag)
+            self._ext_to_lf = local_first_index(local, dspec.capacity,
+                                                self.device)[0]
+        else:
+            refresh, compute = make_domain_evaluator(
+                self.potential, dspec, axes, local, spin_in_gather=sig,
+                allgather=ag)
+        self._domain_refresh, self._domain_compute = refresh, compute
+        self._step = make_fused_step(
+            gather=(lambda pos, nbh, spin: refresh(pos, nbh, spin,
+                                                   tag="drift-pos"))
+            if sig else (lambda pos, nbh: refresh(pos, nbh,
+                                                  tag="drift-pos")),
+            compute=self._domain_ff, cfg=self.cfg, masses=self.masses,
+            magnetic=self.magnetic, atom_mask="from_types",
+            spin_aware_gather=sig)
+        self._observe = make_domain_observe(
+            self.observables, self.masses, self.magnetic, self.diag_grid,
+            self.pitch_axis, self.pitch_bins, self._reduce_sum,
+            self._reduce_fixed)
+
+    def _domain_ff(self, nbh, spin, types, field) -> ForceField:
+        """One evaluation on this rank's slots (energy rank-local)."""
+        with phase("force"):
+            return ForceField(*self._domain_compute(nbh, spin, types, field))
+
+    def _reduce_sum(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """``t`` reduced over every rank into a new tensor (a sum unless
+        ``op``); ``t`` itself on one rank."""
+        if self._rplan.world == 1:
+            return t
+        import torch.distributed as dist
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op)
+        return out
+
+    def _reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        return self._reduce_sum(t, op=dist.ReduceOp.MAX)
+
+    def _reduce_fixed(self, acc, bound, bad):
+        """The fixed-point parts of a binned sum, added over ranks before
+        the range check (:func:`repro_torch.md.analysis.segment_sum`)."""
+        return tuple(self._reduce_sum(t) for t in (acc, bound, bad))
+
+    def _domain_tables(self, pos, spin, idx, mask, tj, tag: str):
+        """A rebuilt table's blocks: its transpose over the ext-flat rows
+        (autograd) or its local-first renumbering (kernels), then the
+        fused refresh of ``dr`` (and ``sj``)."""
+        m = idx.shape[-1]
+        rev = lf = None
+        if self._use_kernel:
+            lf = self._ext_to_lf[idx.reshape(-1, m).long()].to(torch.int32)
+        else:
+            cx, cy, cz = self._rplan.local_shape
+            n_ext = (cx + 2) * (cy + 2) * (cz + 2) * idx.shape[3]
+            rev = reverse_index(idx.reshape(-1, m), n_rows=n_ext)
+        nbh = DomainNbh(idx=idx, mask=mask, tj=tj, dr=None, rev=rev, lf=lf)
+        return self._domain_refresh(pos, nbh,
+                                    spin if self._spin_in_gather else None,
+                                    tag=tag)
+
+    def _domain_rebuild(self, state, aid, field):
+        """Migrate atoms to their cells, rebuild the table, refresh the
+        blocks and evaluate; the counts come back rank-local."""
+        rp = self._rplan
+        with phase("rebuild"):
+            pos, vel, spin, types, aid, moved, dropped = migrate_cells(
+                rp.dspec, rp.axes, rp.local_shape, rp.offsets, state.pos,
+                state.vel, state.spin, state.types, aid,
+                allgather=rp.allgather)
+            idx, mask, tj = build_local_table(
+                rp.dspec, rp.axes, rp.local_shape, self.capacity, pos, types,
+                allgather=rp.allgather)
+            nbh = self._domain_tables(pos, spin, idx, mask, tj, "rebuild-pos")
+            state = state._replace(pos=pos, vel=vel, spin=spin, types=types)
+        ff = self._domain_ff(nbh, spin, types, field)
+        return state, ff, nbh, aid, moved, dropped
+
+    def _count_rebuild(self, moved, dropped):
+        """One reduction a rebuild: ``(atoms moved on every rank, (ranks,)
+        per-rank drop counts)`` on the host."""
+        rp = self._rplan
+        vec = torch.zeros(1 + rp.world, dtype=torch.int64,
+                          device=moved.device)
+        vec[0] = moved
+        vec[1 + rp.rank] = dropped
+        vec = self._reduce_sum(vec).cpu().numpy()
+        return int(vec[0]), vec[1:]
+
+    def _trip_local(self, state, r0) -> torch.Tensor:
+        """Did an atom of this rank move past half the skin since the
+        rebuild?"""
+        d = state.pos - r0
+        d = d - state.box * torch.round(d / state.box)
+        d2 = torch.sum(d * d, dim=-1)
+        d2 = torch.where(state.types >= 0, d2, torch.zeros_like(d2))
+        return torch.max(d2) > (self.skin * 0.5) ** 2
+
+    def _domain_chunk(self, carry: DomainCarry, generator, targ, farg,
+                      n: int, emit):
+        """``n`` steps of this rank's slab; as :meth:`_chunk`."""
+        etot0 = carry.ff.energy + self._reduce_sum(_slot_kinetic(
+            carry.state, self.masses))
+        rows = []
+        for i in range(n):
+            temp, field = _arg_at(targ, i), _arg_at(farg, i)
+            if carry.trip:
+                st, ff, nbh, aid, moved, dropped = self._domain_rebuild(
+                    carry.state, carry.aid, field)
+                moved, dropped = self._count_rebuild(moved, dropped)
+                carry = DomainCarry(st, ff, nbh, aid, st.pos, False,
+                                    carry.n_rebuilds + 1,
+                                    carry.n_migrated + moved,
+                                    carry.n_dropped + dropped)
+            with phase("integrate"):
+                st, ff, nbh = self._step(carry.state, carry.ff, carry.nbh,
+                                         generator, temp, field)
+            # ONE fused scalar reduction a step: the global energy and the
+            # next step's skin test, read back once (module docstring)
+            e = ff.energy
+            vec = self._reduce_sum(torch.stack(
+                [e, self._trip_local(st, carry.r0).to(e.dtype)]))
+            carry = carry._replace(state=st, ff=ff._replace(energy=vec[0]),
+                                   nbh=nbh, trip=bool(vec[1] > 0))
+            if emit is not None and i in emit:
+                rows.append(self._observe(st, carry.ff))
+        if emit is None:
+            rows.append(self._observe(carry.state, carry.ff))
+        if rows:
+            obs = {k: torch.stack([r[k] for r in rows])
+                   for k in self.observables}
+        else:
+            obs = {k: v[None][:0] for k, v in
+                   self._observe(carry.state, carry.ff).items()}
+        return carry, obs, self._domain_health(carry, etot0)
+
+    def _domain_health(self, c: DomainCarry, etot0) -> dict:
+        """The health signals, global over ranks (plus ``cell_occ``, the
+        fullest cell's share of K)."""
+        st, ff = c.state, c.ff
+        occ = st.types >= 0
+        dt = st.pos.dtype
+        mag = self.magnetic[torch.clamp(st.types.long(), min=0)] & occ
+        sums = self._reduce_sum(torch.stack(
+            [_slot_kinetic(st, self.masses),
+             nonfinite_count(st.pos, ff.force, st.spin).to(dt)]))
+        cell_occ = torch.max(torch.sum(occ, dim=-1)) / float(occ.shape[-1])
+        maxes = self._reduce_max(torch.stack(
+            [spin_norm_dev(st.spin, mag).to(dt),
+             occupancy_fraction(c.nbh.mask).to(dt), cell_occ.to(dt)]))
+        return {"e_drift": ff.energy + sums[0] - etot0,
+                "spin_dev": maxes[0], "nonfinite": sums[1],
+                "nbr_occ": maxes[1], "cell_occ": maxes[2]}
+
+    def _check_dropped(self, chunk_index: int | None = None):
+        """Raise a ``HealthError(kind="overflow")`` when a migration dropped
+        atoms, with the per-rank counts and the last-good checkpoint."""
+        vec = np.atleast_1d(np.asarray(self._carry.n_dropped))
+        dropped = int(vec.sum())
+        if dropped:
+            per_rank = {int(i): int(v) for i, v in enumerate(vec) if v}
+            raise HealthError(
+                f"domain cell overflow: {dropped} atom(s) dropped at "
+                f"migration (cell capacity {self._rplan.dspec.capacity} "
+                "exceeded or an atom jumped more than one cell between "
+                "rebuilds); increase cell_capacity or shrink the "
+                f"skin/timestep; per-rank drop counts: {per_rank}",
+                step=self._step_now(), chunk_index=chunk_index,
+                signals={"dropped": dropped, "dropped_per_device": per_rank},
+                checkpoint_path=self._last_ckpt, kind="overflow")
+
+    @property
+    def n_migrated(self) -> int:
+        """Atoms that changed link cell across all rebuilds (Sharded)."""
+        return int(self._carry.n_migrated)
+
+    @property
+    def halo_ledger(self) -> HaloTrace:
+        """This engine's halo exchange ledger (Sharded): counts and bytes
+        per tag over every exchange since construction."""
+        return self._halo
+
+    def _sync_domain(self):
+        """Gather every rank's slots and restore the original atom order:
+        ``state`` and ``_ff`` as the flat plan has them, on every rank."""
+        c = self._carry
+        dt = c.state.pos.dtype
+        cols = [c.state.pos, c.state.vel, c.state.spin, c.ff.force,
+                c.ff.field, c.state.types[..., None], c.aid[..., None]]
+        buf = torch.cat([x.reshape(-1, x.shape[-1]).to(dt) for x in cols],
+                        dim=-1)
+        if self._rplan.world > 1:
+            import torch.distributed as dist
+            parts = [torch.empty_like(buf) for _ in range(self._rplan.world)]
+            dist.all_gather(parts, buf)
+            buf = torch.cat(parts)
+        aid = torch.round(buf[:, 16]).long()
+        sel = torch.nonzero(aid >= 0).reshape(-1)
+        order = torch.empty(self._n_atoms, dtype=torch.int64,
+                            device=buf.device)
+        order[aid[sel]] = sel
+        rows = buf[order]
+        col = lambda lo: rows[:, lo:lo + 3].contiguous()
+        self.state = SpinLatticeState(
+            pos=col(0), vel=col(3), spin=col(6),
+            types=torch.round(rows[:, 15]).to(torch.int32),
+            box=c.state.box, step=c.state.step)
+        self._ff = ForceField(energy=c.ff.energy, force=col(9),
+                              field=col(12))
+        self._obs_state = self.state
+
+    def _domain_ckpt_tree(self, c: DomainCarry) -> dict:
+        """What a rank's shard holds: the carry without the position-
+        dependent blocks, which restore re-derives from the table and
+        positions."""
+        return {"state": c.state, "ff": c.ff, "aid": c.aid, "r0": c.r0,
+                "idx": c.nbh.idx, "mask": c.nbh.mask, "tj": c.nbh.tj,
+                "trip": c.trip, "n_rebuilds": c.n_rebuilds,
+                "n_migrated": c.n_migrated, "n_dropped": c.n_dropped}
+
+    def _domain_layout(self) -> np.ndarray:
+        rp = self._rplan
+        return np.asarray([rp.world, *rp.dspec.cells, rp.dspec.capacity,
+                           *rp.local_shape], np.int64)
+
+    def _domain_save(self, directory: str, generator, keep: int) -> str:
+        """Each rank writes its shard and generator state under
+        ``rank_<r>/``; after every rank has, rank 0 writes the step's
+        manifest (the layout), which marks the checkpoint complete."""
+        import os
+        rp = self._rplan
+        step = self.ckpt_step()
+        save_md(os.path.join(directory, f"rank_{rp.rank:05d}"), step,
+                self._domain_ckpt_tree(self._carry), generator, keep=keep,
+                pin=self.ckpt_pin)
+        barrier = rp.world > 1
+        if barrier:
+            import torch.distributed as dist
+            dist.barrier()
+        path = os.path.join(directory, f"step_{step:09d}")
+        if rp.rank == 0:
+            path = save_checkpoint(directory, step,
+                                   {"layout": self._domain_layout()},
+                                   keep=keep, pin=self.ckpt_pin)
+        if barrier:
+            dist.barrier()
+        return path
+
+    def _domain_restore(self, directory: str, step: int | None):
+        """Same-mesh restore: the manifest's layout must be this engine's;
+        each rank loads its shard and re-derives the blocks."""
+        import os
+        step = latest_step(directory) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+        tree, _ = load_checkpoint(directory,
+                                  {"layout": self._domain_layout()},
+                                  step=step, strict_shapes=False)
+        if not np.array_equal(tree["layout"], self._domain_layout()):
+            raise ValueError(
+                f"checkpoint layout {tree['layout'].tolist()} (ranks, cells, "
+                f"K, local cells) is not this engine's "
+                f"{self._domain_layout().tolist()}; restoring onto another "
+                "mesh is elastic restore, ROADMAP queue 1 item 13b")
+        rp = self._rplan
+        shard, gstate, _ = load_md(
+            os.path.join(directory, f"rank_{rp.rank:05d}"),
+            self._domain_ckpt_tree(self._carry), step=step)
+        st = shard["state"]
+        with self._halo:
+            nbh = self._domain_tables(st.pos, st.spin, shard["idx"],
+                                      shard["mask"], shard["tj"], "restore")
+        self._carry = DomainCarry(
+            st, shard["ff"], nbh, shard["aid"], shard["r0"], shard["trip"],
+            shard["n_rebuilds"], shard["n_migrated"],
+            np.asarray(shard["n_dropped"]))
+        self._sync_domain()
+        return None if gstate is None else self._generator(gstate)
 
     # ------------------------------------------------------------------
     def _health(self, c: FusedCarry, etot0) -> dict:
@@ -802,11 +1258,15 @@ class Engine:
                                  f"{len(generator)}")
         self._restart(farg)
         session = None
-        if tel is not None:
+        # on the Sharded plan rank 0 alone writes the runlog and the trace
+        # (the health signals are global, so every rank gates alike)
+        rank0 = not self._sharded or self._rplan.rank == 0
+        if tel is not None and rank0:
             session = TelemetrySession(tel,
                                        run_info=self._run_info(n_steps, chunk))
         try:
-            with maybe_trace(tel.profile_dir if tel is not None else None):
+            with maybe_trace(tel.profile_dir if tel is not None and rank0
+                             else None):
                 self._run_loop(n_steps, generator, chunk, targ, farg,
                                callback, checkpoint_dir, checkpoint_every,
                                checkpoint_keep, tel, session)
@@ -819,14 +1279,25 @@ class Engine:
         return self.state
 
     def _restart(self, farg):
-        """Honor a caller-swapped ``engine.state`` on either plan."""
-        if self._replica:
+        """Honor a caller-swapped ``engine.state`` on the flat and replica
+        plans; the Sharded plan refuses one."""
+        if self._sharded:
+            if self.state is not self._obs_state:
+                # repacking the cell-major layout mid-run is not wired up;
+                # dropping the swap silently would be worse
+                raise NotImplementedError(
+                    "state swaps are not supported on the Sharded plan "
+                    "(callbacks are observation-only there); build a new "
+                    "Engine from the modified state instead")
+        elif self._replica:
             self._replica_restart_if_swapped(farg)
         else:
             self._restart_if_swapped(farg)
 
     def _sync_observation(self):
-        if self._replica:
+        if self._sharded:
+            self._sync_domain()
+        elif self._replica:
             self._sync_replica()
         else:
             self._sync_flat()
@@ -834,13 +1305,15 @@ class Engine:
     def _run_loop(self, n_steps, generator, chunk, targ, farg, callback,
                   checkpoint_dir, checkpoint_every, checkpoint_keep, tel,
                   session) -> None:
-        chunk_fn = self._replica_chunk if self._replica else self._chunk
+        chunk_fn = (self._domain_chunk if self._sharded else
+                    self._replica_chunk if self._replica else self._chunk)
         carry = self._carry
         dt = self.cfg.dt
         t0 = self._step_now() * dt
         rows, times, hrows = [], [], []
         done = chunks_done = 0
         reb_prev = carry.n_rebuilds
+        mig_prev = carry.n_migrated if self._sharded else 0
         while done < n_steps:
             n = min(chunk, n_steps - done)
             emit = self._emit_for(n)
@@ -852,9 +1325,16 @@ class Engine:
             targ_c = self._chunk_arg(targ, carry, n, vec=False)
             farg_c = self._chunk_arg(farg, carry, n, vec=True)
             t_chunk = time.perf_counter()
-            carry, obs, health = chunk_fn(carry, generator, targ_c, farg_c,
-                                          n, emit)
+            guard = RangeGuard()
+            with (self._halo if self._sharded else contextlib.nullcontext(),
+                  guard):
+                carry, obs, health = chunk_fn(carry, generator, targ_c,
+                                              farg_c, n, emit)
+            if guard.bound is not None:
+                health = {**health, _RANGE: guard.bound}
             obs, h_host = self._readback(obs, health)
+            if guard.bound is not None:
+                guard.check(h_host.pop(_RANGE))
             wall = time.perf_counter() - t_chunk   # the readback synced
             times.extend(t0 + (done + i + 1) * dt
                          for i in ([n - 1] if emit is None else sorted(emit)))
@@ -867,19 +1347,25 @@ class Engine:
             # health gate BEFORE checkpointing: a failing chunk must not
             # become the newest checkpoint
             verdict, err = "ok", None
-            if tel is not None and tel.health is not None:
-                try:
+            try:
+                if self._sharded:
+                    self._check_dropped(chunk_index=chunks_done - 1)
+                if tel is not None and tel.health is not None:
                     verdict = check_chunk(
                         h_host, tel.health, step=self._step_now(),
                         chunk_index=chunks_done - 1,
                         checkpoint_path=self._last_ckpt)
-                except HealthError as e:
-                    verdict, err = "fail", e
+            except HealthError as e:
+                verdict, err = "fail", e
             if session is not None:
+                counters = {"rebuilds": carry.n_rebuilds - reb_prev}
+                if self._sharded:
+                    counters["migrations"] = carry.n_migrated - mig_prev
+                    mig_prev = carry.n_migrated
                 session.chunk(
                     steps=n, step=self._step_now(), time_ps=t0 + done * dt,
                     wall_s=wall, health=h_host, verdict=verdict,
-                    counters={"rebuilds": carry.n_rebuilds - reb_prev},
+                    counters=counters,
                     error=None if err is None else str(err))
                 reb_prev = carry.n_rebuilds
             if err is not None:
@@ -917,6 +1403,8 @@ class Engine:
                 "device": str(self.device)}
         if self.per_slot:
             info["per_slot"] = True
+        if self._sharded:
+            info.update(self._rplan.describe())
         info.update(self.run_tags or {})
         return info
 
@@ -929,14 +1417,15 @@ class Engine:
         are swapped and the plan's setup re-runs from that state, as at
         construction.  Positions, velocities, spins and the step carry over
         bitwise (and the run's generators, which the caller holds); the
-        neighbor table and the forces are rebuilt.  A new ``plan`` re-lays
-        the Sharded plan (a new cell capacity or mesh), ROADMAP queue 1
-        item 13.
+        neighbor table and the forces are rebuilt (on the Sharded plan the
+        cells are re-resolved and the atoms re-binned).  A new ``plan``
+        re-lays the Sharded plan (a new cell capacity or mesh), ROADMAP
+        queue 1 item 13b.
         """
         if plan is not None:
             raise NotImplementedError(
                 "rebind(plan=...) re-lays the Sharded plan's cells and mesh, "
-                "ROADMAP queue 1 item 13")
+                "ROADMAP queue 1 item 13b")
         self._sync_observation()
         if cfg is not None:
             self.cfg = cfg
@@ -944,6 +1433,9 @@ class Engine:
             self.skin = skin
         self.table = None
         count = self._carry.n_rebuilds      # cumulative across rebinds
+        if self._sharded:
+            self._setup_domain()
+            return
         if self._replica:
             self._setup_replica()
             self._carry = self._carry._replace(n_rebuilds=count)
@@ -966,8 +1458,15 @@ class Engine:
         """Checkpoint the carry and ``generator`` (the run's generator in
         its current state - on the replica plan the list of one per
         replica, saved as a stack; None for a run that draws no noise) at a
-        chunk boundary.  Returns the checkpoint's path."""
+        chunk boundary.  Returns the checkpoint's path.
+
+        On the Sharded plan every rank calls it with its own generator:
+        each writes its shard, rank 0 the manifest."""
         step = self.ckpt_step()
+        if self._sharded:
+            path = self._domain_save(directory, generator, keep)
+            self._last_ckpt, self._last_ckpt_step = path, step
+            return path
         path = save_md(directory, step, self._ckpt_tree(self._carry),
                        generator, keep=keep, pin=self.ckpt_pin)
         self._last_ckpt, self._last_ckpt_step = path, step
@@ -978,7 +1477,10 @@ class Engine:
         returns the saved generator state as a ``torch.Generator`` on the
         engine's device - on the replica plan a list of them, one per
         replica - or None if none was saved.  ``run(remaining, g)`` then
-        continues the trajectory bitwise."""
+        continues the trajectory bitwise.  On the Sharded plan each rank
+        restores its own shard and generator, onto the same mesh."""
+        if self._sharded:
+            return self._domain_restore(directory, step)
         tree, gstate, _ = load_md(directory, self._ckpt_tree(self._carry),
                                   step=step)
         if self._replica:

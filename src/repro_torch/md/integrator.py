@@ -167,8 +167,15 @@ def _lattice_langevin(vel: torch.Tensor, masses: torch.Tensor,
     return c1 * vel + sigma[..., None] * noise
 
 
+def _masked(occ, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` on occupied slots, ``old`` on empty ones (no mask: new)."""
+    return new if occ is None else torch.where(occ[..., None], new, old)
+
+
 def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
-                    masses: torch.Tensor, magnetic: torch.Tensor):
+                    masses: torch.Tensor, magnetic: torch.Tensor,
+                    atom_mask: str | None = None,
+                    spin_aware_gather: bool = False):
     """Build the gather-once coupled step
 
         step(state, ff, nbh, generator=None, temperature=None, field=None,
@@ -184,14 +191,24 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
     A replica batch (``state.pos`` (R, N, 3)) takes a sequence of R
     generators, ``temperature`` None or a sequence of R values and
     ``field`` (R, 3) (module docstring).
+
+    Cell-blocked domain tensors (the Sharded plan: ``(cx, cy, cz, K, ...)``)
+    go through the same elementwise updates: ``atom_mask="from_types"``
+    freezes the empty slots (``types == -1``; their velocities, spins and
+    noise stay out), and with ``spin_aware_gather`` the refresh after the
+    drift is called as ``gather(pos, nbh, spin)`` with the half-stepped
+    spins, so the neighbor spins ride the positions' halo exchange.
     """
     def step(state: SpinLatticeState, ff: ForceField, nbh,
              generator: torch.Generator | None = None, temperature=None,
              field=None, noise: dict | None = None):
         batched = state.pos.dim() == 3
-        types = state.types.long()
+        types = torch.clamp(state.types.long(), min=0)
         m = masses[types][..., None]
         mag = magnetic[types]
+        occ = state.types >= 0 if atom_mask == "from_types" else None
+        if occ is not None:
+            mag = mag & occ
         dt = cfg.dt
         stochastic = (temperature is not None) or cfg.temperature > 0.0
         if batched:   # one temperature per replica: _scale takes the list
@@ -220,18 +237,18 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
         def field_eval(nb):
             return lambda s: compute(nb, s, state.types, field)
 
-        n = state.pos.shape[-2]
+        shape = tuple(state.pos.shape[1:] if batched else state.pos.shape)
         thermo_lattice = cfg.lattice_gamma > 0.0 and stochastic
         vel = state.vel
         if not cfg.frozen_lattice:
             if thermo_lattice:
-                vel = _lattice_langevin(vel, m[..., 0], cfg,
-                                        draw("k1", (n, 3)), temp)
+                vel = _masked(occ, _lattice_langevin(
+                    vel, m[..., 0], cfg, draw("k1", shape), temp), vel)
             vel = vel + 0.5 * dt * ff.force / m * units.FORCE2ACC
         spin_noise = cfg.spin_alpha > 0.0
         spin, ff = _spin_half_step(
             field_eval(nbh), state.spin, ff, cfg,
-            draw("k2", (n, 3)) if spin_noise else None, temp)
+            draw("k2", shape) if spin_noise else None, temp)
         spin = torch.where(mag[..., None], spin, state.spin)
         if cfg.frozen_lattice:
             pos = state.pos
@@ -239,21 +256,21 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
             box = state.box[..., None, :]
             pos = state.pos + dt * vel
             pos = pos - box * torch.floor(pos / box)   # wrap PBC
-        nbh = gather(pos, nbh)
+        nbh = (gather(pos, nbh, spin) if spin_aware_gather
+               else gather(pos, nbh))
         ff = compute(nbh, spin, state.types, field)
         spin2, ff = _spin_half_step(
             field_eval(nbh), spin, ff, cfg,
-            draw("k3", (n, 3)) if spin_noise else None, temp)
+            draw("k3", shape) if spin_noise else None, temp)
         spin = torch.where(mag[..., None], spin2, spin)
         spin = _longitudinal_step(
-            spin, ff, cfg,
-            draw("k4", (n, 1)) if cfg.spin_longitudinal > 0.0 else None,
-            temp, mag)
+            spin, ff, cfg, draw("k4", shape[:-1] + (1,))
+            if cfg.spin_longitudinal > 0.0 else None, temp, mag)
         if not cfg.frozen_lattice:
             vel = vel + 0.5 * dt * ff.force / m * units.FORCE2ACC
             if thermo_lattice:
-                vel = _lattice_langevin(vel, m[..., 0], cfg,
-                                        draw("k5", (n, 3)), temp)
+                vel = _masked(occ, _lattice_langevin(
+                    vel, m[..., 0], cfg, draw("k5", shape), temp), vel)
         return SpinLatticeState(pos=pos, vel=vel, spin=spin,
                                 types=state.types, box=state.box,
                                 step=state.step + 1), ff, nbh

@@ -128,21 +128,26 @@ class Neighborhood(NamedTuple):
     rev: torch.Tensor | None = None   # (N, R) reverse_index(idx), or None
 
 
-def reverse_index(idx: torch.Tensor) -> torch.Tensor:
+def reverse_index(idx: torch.Tensor, n_rows: int | None = None
+                  ) -> torch.Tensor:
     """The table's transpose: row k lists, in increasing order, the flat
     slots ``i * M + m`` with ``idx[i, m] == k`` (every slot, masked ones
     too), padded with ``N * M`` (a zero row in :func:`reverse_sum`).
 
-    A stable sort of the flat table; R (the longest row) is read back
-    once, so build it once per table, not per evaluation."""
-    n, m = idx.shape
+    ``n_rows`` (default N, the table's own rows) is the row space ``idx``
+    points into: the domain layout's table (..., M) indexes the
+    halo-extended slots.  A stable sort of the flat table; R (the longest
+    row) is read back once, so build it once per table, not per
+    evaluation."""
     flat = idx.reshape(-1).long()
+    n_slots = flat.numel()
+    n = idx.shape[0] if n_rows is None else n_rows
     order = torch.argsort(flat, stable=True)
     target = flat[order]
     counts = torch.bincount(flat, minlength=n)
     start = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n * m, device=idx.device) - start[target]
-    rev = torch.full((n, max(int(counts.max()), 1)), n * m,
+    rank = torch.arange(n_slots, device=idx.device) - start[target]
+    rev = torch.full((n, max(int(counts.max()), 1)), n_slots,
                      dtype=torch.int64, device=idx.device)
     rev[target, rank] = order
     return rev

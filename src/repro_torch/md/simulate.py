@@ -10,8 +10,8 @@ test runs on the host between chunks, a rebuild rebuilds the table and the
 step closure, and every force call is a whole evaluation
 (``potential.energy_forces_field``) through :func:`make_step`.
 
-``SimulationSharded`` (the domain-decomposed driver) waits for the sharded
-plan, ROADMAP queue 1 item 13.
+:class:`SimulationSharded` is the domain-decomposed driver, a facade over
+the engine's ``Sharded`` plan (:mod:`repro_torch.parallel.domain`).
 """
 from __future__ import annotations
 
@@ -185,10 +185,102 @@ class Simulation:
         return float(self._ff.energy)
 
 
-class SimulationSharded:
-    """The domain-decomposed driver: not ported yet."""
+class DomainChunkTrace(NamedTuple):
+    """Per-chunk diagnostics of the Sharded plan (C chunks)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SimulationSharded needs the sharded plan, ROADMAP queue 1 "
-            "item 13; use Simulation (one device) meanwhile")
+    time: np.ndarray           # (C,) ps at chunk ends
+    energy: np.ndarray         # (C,) potential energy [eV]
+    kinetic: np.ndarray        # (C,) lattice kinetic energy [eV]
+    magnetization: np.ndarray  # (C, 3) mean spin over magnetic sites
+
+
+@dataclasses.dataclass
+class SimulationSharded:
+    """Domain-decomposed twin of :class:`Simulation`: a facade over the
+    :class:`~repro_torch.md.engine.Engine` with a
+    :class:`~repro_torch.parallel.plan.Sharded` plan.  Every rank of the
+    mesh constructs it with the same flat input state and runs it with its
+    own generator; one fused halo per drift, the reaction fold (or, with
+    ``use_kernel=True``, the q_Fp adjoint halo between K1 and K2), cell
+    migration at rebuilds, and a cell overflow raised at the chunk boundary
+    where it is detected.  ``state`` comes back in the original atom order
+    on every rank."""
+
+    potential: Any                     # .pair_energies / .site_moments
+    cfg: IntegratorConfig
+    state: SpinLatticeState            # flat (N, ...) input state
+    masses: torch.Tensor               # (n_types,)
+    magnetic: torch.Tensor             # (n_types,) bool
+    cutoff: float
+    capacity: int = 32                 # per-atom neighbor capacity M
+    skin: float = 0.5
+    cells: tuple | None = None         # global cell grid (None -> auto)
+    cell_capacity: int | None = None   # per-cell capacity K (None -> auto)
+    mesh: Any = None                   # DeviceMesh (None -> 1-D "sx")
+    axis_map: tuple | None = None      # spatial dim -> mesh dimension name
+    halo_mode: str = "auto"            # "ppermute" | "allgather" | "auto"
+    field: Any = None                  # (3,) Tesla, or a Schedule
+    device: Any = "cuda"
+    trace: DomainChunkTrace | None = None
+
+    def __post_init__(self):
+        from repro_torch.parallel.plan import Sharded
+        self._engine = Engine(
+            potential=self.potential, cfg=self.cfg, state=self.state,
+            masses=self.masses, magnetic=self.magnetic, cutoff=self.cutoff,
+            plan=Sharded(mesh=self.mesh, axis_map=self.axis_map,
+                         halo_mode=self.halo_mode, cells=self.cells,
+                         cell_capacity=self.cell_capacity),
+            field=self.field,
+            observables=("energy", "kinetic", "magnetization"),
+            capacity=self.capacity, skin=self.skin, device=self.device)
+        rp = self._engine._rplan
+        self.mesh, self.axis_map = rp.mesh, rp.axis_map
+        self._pull()
+
+    def _pull(self):
+        self.state = self._engine.state
+        self._ff = self._engine._ff
+
+    @property
+    def _dspec(self):
+        return self._engine._rplan.dspec
+
+    @property
+    def n_rebuilds(self) -> int:
+        return self._engine.n_rebuilds
+
+    @property
+    def n_migrated(self) -> int:
+        """Atoms that changed link cell across all rebuilds."""
+        return self._engine.n_migrated
+
+    @property
+    def energy(self) -> float:
+        return self._engine.energy
+
+    @property
+    def halo_ledger(self):
+        """The engine's halo exchange ledger."""
+        return self._engine.halo_ledger
+
+    def _check_dropped(self):
+        self._engine._check_dropped()
+
+    def run(self, n_steps: int, generator: torch.Generator | None = None,
+            chunk: int = 20, temperature=None, telemetry=None):
+        """Advance ``n_steps``; ``temperature`` (K or a Schedule) and
+        ``self.field`` are run-time arguments.  Per-chunk diagnostics land
+        in ``self.trace``; returns the final state in the original atom
+        order."""
+        self._engine.run(n_steps, generator, chunk=chunk,
+                         temperature=temperature, field=self.field,
+                         telemetry=telemetry)
+        self._pull()
+        tr = self._engine.trace
+        if tr is not None:
+            self.trace = DomainChunkTrace(
+                time=tr.time, energy=tr.values["energy"],
+                kinetic=tr.values["kinetic"],
+                magnetization=tr.values["magnetization"])
+        return self.state

@@ -1,0 +1,594 @@
+"""Spatial domain decomposition of the coupled spin-lattice system (port of
+``repro.parallel.domain``, the sharded fused loop's half).
+
+State layout: cell-major tensors ``(cx, cy, cz, K, ...)`` - a global grid of
+link cells (each at least cutoff+skin wide) with a fixed per-cell atom
+capacity K; ``types == -1`` marks an empty slot.  The grid's spatial dims
+are sharded over the mesh: each rank (one process, one device) owns a
+rectangular slab of cells, as one MPI rank's sub-domain in the paper's
+LAMMPS implementation.
+
+Row spaces.  A rank's ``n_slots = cx*cy*cz*K`` owned slots, flattened
+cell-major, and the halo-extended block ``(cx+2, cy+2, cz+2, K)``
+("ext-flat").  The neighbor table ``idx`` indexes ext-flat slots.  K2 reads
+neighbor adjoint rows through its index, with row ``i`` its own atom's, so
+the kernel path renumbers the table once per rebuild into a *local-first*
+row space: rows ``0..n_slots-1`` are the owned slots, the halo ring follows
+(:func:`local_first_index`).
+
+Reverse sums over the ext-flat rows (the pair reactions and neighbor-spin
+gradients scattered onto ghosts) go through the table's transpose
+(:func:`repro_torch.md.neighbor.reverse_index` / ``reverse_sum``), never
+``index_add_``, whose float atomics on the card would break bitwise resume.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.md.neighbor import reverse_index, reverse_sum
+from repro_torch.parallel.halo import (exchange_halo, exchange_halo_multi,
+                                       fold_halo_multi, local_wrap)
+from repro_torch.parallel.overlap import shell_slabs
+from repro_torch.utils import units
+
+
+@dataclasses.dataclass(frozen=True)
+class DomainSpec:
+    """Static description of the decomposition."""
+
+    cells: tuple[int, int, int]          # global link-cell grid (CX, CY, CZ)
+    capacity: int                        # atoms per cell (K)
+    cutoff: float
+    box: tuple[float, float, float]      # global box [A]
+    # mesh dimension sharding each spatial dim (None = local)
+    axis_map: tuple = ("sx", None, None)
+    skin: float = 0.0                    # neighbor-list skin [A]
+
+    @property
+    def rc(self) -> float:
+        """Neighbor-table reach: cutoff + skin."""
+        return self.cutoff + self.skin
+
+    def check(self):
+        for b, c in zip(self.box, self.cells):
+            if b / c < self.rc:
+                raise ValueError(f"cell size {b / c:.3f} < cutoff+skin "
+                                 f"{self.rc}; the stencil would miss "
+                                 "neighbors")
+
+    def check_loop(self, mesh_shape: dict):
+        """The sharded loop's invariants: every global dim >= 3 (the 27
+        stencil cells are distinct) and sharded dims divisible by their
+        mesh dimension (``mesh_shape``: {name: size})."""
+        self.check()
+        if min(self.cells) < 3:
+            raise ValueError(f"global cell grid {self.cells} too small for "
+                             "the 27-stencil")
+        for d, name in enumerate(self.axis_map):
+            if name is not None and self.cells[d] % mesh_shape[name]:
+                raise ValueError(f"cells[{d}]={self.cells[d]} not divisible "
+                                 f"by mesh dimension {name}="
+                                 f"{mesh_shape[name]}")
+
+    def local_shape(self, mesh_shape: dict) -> tuple[int, int, int]:
+        """Per-rank cell-grid dims."""
+        return tuple(c // (mesh_shape[name] if name is not None else 1)
+                     for c, name in zip(self.cells, self.axis_map))
+
+
+class DomainState(NamedTuple):
+    """Cell-binned state (positions are GLOBAL coordinates)."""
+
+    pos: torch.Tensor    # (CX, CY, CZ, K, 3)
+    vel: torch.Tensor    # (CX, CY, CZ, K, 3)
+    spin: torch.Tensor   # (CX, CY, CZ, K, 3)
+    types: torch.Tensor  # (CX, CY, CZ, K) int32, -1 = empty slot
+    mask: torch.Tensor   # (CX, CY, CZ, K) bool
+
+
+def _host(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def pack_domain(spec: DomainSpec, pos, vel, spin, types,
+                extras: dict | None = None):
+    """Host-side binning of flat atom arrays into the global cell grid
+    (CPU tensors; arrival order within a cell).
+
+    ``extras`` maps name -> (N, ...) array binned alongside (filled with
+    -1), e.g. the original atom ids; then returns ``(DomainState,
+    {name: packed})``."""
+    pos = _host(pos)
+    box = np.asarray(spec.box)
+    cells = np.asarray(spec.cells)
+    ci = np.clip((pos / box * cells).astype(np.int64), 0, cells - 1)
+    flat = (ci[:, 0] * spec.cells[1] + ci[:, 1]) * spec.cells[2] + ci[:, 2]
+    order = np.argsort(flat, kind="stable")
+    k = spec.capacity
+    n_cells = int(np.prod(cells))
+    counts = np.bincount(flat, minlength=n_cells)
+    if counts.max() > k:
+        raise ValueError(f"cell overflow: max {counts.max()} > capacity {k}")
+    slot = np.zeros(pos.shape[0], np.int64)
+    slot[order] = np.arange(pos.shape[0]) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+
+    def scatter(a, fill):
+        a = _host(a)
+        out = np.full((n_cells * k, *a.shape[1:]), fill, a.dtype)
+        out[flat * k + slot] = a
+        return torch.from_numpy(out.reshape(*spec.cells, k, *a.shape[1:]))
+
+    state = DomainState(pos=scatter(pos, 0.0), vel=scatter(vel, 0.0),
+                        spin=scatter(spin, 0.0), types=scatter(types, -1),
+                        mask=scatter(np.ones(pos.shape[0], bool), False))
+    if extras is None:
+        return state
+    return state, {name: scatter(a, -1) for name, a in extras.items()}
+
+
+def unpack_domain(state: DomainState):
+    """Flatten back to host (N, ...) arrays, dropping empty slots (cell
+    order)."""
+    sel = np.nonzero(_host(state.mask).reshape(-1))[0]
+
+    def flat(a, tail):
+        return _host(a).reshape(-1, *tail)[sel]
+    return (flat(state.pos, (3,)), flat(state.vel, (3,)),
+            flat(state.spin, (3,)), flat(state.types, ()))
+
+
+def unbin_cells(aid, *arrays):
+    """Host-side inverse of the binning, in ORIGINAL atom order: ``aid`` is
+    the (CX, CY, CZ, K) original-atom-id block (-1 = empty), each of
+    ``arrays`` a cell-blocked (CX, CY, CZ, K, ...) field; returns their
+    (N, ...) forms ordered by atom id."""
+    aidf = _host(aid).reshape(-1)
+    sel = np.nonzero(aidf >= 0)[0]
+    order = np.empty(sel.size, np.int64)
+    order[aidf[sel]] = sel
+    outs = []
+    for a in arrays:
+        a = _host(a)
+        outs.append(a.reshape(-1, *a.shape[4:])[order])
+    return tuple(outs)
+
+
+# 27-point stencil shifts
+_SHIFTS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+           for dz in (-1, 0, 1)]
+
+
+# ---------------------------------------------------------------------------
+# the sharded fused loop's pieces
+# ---------------------------------------------------------------------------
+
+def _ext_flat_index(local_shape: tuple[int, int, int], k: int, device):
+    """Candidate bookkeeping for the 27-stencil over the halo-extended grid.
+
+    Returns (cand, own, shift_id):
+      cand  (cx, cy, cz, 27*K) int64 - ext-flat slot index of every stencil
+            candidate of each cell;
+      own   (cx, cy, cz, K) int64    - each slot's own ext-flat index;
+      shift_id (27*K,) int64         - which of the 27 shifts a candidate
+            column came from (pairing with ``_SHIFTS``).
+    """
+    cx, cy, cz = local_shape
+    ex_cy, ex_cz = cy + 2, cz + 2
+
+    def cell_flat(ix, iy, iz):
+        return (ix * ex_cy + iy) * ex_cz + iz
+
+    ar = lambda n: torch.arange(n, device=device)
+    gx, gy, gz = torch.meshgrid(ar(cx), ar(cy), ar(cz), indexing="ij")
+    offs = torch.tensor(_SHIFTS, dtype=torch.int64, device=device)
+    nb_cell = cell_flat(gx[..., None] + 1 + offs[:, 0],
+                        gy[..., None] + 1 + offs[:, 1],
+                        gz[..., None] + 1 + offs[:, 2])        # (...,27)
+    cand = (nb_cell[..., :, None] * k + ar(k)).reshape(cx, cy, cz, 27 * k)
+    own = cell_flat(gx + 1, gy + 1, gz + 1)[..., None] * k + ar(k)
+    shift_id = torch.repeat_interleave(ar(27), k)
+    return cand, own, shift_id
+
+
+def local_first_index(local_shape: tuple[int, int, int], k: int, device):
+    """The local-first renumbering of the ext-flat rows: ``(ext_to_lf
+    (n_ext,), ring (n_ring,))`` - the owned slots, cell-major, become rows
+    ``0..n_slots-1`` and the halo ring's ext-flat slots, in increasing
+    order, the rows after them."""
+    cx, cy, cz = local_shape
+    n_ext = (cx + 2) * (cy + 2) * (cz + 2) * k
+    _, own, _ = _ext_flat_index(local_shape, k, device)
+    own = own.reshape(-1)
+    is_own = torch.zeros(n_ext, dtype=torch.bool, device=device)
+    is_own[own] = True
+    ring = torch.nonzero(~is_own).reshape(-1)
+    ext_to_lf = torch.empty(n_ext, dtype=torch.int64, device=device)
+    ext_to_lf[own] = torch.arange(own.numel(), device=device)
+    ext_to_lf[ring] = own.numel() + torch.arange(ring.numel(), device=device)
+    return ext_to_lf, ring
+
+
+def _min_image(dr, box):
+    return dr - box * torch.round(dr / box)
+
+
+# candidate pair entries (slots x 27K) per chunk of cells in
+# build_local_table: bounds its (chunk, K, 27K, 3) temporaries
+TABLE_CHUNK_PAIRS = 1 << 26
+
+
+def build_local_table(dspec: DomainSpec, axes, local_shape, capacity: int,
+                      pos, types, allgather: bool = False):
+    """Per-rank pruned neighbor table.
+
+    Enumerates each owned atom's 27-stencil candidates in the halo-extended
+    block, keeps the ``capacity`` nearest within cutoff+skin (top-k, as
+    the flat tables) and returns the cell-major table ``(idx (cx,cy,cz,K,M)
+    int32 into the ext-flat slots - self-padded where invalid, mask, tj
+    neighbor types)``.  One fused (pos, types) halo round.  Cells are
+    processed in chunks of about ``TABLE_CHUNK_PAIRS`` candidate pairs, so
+    the (cells, K, 27K, 3) candidate block never exists whole."""
+    cx, cy, cz = local_shape
+    k = types.shape[3]
+    box = torch.as_tensor(dspec.box, dtype=pos.dtype, device=pos.device)
+    rc = dspec.rc
+    ext = exchange_halo_multi({"pos": pos, "types": types}, axes,
+                              tag="rebuild", allgather=allgather)
+    exf_pos = ext["pos"].reshape(-1, 3)
+    exf_typ = ext["types"].reshape(-1)
+    cand, own, _ = _ext_flat_index(local_shape, k, pos.device)
+    n_cells = cx * cy * cz
+    cand, own = cand.reshape(n_cells, 27 * k), own.reshape(n_cells, k)
+    posc, occ = pos.reshape(n_cells, k, 3), (types >= 0).reshape(n_cells, k)
+    m_cap = min(capacity, 27 * k)
+    step = max(1, TABLE_CHUNK_PAIRS // (k * 27 * k))
+    idxs, masks = [], []
+    for lo in range(0, n_cells, step):
+        c = slice(lo, min(lo + step, n_cells))
+        cc = cand[c]
+        dr = _min_image(exf_pos[cc][:, None, :, :] - posc[c][:, :, None, :],
+                        box)                              # (C, K, 27K, 3)
+        d2 = torch.sum(dr * dr, dim=-1)
+        good = ((exf_typ[cc] >= 0)[:, None, :]
+                & (cc[:, None, :] != own[c][:, :, None])
+                & (d2 <= rc * rc) & occ[c][:, :, None])
+        neg = torch.where(good, -d2, torch.full_like(d2, -float("inf")))
+        del dr, d2, good
+        vals, sel = torch.topk(neg, m_cap, dim=-1)        # (C, K, M)
+        mask = vals > -float("inf")
+        idx = torch.gather(cc[:, None, :].expand(-1, k, -1), 2, sel)
+        idxs.append(torch.where(mask, idx, own[c][..., None]))
+        masks.append(mask)
+    idx = torch.cat(idxs).reshape(cx, cy, cz, k, m_cap)
+    mask = torch.cat(masks).reshape(cx, cy, cz, k, m_cap)
+    tj = torch.where(mask, exf_typ[idx], torch.zeros_like(idx))
+    return idx.to(torch.int32), mask, tj.to(torch.int32)
+
+
+def migrate_cells(dspec: DomainSpec, axes, local_shape, offsets, pos, vel,
+                  spin, types, aid, allgather: bool = False):
+    """Re-bin every atom into its current cell, moving emigrants to the
+    neighbouring rank that owns their new cell.
+
+    Between rebuilds atoms move less than the skin, so the new cell lies
+    in the 27-stencil of the old one: ONE fused multi-field halo round
+    makes every migrating atom visible to its new owner, and each target
+    cell packs its claimants in stencil order (a cumulative sum over the
+    shift-major candidates; overflowing claimants go to a discarded dump
+    column).  ``offsets`` are this rank's first global cell per dim.
+
+    Returns (pos, vel, spin, types, aid, n_moved, n_dropped), the counts
+    this rank's (0-d tensors, not yet reduced): n_moved owned atoms that
+    changed cell; n_dropped atoms lost to a full cell plus atoms that
+    moved further than one cell (a skin violation).  The engine reduces
+    them and fails loudly at the chunk boundary."""
+    cx, cy, cz = local_shape
+    k = types.shape[3]
+    n_cells = cx * cy * cz
+    dtype, dev = pos.dtype, pos.device
+    box = torch.as_tensor(dspec.box, dtype=dtype, device=dev)
+    cells = torch.as_tensor(dspec.cells, dtype=torch.int64, device=dev)
+    occ = types >= 0
+
+    newc = torch.floor(pos / box * cells.to(dtype)).to(torch.int64)
+    newc = torch.minimum(torch.clamp(newc, min=0), cells - 1)   # fp edge
+    ar = lambda n, o: torch.arange(n, device=dev) + o
+    gx, gy, gz = torch.meshgrid(ar(cx, offsets[0]), ar(cy, offsets[1]),
+                                ar(cz, offsets[2]), indexing="ij")
+    ownc = torch.stack([g[..., None].expand(types.shape)
+                        for g in (gx, gy, gz)], dim=-1)
+
+    # minimum-image cell displacement on the periodic global grid
+    delta = torch.remainder(newc - ownc, cells)
+    delta = torch.where(delta > cells // 2, delta - cells, delta)
+    in_reach = torch.all(torch.abs(delta) <= 1, dim=-1) & occ
+    moved = in_reach & torch.any(delta != 0, dim=-1)
+    n_moved = torch.sum(moved.to(torch.int64))
+    n_out_of_reach = torch.sum((occ & ~in_reach).to(torch.int64))
+    # -1: not claimable (empty slot, or a skin-violating jump)
+    enc = torch.where(in_reach, ((delta[..., 0] + 1) * 3 + (delta[..., 1] + 1))
+                      * 3 + (delta[..., 2] + 1), torch.full_like(delta[..., 0],
+                                                                 -1))
+    ext = exchange_halo_multi(
+        {"pos": pos, "vel": vel, "spin": spin, "types": types, "aid": aid,
+         "enc": enc}, axes, tag="migrate", allgather=allgather)
+
+    cand, _, shift_id = _ext_flat_index(local_shape, k, dev)
+    cand = cand.reshape(n_cells, 27 * k)
+    cand_enc = ext["enc"].reshape(-1)[cand]
+    # a candidate seen through stencil shift s belongs here iff its cell
+    # displacement is exactly -s
+    offs27 = torch.tensor(_SHIFTS, dtype=torch.int64, device=dev)
+    want = (((-offs27[:, 0] + 1) * 3 + (-offs27[:, 1] + 1)) * 3
+            + (-offs27[:, 2] + 1))
+    belongs = cand_enc == want[shift_id][None, :]
+    rank = torch.cumsum(belongs.to(torch.int64), dim=-1) - 1
+    slot = torch.where(belongs & (rank < k), rank, torch.full_like(rank, k))
+    n_overflow = torch.sum((belongs & (rank >= k)).to(torch.int64))
+
+    payload = torch.cat(
+        [ext["pos"].reshape(-1, 3), ext["vel"].reshape(-1, 3),
+         ext["spin"].reshape(-1, 3),
+         ext["types"].reshape(-1, 1).to(dtype),
+         ext["aid"].reshape(-1, 1).to(dtype)], dim=-1)[cand]
+    nf = payload.shape[-1]
+    rows = torch.arange(n_cells, device=dev)[:, None].expand(-1, 27 * k)
+    # every claimant past a cell's capacity, and every candidate that does
+    # not belong, lands in column k, which is discarded: duplicate writes
+    # happen only there
+    out = torch.zeros((n_cells, k + 1, nf), dtype=dtype, device=dev)
+    out[rows.reshape(-1), slot.reshape(-1)] = payload.reshape(-1, nf)
+    got = torch.zeros((n_cells, k + 1), dtype=torch.bool, device=dev)
+    got[rows.reshape(-1), slot.reshape(-1)] = belongs.reshape(-1)
+    out, got = out[:, :k], got[:, :k]
+
+    def field(lo):
+        a = out[..., lo:lo + 3].reshape(cx, cy, cz, k, 3)
+        return torch.where(got.reshape(cx, cy, cz, k, 1), a,
+                           torch.zeros_like(a))
+
+    def ids(col):
+        return torch.where(got, torch.round(out[..., col]).to(torch.int32),
+                           torch.full_like(got, -1, dtype=torch.int32)
+                           ).reshape(cx, cy, cz, k)
+
+    return (field(0), field(3), field(6), ids(9), ids(10), n_moved,
+            n_overflow + n_out_of_reach)
+
+
+class DomainNbh(NamedTuple):
+    """Per-rank pruned-table blocks of the sharded loop.
+
+    ``idx``/``mask``/``tj`` (and ``rev``, ``lf``) are table-static, valid
+    until the next rebuild; ``dr`` (and, on the fused-gather path, the
+    neighbor-spin block ``sj``) is refreshed by ONE fused halo exchange
+    per drift.  The cell-major twin of
+    :class:`repro_torch.md.neighbor.Neighborhood`."""
+
+    idx: torch.Tensor   # (cx, cy, cz, K, M) int32 into ext-flat slots
+    mask: torch.Tensor  # (cx, cy, cz, K, M) bool
+    tj: torch.Tensor    # (cx, cy, cz, K, M) int32 neighbor types
+    dr: torch.Tensor    # (cx, cy, cz, K, M, 3) min-imaged pair vectors
+    sj: torch.Tensor | None = None   # (..., M, 3) neighbor spins, or None
+                                     # when spins are exchanged per
+                                     # evaluation
+    rev: torch.Tensor | None = None  # reverse_index over the ext-flat rows
+    lf: torch.Tensor | None = None   # (n_slots, M) int32 local-first idx
+
+
+def _gather_blocks(pending, idx, slabs, local_of, gather):
+    """Run ``gather(src, sl) -> {name: block}`` over the slabs: from the
+    exchange's result when no other rank takes part, else the interior
+    slab from the local wrap (``local_of()``) before waiting for the
+    exchange, the shell after it.  Returns {name: full block}."""
+    if not pending.communicates:
+        return gather(pending.wait(), (slice(None),) * 3)
+    parts = [(sl, gather(local_of(), sl)) for sl, inner in slabs if inner]
+    ext = pending.wait()
+    parts += [(sl, gather(ext, sl)) for sl, inner in slabs if not inner]
+    out = {name: torch.empty(idx.shape + blk.shape[idx.dim():],
+                             dtype=blk.dtype, device=blk.device)
+           for name, blk in parts[0][1].items()}
+    for sl, blocks in parts:
+        for name, blk in blocks.items():
+            out[name][sl] = blk
+    return out
+
+
+def make_domain_refresh(dspec: DomainSpec, axes, local_shape,
+                        spin_in_gather: bool = True,
+                        allgather: bool = False):
+    """THE one halo exchange per drift: ``refresh(pos, nbh[, spin], tag)
+    -> nbh`` packs boundary positions (and, with ``spin_in_gather``, spins)
+    into one fused round, then gathers the min-imaged pair vectors (and
+    neighbor spins) through the table.  The interior slab gathers from the
+    local wrap while the exchange is in flight
+    (:mod:`repro_torch.parallel.overlap`)."""
+    slabs = shell_slabs(local_shape)
+    boxt = tuple(dspec.box)
+
+    def refresh(pos, nbh: DomainNbh, spin=None, tag: str = "drift-pos"
+                ) -> DomainNbh:
+        fields = {"pos": pos}
+        if spin_in_gather and spin is not None:
+            fields["spin"] = spin
+        box = torch.as_tensor(boxt, dtype=pos.dtype, device=pos.device)
+        pending = exchange_halo_multi(fields, axes, tag=tag,
+                                      allgather=allgather, async_op=True)
+
+        def gather(src, sl):
+            idx = nbh.idx[sl].long()
+            out = {"dr": _min_image(src["pos"].reshape(-1, 3)[idx]
+                                    - pos[sl][..., None, :], box)}
+            if "spin" in src:
+                out["sj"] = src["spin"].reshape(-1, 3)[idx]
+            return out
+
+        got = _gather_blocks(
+            pending, nbh.idx, slabs,
+            lambda: {k: local_wrap(v) for k, v in fields.items()}, gather)
+        return nbh._replace(dr=got["dr"], sj=got.get("sj", nbh.sj))
+
+    return refresh
+
+
+def _zeeman_moments(potential, ti, occ, like):
+    mom = potential.site_moments(ti).to(device=like.device)
+    return torch.where(occ, mom, torch.zeros_like(mom)).to(like.dtype)
+
+
+def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
+                          spin_in_gather: bool = True,
+                          allgather: bool = False):
+    """Per-rank ``(refresh, compute)`` of the sharded loop for a potential
+    with the ``pair_energies`` / ``site_moments`` surface.
+
+    ``compute(nbh, spin, types, field) -> (E_local, F, H_eff)`` evaluates
+    from the gathered blocks by autograd; the reaction forces and the
+    neighbor-spin gradients scattered onto ext slots (a deterministic
+    reverse sum) fold back to their owners in ONE adjoint round
+    (:func:`repro_torch.parallel.halo.fold_halo_multi`, tag ``"adjoint"``).  The
+    energy stays rank-local: the engine folds its reduction into the
+    per-step scalar one.
+
+    ``spin_in_gather=True`` reads the neighbor spins the drift refresh
+    gathered (exact when a step evaluates once at fixed spins);
+    self-consistent midpoint iterations evaluate at updated spins, so
+    there ``compute`` re-exchanges spin ghosts (tag ``"spin"``) each
+    evaluation, the interior slab from the local wrap while the exchange
+    is in flight."""
+    cx, cy, cz = local_shape
+    slabs = shell_slabs(local_shape)
+    refresh = make_domain_refresh(dspec, axes, local_shape,
+                                  spin_in_gather=spin_in_gather,
+                                  allgather=allgather)
+
+    def evaluate(nbh: DomainNbh, spin, sj, types, field):
+        k, m_cap = types.shape[3], nbh.idx.shape[-1]
+        occ = types >= 0
+        ti = torch.where(occ, types, torch.zeros_like(types))
+        dr = nbh.dr.detach().requires_grad_(True)
+        s = spin.detach().requires_grad_(True)
+        sjv = sj.detach().requires_grad_(True)
+        with torch.enable_grad():
+            drf = dr.reshape(-1, m_cap, 3)
+            dist = torch.sqrt(torch.sum(drf * drf, dim=-1) + 1e-30)
+            er = potential.pair_energies(
+                drf, dist, nbh.mask.reshape(-1, m_cap), ti.reshape(-1),
+                nbh.tj.reshape(-1, m_cap), s.reshape(-1, 3),
+                sjv.reshape(-1, m_cap, 3))
+            e = torch.sum(torch.where(occ.reshape(-1), er,
+                                      torch.zeros_like(er)))
+            if field is not None:
+                mom = _zeeman_moments(potential, ti, occ, s)
+                b = torch.as_tensor(field, dtype=s.dtype, device=s.device)
+                e = e - units.MU_B * torch.sum(mom[..., None] * s * b)
+            grads = torch.autograd.grad(e, (dr, s, sjv), allow_unused=True)
+        g_dr, g_s, g_sj = (torch.zeros_like(x) if g is None else g
+                           for g, x in zip(grads, (dr, s, sjv)))
+        m = nbh.mask[..., None]
+        g_f = torch.where(m, g_dr, torch.zeros_like(g_dr))
+        g_n = torch.where(m, g_sj, torch.zeros_like(g_sj))
+        direct = torch.sum(g_f, dim=-2)
+        payload = torch.cat([g_f, g_n], dim=-1).reshape(-1, 6)
+        scat = reverse_sum(payload, nbh.rev).reshape(cx + 2, cy + 2, cz + 2,
+                                                     k, 6)
+        folded = fold_halo_multi({"react": scat[..., :3],
+                                  "gspin": scat[..., 3:]}, axes,
+                                 tag="adjoint", allgather=allgather)
+        return (e.detach(), direct - folded["react"],
+                -(g_s + folded["gspin"]))
+
+    def compute_fused(nbh: DomainNbh, spin, types, field=None):
+        """From the pre-gathered (dr, sj) blocks: no forward message, one
+        adjoint fold."""
+        return evaluate(nbh, spin, nbh.sj, types, field)
+
+    def compute_exchanging(nbh: DomainNbh, spin, types, field=None):
+        """Re-exchanges spin ghosts (midpoint iterations evaluate at
+        updated spins): one spin halo and one adjoint fold."""
+        pending = exchange_halo(spin, axes, tag="spin", allgather=allgather,
+                                async_op=True)
+
+        def gather(src, sl):
+            return {"sj": src.reshape(-1, 3)[nbh.idx[sl].long()]}
+
+        sj = _gather_blocks(pending, nbh.idx, slabs,
+                            lambda: local_wrap(spin), gather)["sj"]
+        return evaluate(nbh, spin, sj, types, field)
+
+    return refresh, (compute_fused if spin_in_gather else compute_exchanging)
+
+
+def make_domain_kernel_evaluator(potential, dspec: DomainSpec, axes,
+                                 local_shape, allgather: bool = False):
+    """``(refresh, compute)`` of the sharded loop through the hand-written
+    NEP kernels K1 and K2 - the paper's distributed algorithm:
+
+    * K1 (``nep_atom_pass``) runs on the rank's cell-major slots.  It has
+      no atom mask: an empty slot's type is clamped to 0 for the launch
+      and its energy, direct field and adjoints are zeroed after it, the
+      reference's exact zeros;
+    * the adjoint accumulators Abar travel to the neighbouring ranks in
+      ONE halo round (tag ``"qfp"``, the paper's q_Fp communication),
+      replacing the autograd path's reaction fold: K2's pair-symmetric
+      force needs only a *gather* of neighbour adjoints;
+    * K2 (``nep_force_pass``) reads them through the table renumbered into
+      the local-first row space, ``abar_rows = cat(abar_local,
+      abar_ring)``, and gives complete forces and fields of the owned
+      atoms in one neighbour traversal.
+
+    ``compute`` reads the ``dr`` AND ``sj`` blocks of the drift refresh
+    (``nbh.lf``, the local-first table, comes from the rebuild), so
+    self-consistent midpoint configs are not supported."""
+    from repro_torch.kernels.nep.kernel import nep_atom_pass, nep_force_pass
+
+    spec, params = potential.spec, potential.params
+    refresh = make_domain_refresh(dspec, axes, local_shape,
+                                  spin_in_gather=True, allgather=allgather)
+    cx, cy, cz = local_shape
+    _, ring = local_first_index(local_shape, dspec.capacity,
+                                params.w1.device)
+
+    def compute(nbh: DomainNbh, spin, types, field=None):
+        k, m_cap = types.shape[3], nbh.idx.shape[-1]
+        n_slots = cx * cy * cz * k
+        occ = types.reshape(-1) >= 0
+        ti = torch.where(occ, types.reshape(-1), torch.zeros_like(occ,
+                         dtype=types.dtype)).contiguous()
+        dr = nbh.dr.reshape(n_slots, m_cap, 3)
+        mask = nbh.mask.reshape(n_slots, m_cap)
+        tj = nbh.tj.reshape(n_slots, m_cap)
+        si = spin.reshape(n_slots, 3)
+        sj = nbh.sj.reshape(n_slots, m_cap, 3)
+        e, hdir, abar = nep_atom_pass(spec, params, dr, mask, ti, tj, si, sj)
+        o1, o2 = occ[:, None], occ
+        e = torch.where(o2, e, torch.zeros_like(e))
+        hdir = torch.where(o1, hdir, torch.zeros_like(hdir))
+        abar = torch.where(o1, abar, torch.zeros_like(abar))
+        # the q_Fp exchange: every adjoint channel in one halo round
+        ext = exchange_halo(abar.reshape(cx, cy, cz, k, -1), axes, tag="qfp",
+                            allgather=allgather)
+        rows = torch.cat([abar, ext.reshape(-1, abar.shape[-1])[ring]])
+        f, h2 = nep_force_pass(spec, params, dr, mask, nbh.lf, ti, tj, si,
+                               sj, rows)
+        force = torch.where(o1, f, torch.zeros_like(f)).reshape(
+            types.shape + (3,))
+        heff = torch.where(o1, hdir + h2, torch.zeros_like(h2)).reshape(
+            types.shape + (3,))
+        e_loc = torch.sum(e)
+        if field is not None:
+            mom = _zeeman_moments(potential, types.clamp(min=0), types >= 0,
+                                  spin)
+            b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
+            e_loc = e_loc - units.MU_B * torch.sum(mom[..., None] * spin * b)
+            heff = heff + units.MU_B * mom[..., None] * b
+        return e_loc, force, heff
+
+    return refresh, compute

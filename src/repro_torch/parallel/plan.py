@@ -8,14 +8,31 @@
                           forces / generators, K1 and K2 launched once for
                           all replicas.  On one card only: sharding the
                           replica axis over several cards is ROADMAP queue
-                          1 item 13.
+                          1 item 13b.
+  :class:`Sharded`        spatial domain decomposition over the cell-major
+                          ``(CX, CY, CZ, K)`` layout on ``torch.distributed``:
+                          one process per mesh position holds its slab of
+                          cells on its own device; halo exchange, cell
+                          migration at rebuilds, all-reduced scalars
+                          (:mod:`repro_torch.parallel.domain`).
 
-The reference's ``Sharded`` plan (item 13) raises ``NotImplementedError``
-here.
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+dimensions (the counterpart of the reference's JAX ``Mesh``): ``mesh=None``
+means a 1-D ``"sx"`` mesh over the initialised world, or, with no process
+group, a one-rank plan that issues no collectives.  :meth:`Sharded.resolve`
+performs the reference's slot-minimizing global cell-grid search with the
+skin-robust occupancy bound (every atom within ``skin`` of a cell counts
+toward it, so boundary churn between rebuilds cannot overflow the chosen
+capacity).  Replicas composed with the spatial mesh, and an explicit device
+subset, are ROADMAP queue 1 item 13b.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,16 +49,212 @@ class Replicated:
     """Replica plan: an (R, N, ...) batch through one loop on one card."""
 
     replicas: int
-    devices: tuple | None = None     # more than one raises (item 13)
+    devices: tuple | None = None     # more than one raises (item 13b)
 
     def __post_init__(self):
         if self.replicas < 1:
             raise ValueError("Replicated plan needs replicas >= 1")
 
 
+def _mesh_shape(mesh) -> dict:
+    """{dimension name: size} of a DeviceMesh (empty for no mesh)."""
+    if mesh is None:
+        return {}
+    return {name: int(size) for name, size in
+            zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """Domain-decomposition plan over a ``DeviceMesh``.
+
+    ``mesh`` / ``axis_map`` / ``cells`` / ``cell_capacity`` left at their
+    defaults are resolved against the state geometry by :meth:`resolve`,
+    which returns a fully wired :class:`ResolvedSharded`.
+    """
+
+    mesh: Any = None                   # DeviceMesh (None -> 1-D "sx")
+    axis_map: tuple | None = None      # spatial dim -> mesh dimension name
+    halo_mode: str = "auto"            # "ppermute" | "allgather" | "auto"
+    cells: tuple | None = None         # global cell grid (None -> auto)
+    cell_capacity: int | None = None   # per-cell capacity K (None -> auto)
+    replicas: int = 0                  # > 0 raises (item 13b)
+    replica_axis: str = "replica"
+    devices: tuple | None = None       # a device subset raises (item 13b)
+
+    def __post_init__(self):
+        if self.replicas:
+            raise NotImplementedError(
+                "replicas composed with the spatial mesh (Sharded(replicas="
+                f"{self.replicas})) are ROADMAP queue 1 item 13b; the port's "
+                "Sharded plan runs one trajectory")
+        if self.devices is not None:
+            raise NotImplementedError(
+                "Sharded(devices=...) (an auto mesh over a device subset, "
+                "for elastic restarts) is ROADMAP queue 1 item 13b; pass a "
+                "DeviceMesh instead")
+        if self.halo_mode not in ("auto", "ppermute", "allgather"):
+            raise ValueError(f"unknown halo_mode {self.halo_mode!r}")
+
+    # ------------------------------------------------------------------
+    def resolve(self, box, pos, cutoff: float, skin: float,
+                dtype_is_f32: bool) -> "ResolvedSharded":
+        """Fix mesh, axis map, cell grid and capacity for a geometry (every
+        rank calls it with the same global ``pos``)."""
+        import torch.distributed as dist
+
+        from repro_torch.md.neighbor import grid_shape
+        from repro_torch.parallel.domain import DomainSpec
+        from repro_torch.parallel.halo import halo_axes
+
+        mesh, axis_map = self.mesh, self.axis_map
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            from torch.distributed.device_mesh import init_device_mesh
+            kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+            mesh = init_device_mesh(kind, (dist.get_world_size(),),
+                                    mesh_dim_names=("sx",))
+        shape = _mesh_shape(mesh) or {"sx": 1}
+        if axis_map is None:
+            names = tuple(n for n in shape if n != self.replica_axis)
+            axis_map = tuple(list(names[:3]) + [None] * (3 - len(names)))
+        axis_map = tuple(axis_map)
+
+        box = np.asarray(box.cpu() if isinstance(box, torch.Tensor)
+                         else box, np.float64)
+        pos_np = np.asarray(pos.detach().cpu() if isinstance(pos, torch.Tensor)
+                            else pos)
+        n = pos_np.shape[0]
+
+        corner_bins = {}
+
+        def bins(d, c):
+            """Per atom the cell index along dim ``d`` of the grid's ``c``
+            cells at -skin and +skin, and whether the two differ."""
+            if (d, c) not in corner_bins:
+                lo, hi = (np.floor((pos_np[:, d].astype(np.float64) + s)
+                                   / box[d] * c)
+                          .astype(np.int64) % c for s in (-skin, skin))
+                corner_bins[d, c] = (lo, hi, lo != hi)
+            return corner_bins[d, c]
+
+        def occ_bound_of(cells):
+            """Skin-robust per-cell occupancy bound: every atom within
+            ``skin`` of a cell counts toward it (once per distinct cell its
+            8 corners at +-skin fall in).  Atoms move less than skin/2
+            between rebuilds, so a capacity at this bound cannot overflow
+            from boundary churn - and grids whose edges align with crystal
+            planes price that risk in."""
+            per = [bins(d, int(c)) for d, c in enumerate(cells)]
+            counts = np.zeros(int(np.prod(cells)), np.int64)
+            for a in (0, 1):
+                for b in (0, 1):
+                    for c in (0, 1):
+                        keep = np.ones(n, bool)
+                        for (lo, hi, two), pick in zip(per, (a, b, c)):
+                            if pick:
+                                keep &= two
+                        ix, iy, iz = (p[1] if pick else p[0] for p, pick in
+                                      zip(per, (a, b, c)))
+                        flat = (ix * cells[1] + iy) * cells[2] + iz
+                        counts += np.bincount(flat[keep],
+                                              minlength=counts.size)
+            return int(counts.max())
+
+        if self.cells is not None:
+            cells = tuple(self.cells)
+        else:
+            # global cell grid: cells >= cutoff+skin wide, sharded dims
+            # divisible by their mesh dimension, every dim >= 3; among the
+            # legal grids the one with the fewest padded slots
+            # (n_cells * capacity)
+            base = grid_shape(box, cutoff, skin)
+            rc = cutoff + skin
+            axes_n = [shape[name] if name is not None else 1
+                      for name in axis_map]
+            cand_per_dim = []
+            for d, nd in enumerate(axes_n):
+                # >= 3 global cells and >= 2 per rank; cells no wider than
+                # ~2.5x the reach
+                lo = max(3, 2 * nd, int(np.ceil(box[d] / (2.5 * rc))))
+                vals = [c for c in range(base[d], lo - 1, -1)
+                        if c % nd == 0][:5]
+                if not vals and nd > 1:    # fall back to 1 cell per rank
+                    vals = [c for c in range(base[d], nd - 1, -1)
+                            if c % nd == 0][:5]
+                if not vals:
+                    raise ValueError(
+                        f"box dim {d} ({box[d]:.1f} A) too small for "
+                        f"{nd}-way sharding at cutoff+skin {rc:.2f} A")
+                cand_per_dim.append(vals)
+            best, best_slots = None, None
+            for cx in cand_per_dim[0]:
+                for cy in cand_per_dim[1]:
+                    for cz in cand_per_dim[2]:
+                        occ = occ_bound_of((cx, cy, cz))
+                        slots = cx * cy * cz * (occ + 2)
+                        if best_slots is None or slots < best_slots:
+                            best, best_slots = (cx, cy, cz), slots
+            cells = best
+        k = (self.cell_capacity if self.cell_capacity is not None
+             else occ_bound_of(cells) + 2)
+        dspec = DomainSpec(cells=tuple(cells), capacity=k, cutoff=cutoff,
+                           box=tuple(float(b) for b in box),
+                           axis_map=axis_map, skin=skin)
+        dspec.check_loop(shape)
+        if dtype_is_f32 and max(n, int(np.prod(cells)) * k) >= 1 << 24:
+            raise ValueError("f32 cannot carry atom ids this large exactly "
+                             "through the fused migration exchange; run in "
+                             "f64 or shrink the system")
+        spatial = tuple(a for a in axis_map if a is not None)
+        if self.halo_mode == "auto":
+            allgather = all(shape[a] <= 8 for a in spatial)
+        else:
+            allgather = self.halo_mode == "allgather"
+        local = dspec.local_shape(shape)
+        axes = halo_axes(mesh, axis_map)
+        offsets = tuple(0 if ax is None else ax.index * c
+                        for ax, c in zip(axes, local))
+        return ResolvedSharded(plan=self, mesh=mesh, axis_map=axis_map,
+                               dspec=dspec, local_shape=local,
+                               allgather=allgather, axes=axes,
+                               offsets=offsets)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedSharded:
+    """A :class:`Sharded` plan pinned to a concrete geometry and mesh, as
+    one rank sees it."""
+
+    plan: Sharded
+    mesh: Any                  # DeviceMesh, or None (one rank)
+    axis_map: tuple
+    dspec: Any                 # repro_torch.parallel.domain.DomainSpec
+    local_shape: tuple
+    allgather: bool
+    axes: tuple                # per spatial dim: HaloAxis or None
+    offsets: tuple             # this rank's first global cell per dim
+
+    @property
+    def world(self) -> int:
+        """Ranks in the mesh (1 for a one-rank plan)."""
+        return 1 if self.mesh is None else int(self.mesh.mesh.numel())
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the default group (0 without one)."""
+        import torch.distributed as dist
+        return dist.get_rank() if self.world > 1 else 0
+
+    def describe(self) -> dict:
+        """JSON-able layout summary (runlog headers, checkpoint
+        manifests)."""
+        return {"mesh": _mesh_shape(self.mesh) or {"sx": 1},
+                "devices": self.world, "cells": list(self.dspec.cells),
+                "cell_capacity": int(self.dspec.capacity)}
+
+
 def as_plan(plan, replicas: int = 0):
-    """Normalize ``plan`` (None | "single" | "replica" | plan object) to a
-    plan object."""
+    """Normalize ``plan`` (None | str | plan object) to a plan object."""
     if plan is None:
         plan = "replica" if replicas else "single"
     if isinstance(plan, str):
@@ -50,9 +263,8 @@ def as_plan(plan, replicas: int = 0):
         if plan in ("replica", "replicated"):
             return Replicated(replicas=max(replicas, 1))
         if plan in ("domain", "sharded", "shard_map"):
-            plan = "the Sharded plan"
-    if isinstance(plan, (SingleDevice, Replicated)):
+            return Sharded(replicas=replicas)
+        raise ValueError(f"unknown plan {plan!r}")
+    if isinstance(plan, (SingleDevice, Replicated, Sharded)):
         return plan
-    raise NotImplementedError(
-        f"plan {plan!r} is not ported yet; SingleDevice and Replicated run "
-        "(the Sharded plan is ROADMAP queue 1 item 13)")
+    raise TypeError(f"not a plan: {plan!r}")

@@ -14,7 +14,7 @@ of ``repro.resilience``).
   renders.
 
 The Sharded plan's faults (``overflow``, ``halo``), the capacity rung and
-elastic restore are ROADMAP queue 1 item 13.
+elastic restore are ROADMAP queue 1 item 13b.
 """
 from repro_torch.resilience.faults import (Fault, FaultInjector, FaultPlan,
                                            install_faults)

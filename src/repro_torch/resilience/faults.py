@@ -23,7 +23,7 @@ Fault kinds and what they model:
 
 ``overflow`` (a migration overflow on one device) and ``halo`` (a corrupted
 halo face) target the ``Sharded`` plan's per-device state, ROADMAP queue 1
-item 13: installing either raises ``NotImplementedError``.
+item 13b: installing either raises ``NotImplementedError``.
 
 Transient faults fire once ever (``once=True``): after the supervisor
 rolls back past the trigger step, the re-run sails through.  ``once=False``
@@ -116,7 +116,7 @@ class FaultInjector:
             if f.kind in ("overflow", "halo"):
                 raise NotImplementedError(
                     f"fault kind {f.kind!r} targets the Sharded plan's "
-                    "per-device state, ROADMAP queue 1 item 13; the port's "
+                    "per-device state, ROADMAP queue 1 item 13b; the port's "
                     f"engine runs {type(engine.plan).__name__}")
 
     def __call__(self, engine, carry, n: int):

@@ -29,7 +29,7 @@ always good, which makes recovery mechanical:
 
    The ``overflow`` rung (rebind the Sharded plan at a larger cell
    capacity) and :meth:`Supervisor.elastic_restore` belong to the
-   Sharded plan, ROADMAP queue 1 item 13, and raise.
+   Sharded plan, ROADMAP queue 1 item 13b, and raise.
 
 Every rollback / retry / degrade / give-up lands in the runlog as a
 structured record (:mod:`repro_torch.launch.report` renders them); retry
@@ -252,7 +252,7 @@ class Supervisor:
         if kind == "overflow":
             raise NotImplementedError(
                 "the capacity rung rebinds the Sharded plan at a larger "
-                "cell capacity: ROADMAP queue 1 item 13")
+                "cell capacity: ROADMAP queue 1 item 13b")
         if kind in _TRANSIENT:
             old_cfg = engine.cfg
             new_dt = old_cfg.dt * cfg.dt_factor
@@ -288,7 +288,7 @@ class Supervisor:
 
     def elastic_restore(self, engine, checkpoint_dir, plan, **kw):
         """Restore a Sharded checkpoint onto another mesh: the Sharded plan
-        and elastic restore are ROADMAP queue 1 item 13."""
+        and elastic restore are ROADMAP queue 1 item 13b."""
         raise NotImplementedError(
             "elastic restore needs the Sharded plan and ckpt/elastic.py, "
-            "ROADMAP queue 1 item 13")
+            "ROADMAP queue 1 item 13b")

@@ -6,8 +6,9 @@ A B20 4x4x4 state with jitter and a Bloch helix of pitch 3/4 box along x
 ``helix_pitch`` along x and y, ``spin_structure_factor`` and
 ``topological_charge``: float32 within 1e-5 of each output's max (the
 pitch exactly, the charge absolutely).  Also: the port's fixed-point ``segment_sum`` gives the
-same bits whatever the order of its inputs, and is closer to the float64
-sums than float32 ``index_add_``.
+same bits whatever the order of its inputs, is closer to the float64
+sums than float32 ``index_add_``, and raises where a bin's sum would leave
+its fixed-point range.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +99,34 @@ def test_segment_sum_is_order_free():
     bad = vals.clone()
     bad[7, 1] = float("nan")
     assert torch.isnan(ta.segment_sum(bad, keys, 40)).all()
+
+
+def test_segment_sum_raises_past_its_range():
+    """A bin whose sum leaves the int64 fixed-point range (2^23 at the
+    2^-40 grid) raises instead of wrapping.  Five values of 2^21 in one
+    bin add to 10,485,760; in int64 fixed point their sum wraps to
+    -6,291,456, which ``segment_sum`` returned silently before it checked
+    the range.  Just inside the range the sum stays exact."""
+    vals = torch.full((5, 1), 2.0 ** 21, dtype=torch.float64)
+    keys = torch.zeros(5, dtype=torch.int64)
+    wrapped = torch.round(vals * 2.0 ** 40).to(torch.int64).sum()
+    assert float(wrapped) / 2.0 ** 40 == -6291456.0      # the silent wrap
+    assert float(ta.segment_sum(vals, keys, 1, plain=True)) == 10485760.0
+    with pytest.raises(OverflowError, match="2\\^23"):
+        ta.segment_sum(vals, keys, 2)
+    assert float(ta.segment_sum(vals[:3], keys[:3], 1)) == 3 * 2.0 ** 21
+    # a reduction over ranks adds the parts before the same check
+    half = ta.fixed_point_sums(vals[:3], keys[:3], 1)
+    with pytest.raises(OverflowError):
+        ta.from_fixed_point(*(a + a for a in half), torch.float64)
+    # inside a RangeGuard the check waits for the guard's caller, which
+    # reads the largest bound of all the calls once
+    with ta.RangeGuard() as guard:
+        ta.segment_sum(vals[:3], keys[:3], 1)
+        ta.segment_sum(vals, keys, 2)
+    assert float(guard.bound) == 5 * 2.0 ** 21
+    with pytest.raises(OverflowError, match="2\\^23"):
+        guard.check(float(guard.bound))
+    with ta.RangeGuard() as guard:
+        ta.segment_sum(vals[:3], keys[:3], 1)
+    guard.check(float(guard.bound))

@@ -328,7 +328,7 @@ def test_caller_supplied_table_is_used():
 def test_engine_cell_order_is_layout_only():
     """Cell-ordered rows (the default with the cell list) and input-order
     rows give the same trajectory, up to summation order."""
-    from repro_torch.parallel.plan import SingleDevice
+    from repro_torch.parallel.plan import SingleDevice, as_plan
     runs = [_small_engine(plan=SingleDevice(cell_order=order),
                           use_cell_list=True, cell_capacity=48)
             for order in (None, False)]
@@ -339,8 +339,10 @@ def test_engine_cell_order_is_layout_only():
         torch.testing.assert_close(getattr(runs[0].state, field),
                                    getattr(runs[1].state, field), rtol=1e-10,
                                    atol=1e-10)
-    with pytest.raises(NotImplementedError):
-        _small_engine(plan="sharded")
+    # the Sharded plan runs (tests/test_torch_sharded.py); replicas on its
+    # spatial mesh are not ported yet
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        _small_engine(plan=as_plan("sharded", replicas=2))
 
 
 def test_engine_needs_device_when_no_card(monkeypatch):
