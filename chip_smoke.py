@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--serve-only | --sharded-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
-process), ``--sharded-only`` phases 1 and J; neither prints the result
+process), ``--sharded-only`` phases 1, J and K; neither prints the result
 line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
@@ -195,8 +195,34 @@ J. the Sharded plan (``torch.distributed``; ``parallel/{plan,halo,domain}``):
    migrations, within 1e-9 of the flat Engine on the card; the main
    path's 262,144 atoms at f32 for 2 x 20 steps (finite, launches 1 +
    steps + rebuilds on each rank, all warp); K1/K2 on each rank's slots
-   against the plain versions (f32 1e-4, f64 1e-9); one ``{"sharded":
-   ...}`` line;
+   against the plain versions (f32 1e-4, f64 1e-9); then the main path's
+   checkpoint for phase K (b) and its same-mesh elastic restore; one
+   ``{"sharded": ...}`` line;
+K. the rest of the Sharded plan: (a) the main path's lattice through
+   ``Engine(plan=Sharded(replicas=4))`` on one NCCL rank (4 x 400,896
+   slots, each replica its own cells, table and generator) for one chunk
+   of 10 steps that trips no rebuild: K1 and K2 launches 1 + steps, all
+   warp (one batched launch per evaluation for the 4 replicas); each
+   replica's state ``torch.equal`` to a ``Sharded()`` Engine's run with
+   that replica's generator; the batched per-replica-table K1/K2 launch
+   ``torch.equal`` to 4 flat launches and timed beside them (in turns),
+   and against the plain versions on each replica's first
+   ``SHARDED_KERNEL_ROWS`` slots (f32 1e-4); replica-steps/s beside J(a)'s
+   steps/s, peak memory; (b) the checkpoint two gloo ranks wrote in J(b)
+   restored elastically onto the one NCCL rank: the gathered state
+   ``torch.equal`` to the writers', E, F and H_eff within 1e-4 of the
+   writers' same-mesh elastic restore, the gather and the whole restore
+   timed; (c) on two gloo ranks at f64 (B20 8^3, NEP-SPIN through K1/K2,
+   40 NVE steps): a corrupted halo face on rank 1 under the Supervisor
+   (``rollback, retry, recovered``, ``torch.equal`` to the clean run), a
+   persistent overflow on rank 1 (the capacity rung, K at least doubled,
+   step 40), elastic restore 2 -> 1 -> 2 (energies within 1e-10 of a
+   same-mesh restore and of a one-rank restore, 1e-8 after 20 steps on);
+   (d) a 2 x 2 ``("replica", "sx")`` mesh of 4 gloo ranks at f64 (NVE
+   replicas ``torch.equal``, each within 1e-12 of a ``Sharded(devices=
+   (0, 1))`` run on two of the ranks) and ``Replicated(4)`` split over 2
+   gloo ranks (through a checkpoint) ``torch.equal`` to its one-process
+   run; one ``{"sharded_replicas": ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
@@ -206,9 +232,12 @@ J. the Sharded plan (``torch.distributed``; ``parallel/{plan,halo,domain}``):
     batched launch at R = 4, and 4 flat launches), and from phase G
     ``launches_training``, ``body_training``, ``max_rel_err_training`` and
     ``ms_training`` (each body's time at the fitted spec), and from phase
-    I ``launches_serving`` and ``max_rel_err_serving``, and from phase J
+    I ``launches_serving`` and ``max_rel_err_serving``, from phase J
     ``launches_sharded``, ``ms_sharded`` (each on the one rank's 400,896
-    slots) and ``max_rel_err_sharded``), then
+    slots) and ``max_rel_err_sharded``, and from phase K
+    ``launches_sharded_replicas``, ``ms_sharded_replicas`` (one batched
+    launch over 4 x 400,896 slots), ``sharded_replicas_flat_ms`` (4 flat
+    launches) and ``max_rel_err_sharded_replicas``), then
     ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -2389,6 +2418,7 @@ SHARDED_SMALL = dict(unit_cells=(8, 8, 8), temperature=600.0, jitter=0.25,
                      skin=0.3, steps=40, chunk=20)   # (b): 4,096 atoms, f64
 SHARDED_FULL_CHUNKS = 2                      # (b): 262,144 atoms at f32
 SHARDED_KERNEL_ROWS = 8192                   # slots compared at full width
+ELASTIC_DIR = SURFACE_DIR / "elastic"        # J(b) writes it, K(b) reads
 
 
 def sharded_kernels(torch, kern, ref, eng, bar, rows=None,
@@ -2583,7 +2613,26 @@ def _sharded_rank(rank: int, out: str, device: str) -> None:
         if t.shape != (run.n_atoms, 3) or not bool(torch.isfinite(t).all()):
             raise AssertionError(f"full width {kname}: non-finite or shape "
                                  f"{tuple(t.shape)}")
+    # phase K (b)'s writer: this two-rank run's checkpoint, the state it
+    # holds, and the E, F, H_eff of a same-mesh elastic restore of it
+    ck = ELASTIC_DIR / "ckpt"
+    t0 = time.perf_counter()
+    sh.save(str(ck), gen)
+    save_s = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({k: getattr(sh.state, k).cpu() for k in
+                    ("pos", "vel", "spin", "types")},
+                   ELASTIC_DIR / "writer_state.pt")
+    same = engine(pot, cfg, state, Sharded(), skin=run.skin,
+                  temperature=run.temperature, field=run.field)
+    same.restore(str(ck), plan=Sharded())
+    if rank == 0:
+        torch.save({"E": torch.as_tensor(same.energy),
+                    "F": same._ff.force.cpu(), "H": same._ff.field.cpu()},
+                   ELASTIC_DIR / "same_mesh.pt")
+    del same
     res["nep_full_f32"] = {
+        "save_s": save_s,
         "steps_per_s": steps / wall, "setup_s": setup_s,
         "rebuilds": sh.n_rebuilds, "migrated": sh.n_migrated,
         "launches": launches, "expect": expect,
@@ -2617,6 +2666,8 @@ def phase_sharded(torch, dev, spec, lat, moments, kern, ref,
     t_phase = time.perf_counter()
     shutil.rmtree(SHARDED_DIR, ignore_errors=True)
     SHARDED_DIR.mkdir(parents=True)
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
     run = main_path()
     dtype = getattr(torch, run.dtype)
     steps = run.chunks * run.chunk
@@ -2749,6 +2800,462 @@ def phase_sharded(torch, dev, spec, lat, moments, kern, ref,
     shutil.rmtree(SHARDED_DIR, ignore_errors=True)
     return out
 
+# ---------------------------------------------------------------------------
+# phase K: the rest of the Sharded plan - replicas on the spatial mesh with
+# K1/K2 on per-replica tables, elastic restore, the faults and the capacity
+# rung, the replica axis across ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_REPLICAS = 4
+SREP_STEPS = 10       # (a): one chunk short enough to trip no rebuild
+K_SMALL = dict(unit_cells=(8, 8, 8), temperature=600.0, jitter=0.25,
+               skin=0.3, steps=40, chunk=10)     # (c), (d): f64, 4,096 atoms
+
+
+def _k_small_setup(torch, dev):
+    """(c) and (d)'s f64 B20 8^3 state, NEP-SPIN potential through K1/K2
+    and Engine keywords, the same on every rank."""
+    from repro_torch.configs.fege_spinlattice import config
+    from repro_torch.core.potential import NEPSpinPotential, init_params
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.lattice import b20_fege
+    from repro_torch.md.state import init_state
+    spec, lat, f64 = config().spec, b20_fege(), torch.float64
+    g = torch.Generator(device=dev).manual_seed(41)
+    st = init_state(lat, K_SMALL["unit_cells"], generator=g,
+                    temperature=K_SMALL["temperature"], spin_init="random",
+                    dtype=f64, device=dev)
+    jitter = K_SMALL["jitter"] * torch.randn(st.pos.shape, generator=g,
+                                             dtype=f64, device=dev)
+    st = st._replace(pos=torch.remainder(st.pos + jitter, st.box))
+    pot = NEPSpinPotential(spec, init_params(spec, g, dtype=f64, device=dev),
+                           torch.tensor([1.16, 0.0], dtype=f64, device=dev),
+                           use_kernel=True)
+    kw = dict(masses=torch.tensor(lat.masses, dtype=f64, device=dev),
+              magnetic=torch.tensor(lat.moments, device=dev) > 0,
+              cutoff=spec.cutoff, capacity=64, skin=K_SMALL["skin"],
+              device=dev)
+    return st, pot, IntegratorConfig(dt=config().dt), kw
+
+
+def _faults_rank(rank: int, out: str, device: str) -> None:
+    """Phase K (c) and (d)'s Replicated(4) split, one of two gloo ranks."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.md.engine import Engine
+    from repro_torch.parallel.plan import Replicated, Sharded
+    from repro_torch.resilience import (Fault, FaultPlan, Supervisor,
+                                        SupervisorConfig, install_faults)
+    from repro_torch.telemetry import HealthConfig, Telemetry
+
+    dev = torch.device(device)
+    st, pot, cfg, kw = _k_small_setup(torch, dev)
+    steps, chunk = K_SMALL["steps"], K_SMALL["chunk"]
+    res = {"rank": rank}
+
+    def engine(plan, **extra):
+        return Engine(pot, cfg, st, plan=plan, **kw, **extra)
+
+    clean = engine(Sharded())
+    clean.run(steps, chunk=chunk)
+    cap0 = clean._rplan.dspec.capacity
+    if clean.n_rebuilds < 1:
+        raise AssertionError(f"K(c) clean run: {clean.n_rebuilds} rebuilds")
+    # a corrupted halo face on rank 1
+    eng = engine(Sharded())
+    install_faults(eng, FaultPlan(faults=(Fault(kind="halo", step=15,
+                                                device=1),)))
+    sup = Supervisor(SupervisorConfig(max_retries=2))
+    t0 = time.perf_counter()
+    got = sup.run(eng, steps, None, chunk=chunk,
+                  checkpoint_dir=os.path.join(out, "k_halo"),
+                  telemetry=Telemetry(health=HealthConfig()))
+    res["halo"] = {"events": [e["event"] for e in sup.events],
+                   "seconds": time.perf_counter() - t0}
+    if res["halo"]["events"] != ["rollback", "retry", "recovered"]:
+        raise AssertionError(f"K(c) halo: {res['halo']['events']}")
+    for k in ("pos", "vel", "spin"):
+        if not torch.equal(getattr(got, k), getattr(clean.state, k)):
+            raise AssertionError(f"K(c) halo recovery: {k} differs")
+    # a persistent overflow on rank 1: the capacity rung
+    eng = engine(Sharded())
+    install_faults(eng, FaultPlan(faults=(
+        Fault(kind="overflow", step=15, device=1, once=False),)))
+    sup = Supervisor(SupervisorConfig(max_retries=4, degrade_after=2))
+    sup.run(eng, steps, None, chunk=chunk,
+            checkpoint_dir=os.path.join(out, "k_overflow"))
+    cap1 = eng._rplan.dspec.capacity
+    res["overflow"] = {"events": [e["event"] for e in sup.events],
+                       "cap0": cap0, "cap1": cap1,
+                       "final_step": eng._step_now()}
+    if not (cap1 >= 2 * cap0 and eng._step_now() == steps
+            and "degrade" in res["overflow"]["events"]):
+        raise AssertionError(f"K(c) overflow: {res['overflow']}")
+    # elastic 2 -> 1 -> 2
+    ck, ck1 = os.path.join(out, "k_el2"), os.path.join(out, "k_el1")
+    eng = engine(Sharded())
+    eng.run(2 * chunk, chunk=chunk, checkpoint_dir=ck)
+    same = engine(Sharded())
+    same.restore(ck, plan=Sharded())
+    el = {"e_same": same.energy}
+    same.run(2 * chunk, chunk=chunk)
+    el["e_same_end"] = same.energy
+    if rank == 0:
+        down = engine(Sharded(devices=(0,)))
+        t0 = time.perf_counter()
+        down.restore(ck, plan=Sharded(devices=(0,)))
+        el["restore_s"] = time.perf_counter() - t0
+        el["e_down"] = down.energy
+        down.run(2 * chunk, chunk=chunk)
+        el["e_down_end"] = down.energy
+        down.save(ck1, None)
+        one = engine(Sharded(devices=(0,)))
+        one.restore(ck1, plan=Sharded(devices=(0,)))
+        el["e_up_one"] = one.energy
+    else:
+        try:
+            engine(Sharded(devices=(0,)))
+            raise AssertionError("K(c): rank 1 ran a plan on rank 0 only")
+        except ValueError:
+            pass
+    dist.barrier()
+    up = engine(Sharded())
+    up.restore(ck1, plan=Sharded())
+    el["e_up"], el["mesh_up"] = up.energy, up._rplan.world
+    if rank == 0:
+        el["down_delta"] = abs(el["e_down"] - el["e_same"])
+        el["down_end_delta"] = abs(el["e_down_end"] - el["e_same_end"])
+        el["up_delta"] = abs(el["e_up"] - el["e_up_one"])
+        if not (el["down_delta"] < 1e-10 and el["up_delta"] < 1e-10
+                and el["down_end_delta"] < 1e-8):
+            raise AssertionError(f"K(c) elastic 2 -> 1 -> 2: {el}")
+    res["elastic"] = el
+    # (d) Replicated(4) split over the two ranks, through a checkpoint
+    gens = [torch.Generator(device=dev).manual_seed(300 + r)
+            for r in range(4)]
+    temps = [300.0, 450.0, 600.0, 750.0]
+
+    def replicated(devices):
+        return Engine(pot, dataclasses.replace(cfg, lattice_gamma=1.0,
+                                               spin_alpha=0.05), st,
+                      plan=Replicated(4, devices=devices), temperature=temps,
+                      field=(0.0, 0.0, 0.2), **kw)
+
+    split = replicated((0, 1))
+    ck = os.path.join(out, "k_rep")
+    split.run(chunk, gens[2 * rank:2 * rank + 2], chunk=chunk,
+              checkpoint_dir=ck)
+    fresh = replicated((0, 1))
+    g = fresh.restore(ck)
+    fresh.run(chunk, g, chunk=chunk)
+    if rank == 0:
+        whole = replicated(None)
+        wg = [torch.Generator(device=dev).manual_seed(300 + r)
+              for r in range(4)]
+        whole.run(2 * chunk, wg, chunk=chunk)
+        for k in ("pos", "vel", "spin"):
+            if not torch.equal(getattr(fresh.state, k),
+                               getattr(whole.state, k)):
+                raise AssertionError(f"K(d) Replicated(4) split: {k} "
+                                     "differs from the one-process run")
+        res["replicated_split"] = {"bitwise": True,
+                                   "rebuilds": whole.n_rebuilds}
+    with open(os.path.join(out, f"k_rank_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _mesh_rank(rank: int, out: str, device: str) -> None:
+    """Phase K (d): a 2 x 2 ("replica", "sx") mesh of 4 gloo ranks."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.ensemble.replica import sharded_replica_mesh
+    from repro_torch.md.engine import Engine
+    from repro_torch.parallel.plan import Sharded
+
+    dev = torch.device(device)
+    st, pot, cfg, kw = _k_small_setup(torch, dev)
+    steps, chunk = K_SMALL["steps"], K_SMALL["chunk"]
+    fields = [(0.0, 0.0, 0.2), (0.0, 0.0, 0.2)]
+    rep = Engine(pot, cfg, st, plan=Sharded(mesh=sharded_replica_mesh(2, 2),
+                                            replicas=2),
+                 field=fields, **kw)
+    rep.run(steps, [torch.Generator(device=dev)], chunk=chunk,
+            temperature=[0.0, 0.0])
+    try:
+        two = Engine(pot, cfg, st, plan=Sharded(devices=(0, 1)),
+                     field=fields[0], **kw)
+    except ValueError:
+        two = None                      # ranks 2 and 3 hold no part of it
+    if two is not None:
+        two.run(steps, torch.Generator(device=dev), chunk=chunk,
+                temperature=0.0)
+    dist.barrier()
+    if rank == 0:
+        same = all(torch.equal(getattr(rep.state, k)[0],
+                               getattr(rep.state, k)[1])
+                   for k in ("pos", "vel", "spin"))
+        vs_two = max(float((getattr(rep.state, k)[0]
+                            - getattr(two.state, k)).abs().max())
+                     for k in ("pos", "vel", "spin"))
+        shapes = [list(rep.trace.values["energy"].shape),
+                  list(rep.trace.values["magnetization"].shape)]
+        if not (same and vs_two < 1e-12 and shapes == [
+                [steps // chunk, 2], [steps // chunk, 2, 3]]):
+            raise AssertionError(f"K(d) replica mesh: identical {same}, vs "
+                                 f"two ranks {vs_two}, trace {shapes}")
+        with open(os.path.join(out, "k_mesh.json"), "w") as f:
+            json.dump({"identical": same, "vs_two_ranks": vs_two,
+                       "trace_shapes": shapes,
+                       "rebuilds": rep.n_rebuilds,
+                       "migrated": rep.n_migrated}, f)
+
+
+def sharded_replica_kernels(torch, kern, ref, eng, rows_cmp: int) -> tuple:
+    """K1 and K2 on the replicas' own slot blocks as the evaluator launches
+    them (one batched launch over per-replica tables): ``torch.equal`` to
+    one flat launch per replica, timed beside them in turns, and against
+    the plain versions on each replica's first ``rows_cmp`` slots.
+    Returns ({kernel: rel err}, {kernel: {"batched_ms", "flat_ms"}})."""
+    from repro_torch.parallel.domain import local_first_index
+    from repro_torch.parallel.halo import cell_dims, exchange_halo
+    c, rp = eng._carry, eng._rplan
+    spec, params = eng.potential.spec, eng.potential.params
+    r, k, m = eng._batch, c.state.types.shape[-1], c.nbh.idx.shape[-1]
+    n = c.state.types[0].numel()
+    occ = c.state.types.reshape(r, n) >= 0
+    ti = torch.where(occ, c.state.types.reshape(r, n),
+                     torch.zeros_like(c.state.types.reshape(r, n)))
+    k1_in = (c.nbh.dr.reshape(r, n, m, 3), c.nbh.mask.reshape(r, n, m), ti,
+             c.nbh.tj.reshape(r, n, m), c.state.spin.reshape(r, n, 3),
+             c.nbh.sj.reshape(r, n, m, 3))
+    out1 = kern.nep_atom_pass(spec, params, *k1_in)
+    abar = torch.where(occ[..., None], out1[2], torch.zeros_like(out1[2]))
+    a = abar.shape[-1]
+    ext = exchange_halo(abar.reshape(r, *rp.local_shape, k, a), rp.axes,
+                        dims=cell_dims(1), allgather=rp.allgather)
+    _, ring = local_first_index(rp.local_shape, k, abar.device)
+    abar_rows = torch.cat([abar, ext.reshape(r, -1, a)[:, ring]], dim=1)
+    lf = c.nbh.lf
+    k2_in = (k1_in[0], k1_in[1], lf, ti, k1_in[3], k1_in[4], k1_in[5],
+             abar_rows)
+    out2 = kern.nep_force_pass(spec, params, *k2_in)
+    for q in range(r):
+        flat1 = kern.nep_atom_pass(spec, params, *(x[q] for x in k1_in))
+        flat2 = kern.nep_force_pass(spec, params, *(x[q] for x in k2_in))
+        for name, got, want in (("K1", out1, flat1), ("K2", out2, flat2)):
+            for o, (x, y) in enumerate(zip(got, want)):
+                if not torch.equal(x[q], y):
+                    raise AssertionError(f"K(a) {name} output {o}: replica "
+                                         f"{q} of the batched launch is not "
+                                         "its flat launch")
+    err = {}
+    cut = lambda x: x[:, :rows_cmp].contiguous()
+    p1 = tuple(cut(x) for x in k1_in)
+    want = ref.atom_pass_plain(spec, params, *p1)
+    got = kern.nep_atom_pass(spec, params, *p1)
+    err["nep_atom_pass"] = max(rel_err(x, y) for x, y in zip(got, want))
+    p2 = tuple(cut(x) for x in k2_in[:7]) + (abar_rows,)
+    want = ref.force_pass_plain(spec, params, *p2)
+    got = kern.nep_force_pass(spec, params, *p2)
+    torch.cuda.synchronize()
+    err["nep_force_pass"] = max(rel_err(x, y) for x, y in zip(got, want))
+    for name, e in err.items():
+        if not e < 1e-4:
+            raise AssertionError(f"K(a) {name} vs plain on the replicas' "
+                                 f"slots: relative error {e:.3e} >= 1e-4")
+    times = {}
+    for name, fn, args in (("nep_atom_pass", kern.nep_atom_pass, k1_in),
+                           ("nep_force_pass", kern.nep_force_pass, k2_in)):
+        t = {"batched": [], "flat": []}
+        for how in ("batched", "flat", "flat", "batched"):
+            t[how].append(time_ms(torch, (lambda: fn(spec, params, *args))
+                                  if how == "batched" else (
+                lambda: [fn(spec, params, *(x[q] for x in args))
+                         for q in range(r)]), 5))
+        times[name] = {"batched_ms": sum(t["batched"]) / 2,
+                       "flat_ms": sum(t["flat"]) / 2}
+    return err, times
+
+
+def phase_sharded_replicas(torch, dev, spec, lat, moments, kern, ref,
+                           j_steps_per_s) -> dict:
+    """Phase K: (a) Sharded(replicas=4) on one NCCL rank, (b) the elastic
+    restore of J(b)'s checkpoint onto it, then (c) and (d) on gloo ranks
+    sharing the card."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.elastic import gather_md_state
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import NEPSpinPotential, init_params
+    from repro_torch.md.engine import Engine
+    from repro_torch.md.integrator import IntegratorConfig
+    from repro_torch.md.state import init_state
+    from repro_torch.parallel.plan import Sharded
+    from repro_torch.parallel.ranks import spawn
+
+    t_phase = time.perf_counter()
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    kdir = SURFACE_DIR / "sharded_replicas"
+    shutil.rmtree(kdir, ignore_errors=True)
+    kdir.mkdir(parents=True)
+    log(f"phase K (a): Engine(plan=Sharded(replicas={SHARDED_REPLICAS})) on "
+        f"one NCCL rank, B20 {run.unit_cells} = {run.n_atoms} atoms a "
+        f"replica, one chunk of {SREP_STEPS} steps")
+    dist.init_process_group("nccl", init_method="file://" + str(
+        kdir / "rendezvous"), world_size=1, rank=0)
+    out = {}
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        state = init_state(lat, run.unit_cells, generator=g,
+                           temperature=run.temperature, dtype=dtype,
+                           device=dev)
+        params = init_params(spec, g, dtype=dtype, device=dev)
+        pot = NEPSpinPotential(spec, params, moments.to(dtype),
+                               use_kernel=True)
+        cfg = IntegratorConfig(dt=run.dt, lattice_gamma=run.lattice_gamma,
+                               spin_alpha=run.spin_alpha)
+        masses = torch.tensor(lat.masses, dtype=dtype, device=dev)
+        magnetic = torch.tensor(lat.moments, device=dev) > 0
+        kw = dict(temperature=run.temperature, field=run.field,
+                  capacity=run.capacity, skin=run.skin, device=dev)
+
+        def engine(plan):
+            return Engine(pot, cfg, state, masses, magnetic, spec.cutoff,
+                          plan=plan, **kw)
+
+        def gens():
+            return [torch.Generator(device=dev).manual_seed(200 + q)
+                    for q in range(SHARDED_REPLICAS)]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_md_counters(kern)
+        t0 = time.perf_counter()
+        eng = engine(Sharded(replicas=SHARDED_REPLICAS))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.run(SREP_STEPS, gens(), chunk=SREP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_md_counters(kern)
+        expect = 1 + SREP_STEPS + eng.n_rebuilds
+        for name, (n, bodies) in launches.items():
+            if n != expect or bodies != {"warp": expect, "thread": 0}:
+                raise AssertionError(f"K(a) {name}: {n} launches {bodies}, "
+                                     f"expected 1 + steps + rebuilds = "
+                                     f"{expect}, all warp")
+        if eng.n_rebuilds:
+            raise AssertionError(f"K(a): {eng.n_rebuilds} rebuild(s) in "
+                                 f"{SREP_STEPS} steps; the replica-vs-solo "
+                                 "comparison needs a chunk with none")
+        for name in ("pos", "vel", "spin"):
+            t = getattr(eng.state, name)
+            if t.shape != (SHARDED_REPLICAS, run.n_atoms, 3) or not bool(
+                    torch.isfinite(t).all()):
+                raise AssertionError(f"K(a) {name}: shape {tuple(t.shape)} "
+                                     "or non-finite values")
+        obs = {k: list(v.shape) for k, v in eng.trace.values.items()}
+        slots = int(eng._carry.state.types.numel())
+        out["replicas"] = {
+            "replica_steps_per_s": SHARDED_REPLICAS * SREP_STEPS / wall,
+            "steps_per_s": SREP_STEPS / wall,
+            "j_a_steps_per_s": j_steps_per_s, "setup_s": setup_s,
+            "launches": launches["nep_atom_pass"][0], "slots": slots,
+            "rebuilds": eng.n_rebuilds, "peak_gib": peak / 2 ** 30,
+            "trace_shapes": obs, "cells": list(eng._rplan.dspec.cells),
+            "cell_capacity": eng._rplan.dspec.capacity}
+        log(f"  K(a): {out['replicas']}")
+        (out["replicas"]["kernel_rel_err"],
+         out["replicas"]["kernel_ms"]) = sharded_replica_kernels(
+            torch, kern, ref, eng, SHARDED_KERNEL_ROWS)
+        log(f"  K(a) kernels: {out['replicas']['kernel_rel_err']}, "
+            f"{out['replicas']['kernel_ms']}")
+        reps = eng.state
+        del eng
+        torch.cuda.empty_cache()
+        for q, gq in enumerate(gens()):
+            solo = engine(Sharded())
+            solo.run(SREP_STEPS, gq, chunk=SREP_STEPS)
+            if solo.n_rebuilds:
+                raise AssertionError(f"K(a) solo {q}: a rebuild")
+            for name in ("pos", "vel", "spin"):
+                if not torch.equal(getattr(solo.state, name),
+                                   getattr(reps, name)[q]):
+                    raise AssertionError(f"K(a) replica {q} {name} is not "
+                                         "the Sharded() run with its "
+                                         "generator")
+            del solo
+        out["replicas"]["bitwise_vs_solo"] = True
+        del reps
+        torch.cuda.empty_cache()
+
+        # (b) J(b)'s two-rank checkpoint, restored elastically here
+        log("phase K (b): J(b)'s two-gloo-rank checkpoint restored "
+            "elastically onto this one NCCL rank")
+        ck = ELASTIC_DIR / "ckpt"
+        target = engine(Sharded())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gathered, _, step = gather_md_state(
+            str(ck), target._domain_ckpt_tree(target._carry), device=dev)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        writer = torch.load(ELASTIC_DIR / "writer_state.pt")
+        for name, t in writer.items():
+            if not torch.equal(getattr(gathered, name).cpu(), t):
+                raise AssertionError(f"K(b) gathered {name} is not the "
+                                     "writers' state")
+        del gathered
+        t0 = time.perf_counter()
+        target.restore(str(ck), plan=Sharded())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = torch.load(ELASTIC_DIR / "same_mesh.pt")
+        err = {"E": check("K(b) E vs same-mesh", torch.as_tensor(
+                   target.energy), same["E"], 1e-4),
+               "F": check("K(b) F vs same-mesh", target._ff.force.cpu(),
+                          same["F"], 1e-4),
+               "H": check("K(b) H vs same-mesh", target._ff.field.cpu(),
+                          same["H"], 1e-4)}
+        out["elastic"] = {"from_ranks": 2, "to_ranks": target._rplan.world,
+                          "step": step, "gather_s": gather_s,
+                          "restore_s": restore_s, "rel_err": err,
+                          "cells": list(target._rplan.dspec.cells)}
+        log(f"  K(b): {out['elastic']}")
+        del target
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+
+    log("phase K (c): faults, the capacity rung and elastic 2 -> 1 -> 2 on "
+        "two gloo ranks (f64 B20 8^3, K1/K2); (d) Replicated(4) split over "
+        "them")
+    t0 = time.perf_counter()
+    spawn(_faults_rank, 2, str(kdir), str(dev), backend="gloo",
+          workdir=str(kdir))
+    out["faults"] = [json.loads((kdir / f"k_rank_{q}.json").read_text())
+                     for q in range(2)]
+    out["faults_s"] = time.perf_counter() - t0
+    log(f"  K(c): {out['faults']}")
+    log("phase K (d): a 2 x 2 (replica, sx) mesh of 4 gloo ranks")
+    t0 = time.perf_counter()
+    spawn(_mesh_rank, 4, str(kdir), str(dev), backend="gloo",
+          workdir=str(kdir))
+    out["mesh"] = json.loads((kdir / "k_mesh.json").read_text())
+    out["mesh_s"] = time.perf_counter() - t0
+    log(f"  K(d): {out['mesh']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(kdir, ignore_errors=True)
+    return out
+
 
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"]):
@@ -2812,8 +3319,12 @@ def main(argv) -> int:
         print(card, flush=True)
         return 0
     if argv == ["--sharded-only"]:
-        print(json.dumps({"sharded": phase_sharded(
-            torch, dev, spec, lat, moments, kern, ref, None)}), flush=True)
+        sharded = phase_sharded(torch, dev, spec, lat, moments, kern, ref,
+                                None)
+        print(json.dumps({"sharded": sharded}), flush=True)
+        print(json.dumps({"sharded_replicas": phase_sharded_replicas(
+            torch, dev, spec, lat, moments, kern, ref,
+            sharded["one_rank"]["steps_per_s"])}), flush=True)
         print(card, flush=True)
         return 0
 
@@ -3093,6 +3604,19 @@ def main(argv) -> int:
                     r["nep_f64"]["kernel_rel_err"][row["name"]]
                     for r in sharded["two_ranks"])}
     print(json.dumps({"sharded": sharded}), flush=True)
+    torch.cuda.empty_cache()
+    srep = phase_sharded_replicas(torch, dev, spec, lat, moments, kern, ref,
+                                  sharded["one_rank"]["steps_per_s"])
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            row["launches_sharded_replicas"] = srep["replicas"]["launches"]
+            row["ms_sharded_replicas"] = srep["replicas"]["kernel_ms"][
+                row["name"]]["batched_ms"]
+            row["sharded_replicas_flat_ms"] = srep["replicas"]["kernel_ms"][
+                row["name"]]["flat_ms"]
+            row["max_rel_err_sharded_replicas"] = srep["replicas"][
+                "kernel_rel_err"][row["name"]]
+    print(json.dumps({"sharded_replicas": srep}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -288,7 +288,8 @@ def save_md(directory: str, step: int, carry, generator, *, keep: int = 3,
             async_: bool = False, pin: int | None = None) -> SaveHandle:
     """Checkpoint an MD engine's carry and the state of its run's
     ``torch.Generator`` (None for a run that draws no noise; a sequence of
-    generators, one per replica, is saved as a stack of their states).
+    generators, one per replica - or of their states, uint8 tensors - is
+    saved as a stack of their states).
     Restoring both at a chunk boundary reproduces the uninterrupted run
     bitwise."""
     if generator is None:
@@ -296,7 +297,8 @@ def save_md(directory: str, step: int, carry, generator, *, keep: int = 3,
     elif isinstance(generator, torch.Generator):
         gstate = generator.get_state().numpy()
     else:
-        gstate = np.stack([g.get_state().numpy() for g in generator])
+        gstate = np.stack([(g.get_state() if isinstance(g, torch.Generator)
+                            else g).numpy() for g in generator])
     return save_checkpoint(directory, step,
                            {"carry": carry, "generator": gstate},
                            keep=keep, async_=async_, pin=pin)

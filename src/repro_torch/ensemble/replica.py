@@ -13,10 +13,15 @@ This facade adds the between-chunk ensemble features: parallel-tempering
 replica exchange over a temperature ladder every ``exchange_every`` chunks
 (:mod:`repro_torch.ensemble.exchange`), per-chunk callbacks, and the
 per-chunk :class:`EnsembleTrace` of the paper's Fig. 4/9 observables.
+:meth:`ReplicaEnsemble.shard` splits the replica axis over ranks (each
+holds R / ranks replicas and their generators; a tempering exchange
+gathers the batch, every rank makes the same swap decisions from the same
+uniforms and keeps its own rows).
 
-Not ported yet: ``sharded_replica_mesh`` and ``run_sharded_sweep`` (the
-replica axis composed with a spatial mesh over several cards; ROADMAP queue
-1 item 13b).
+For systems too large for one card, :func:`run_sharded_sweep` runs a (T, B)
+sweep on the Sharded plan with replicas: every replica is a full spatial
+decomposition of the crystal, on a ``("replica", "sx")`` mesh from
+:func:`sharded_replica_mesh`.
 """
 from __future__ import annotations
 
@@ -33,10 +38,11 @@ from repro_torch.md.integrator import ForceField, IntegratorConfig
 from repro_torch.md.neighbor import NeighborTable
 from repro_torch.md.state import (SpinLatticeState, replicate, stack_states,
                                   unstack_state)
-from repro_torch.parallel.plan import Replicated
+from repro_torch.parallel.plan import Replicated, Sharded
 
 __all__ = ["EnsembleTrace", "ReplicaEnsemble", "replicate", "stack_states",
-           "unstack_state", "spawn_generators"]
+           "unstack_state", "spawn_generators", "sharded_replica_mesh",
+           "run_sharded_sweep"]
 
 
 class EnsembleTrace(NamedTuple):
@@ -134,8 +140,12 @@ class ReplicaEnsemble:
         return float(self.states.step[0]) * self.cfg.dt
 
     def shard(self, devices=None) -> "ReplicaEnsemble":
-        """Shard the replica axis over cards: a no-op on one."""
+        """Split the replica axis over the ranks ``devices`` names (a
+        ``DeviceMesh`` or ranks; every rank of the world calls it): each
+        holds R / ranks replicas and takes that many generators in
+        :meth:`run`.  A no-op for one rank."""
         self._engine.shard_replicas(devices)
+        self._pull()
         return self
 
     # ------------------------------------------------------------------
@@ -163,8 +173,9 @@ class ReplicaEnsemble:
         tsched = _as_schedule(temperature, self.cfg.temperature)
         fsched = _as_schedule(field, np.zeros((3,), np.float32))
         generators = list(generators)
-        if len(generators) != r:
-            raise ValueError(f"{r} replicas need {r} generators, got "
+        if len(generators) != eng._batch:
+            raise ValueError(f"{eng._batch} replicas on this process need "
+                             f"{eng._batch} generators, got "
                              f"{len(generators)}")
         if exchange_every:
             ladder = np.asarray(tsched.values)
@@ -204,12 +215,15 @@ class ReplicaEnsemble:
             temps_log.append(np.broadcast_to(
                 np.asarray(tsched.at(t_now)), (r,)).copy())
             if exchange_every and n_chunks % exchange_every == 0:
+                # split over ranks, every rank gathers the batch and makes
+                # the same swaps (same energies, same uniforms); the
+                # resync keeps its own rows
+                states, ffs = eng._full_batch(carry)
                 states, ffs, acc, att = apply_exchange(
-                    carry.states, carry.ffs, ladder, parity,
+                    states, ffs, ladder, parity,
                     generator=exchange_generator)
                 # dr rows travel with their configuration: the resync
                 # re-derives dr and forces from the permuted positions
-                eng._carry = carry._replace(states=states, ffs=ffs)
                 eng.state = states
                 eng._replica_resync(fsched)
                 n_acc += acc
@@ -233,3 +247,84 @@ class ReplicaEnsemble:
             pitch=np.stack([row["pitch"] for row in rows]),
             energy=np.stack([row["energy"] for row in rows]),
             exchange_accepts=n_acc, exchange_attempts=n_att)
+
+
+# ---------------------------------------------------------------------------
+# the replica axis composed with the spatial mesh (the Sharded plan)
+# ---------------------------------------------------------------------------
+
+def sharded_replica_mesh(replica_shards: int, spatial: int,
+                         replica_axis: str = "replica",
+                         spatial_axis: str = "sx"):
+    """2-D ``DeviceMesh`` ``(replica_axis, spatial_axis)`` over the first
+    ``replica_shards * spatial`` ranks of the initialised world: each
+    replica shard owns a full spatial decomposition, halos and spatial
+    reductions run over ``spatial_axis`` only, replicas never exchange
+    halos.  Every rank of the world calls it (making a mesh is a
+    collective); raises when the world is smaller."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    need = replica_shards * spatial
+    if world < need:
+        raise ValueError(f"need {need} ranks, have {world}")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(kind, torch.arange(need).reshape(replica_shards,
+                                                      spatial),
+                      mesh_dim_names=(replica_axis, spatial_axis))
+
+
+def run_sharded_sweep(potential, cfg, state, masses, magnetic, cutoff,
+                      temperatures, fields=None, *, n_steps: int = 1000,
+                      generators=None, chunk: int = 100, mesh=None,
+                      observables=("energy", "kinetic", "magnetization",
+                                   "charge"),
+                      **engine_kw):
+    """(T, B) sweep on the domain-decomposed loop: every replica is a full
+    spatial decomposition of the same crystal, stepped at its own
+    ``(temperature, field)`` point in one Sharded Engine with
+    ``replicas=R`` (on ``mesh``, e.g. :func:`sharded_replica_mesh`; None:
+    the 1-D mesh over the world, every rank holding every replica).
+
+    ``temperatures`` is (R,) [K] or a
+    :class:`~repro_torch.ensemble.protocol.Schedule` (values (K,) shared or
+    (K, R) per replica); ``fields`` likewise ((R, 3) Tesla or a Schedule).
+    ``generators`` are this rank's, one per local replica (default: from
+    :func:`repro_torch.ckpt.elastic.rank_generator` with seed 0, one per
+    (rank, local replica)).  Every rank calls it with the same flat
+    ``state``.  Returns ``(engine, trace)``, the per-chunk, per-replica
+    :class:`~repro_torch.md.engine.EngineTrace` ((C, R) values, reduced
+    over the spatial ranks, on every rank)."""
+    if isinstance(temperatures, protocol.Schedule):
+        temps = temperatures
+        tv = np.asarray(temps.values)
+        r = tv.shape[1] if tv.ndim == 2 else None
+    else:
+        temps = np.asarray(temperatures, np.float64).reshape(-1)
+        r = temps.shape[0]
+    if r is None:   # a shared temperature schedule: R from the fields
+        if isinstance(fields, protocol.Schedule):
+            fv = np.asarray(fields.values)
+            r = fv.shape[1] if fv.ndim == 3 else None
+        elif fields is not None and np.ndim(fields) == 2:
+            r = np.shape(fields)[0]
+    if r is None:
+        raise ValueError("shared schedules do not define the replica "
+                         "count; pass per-replica temperature values "
+                         "(K, R) or per-replica fields (R, 3)")
+    if fields is not None and not isinstance(fields, protocol.Schedule):
+        fields = np.array(np.broadcast_to(np.asarray(fields, np.float64),
+                                          (r, 3)))
+    engine = Engine(
+        potential=potential, cfg=cfg, state=state, masses=masses,
+        magnetic=magnetic, cutoff=cutoff,
+        plan=Sharded(mesh=mesh, replicas=r), temperature=temps,
+        field=fields, observables=observables, **engine_kw)
+    if generators is None:
+        from repro_torch.ckpt.elastic import rank_generator
+        rank = engine._rplan.rank
+        generators = [rank_generator(0, rank * engine._batch + j,
+                                     engine.device)
+                      for j in range(engine._batch)]
+    engine.run(n_steps, generators, chunk=chunk)
+    return engine, engine.trace

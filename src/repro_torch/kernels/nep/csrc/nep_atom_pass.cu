@@ -59,12 +59,14 @@
 //   (~15 KB f32, ~30 KB f64), the type dispatch is a direct index
 //   c[ti][tj], and the ragged edge n % BLOCK is masked by the bounds check.
 //
-// Replica axis (the Replicated plan): one launch serves nr replicas that
-// share one table.  mask, tj and ti are the table's, (n, m) and (n,); dr,
-// si, sj and the three outputs carry a leading replica axis.  The grid's y
-// axis is the replica: a block moves those pointers to its replica's rows
-// and runs the flat body unchanged, so replica r of a batched launch is
-// bitwise a launch on replica r's inputs alone.  The warp body's flat
+// Replica axis: one launch serves nr replicas.  dr, si, sj and the three
+// outputs carry a leading replica axis.  The table (mask, tj (n, m), ti
+// (n,)) is shared by every replica (the Replicated plan: tab_stride 0) or
+// is one per replica (the Sharded plan's replicas, each with its own cells:
+// tab_stride n, a (nr, n, m) table).  The grid's y axis is the replica: a
+// block moves those pointers to its replica's rows - the table's by
+// tab_stride rows - and runs the flat body unchanged, so replica r of a
+// batched launch is bitwise a launch on replica r's inputs alone.  The warp body's flat
 // instantiation (BATCH false, launched for nr = 1) leaves the move out: with
 // it, the flat launch ran 3 % slower (launch/kernel_rate.py).
 #include "nep_common.cuh"
@@ -81,7 +83,8 @@ atom_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                  const T* __restrict__ b1, const T* __restrict__ w2,
                  const T* __restrict__ b2, const T* __restrict__ q_scale,
                  T* __restrict__ e_out, T* __restrict__ hdir_out,
-                 T* __restrict__ abar_out, int n, int m, Spec sp) {
+                 T* __restrict__ abar_out, int n, int m, int tab_stride,
+                 Spec sp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nt = sp.n_types, K = sp.K, H = sp.hidden;
@@ -108,8 +111,12 @@ atom_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   stage(s_qs, q_scale, D);
   __syncthreads();
 
-  // replica blockIdx.y: its blocks and outputs (the table is shared)
+  // replica blockIdx.y: its blocks and outputs, and its table unless the
+  // table is shared (tab_stride 0)
   const size_t rep = blockIdx.y;
+  mask += rep * tab_stride * m;
+  tj += rep * tab_stride * m;
+  ti += rep * tab_stride;
   dr += rep * n * m * 3;
   si += rep * n * 3;
   sj += rep * n * m * 3;
@@ -307,8 +314,8 @@ int launch_atom_pass(const void* dr, const void* mask, const void* ti,
                      const void* c_rad, const void* c_ang, const void* c_spin,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* q_scale, void* e, void* hdir,
-                     void* abar, int n, int m, int nr, Spec sp,
-                     void* stream) {
+                     void* abar, int n, int m, int nr, int tab_stride,
+                     Spec sp, void* stream) {
   const size_t smem = atom_pass_smem(sp, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       atom_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -319,7 +326,8 @@ int launch_atom_pass(const void* dr, const void* mask, const void* ti,
       (const T*)dr, (const bool*)mask, (const int*)ti, (const int*)tj,
       (const T*)si, (const T*)sj, (const T*)c_rad, (const T*)c_ang,
       (const T*)c_spin, (const T*)w1, (const T*)b1, (const T*)w2,
-      (const T*)b2, (const T*)q_scale, (T*)e, (T*)hdir, (T*)abar, n, m, sp);
+      (const T*)b2, (const T*)q_scale, (T*)e, (T*)hdir, (T*)abar, n, m,
+      tab_stride, sp);
   return (int)cudaGetLastError();
 }
 
@@ -464,7 +472,7 @@ atom_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                       const T* __restrict__ b2,
                       const T* __restrict__ q_scale, T* __restrict__ e_out,
                       T* __restrict__ hdir_out, T* __restrict__ abar_out,
-                      int n, int m, T rc) {
+                      int n, int m, int tab_stride, T rc) {
   static_assert(S::NS > 0, "the warp body is compiled for spin specs");
   using R = Rec<S>;
   constexpr int A = S::A, D = S::D, H = S::H, NT = S::NT, NS = S::NS,
@@ -504,10 +512,14 @@ atom_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   for (int t = 0; t < R::T; ++t) acc_factors<S>(lane + 32 * t, f1[t], f2[t]);
   const int ofs = S::NR + NA * S::L + S::NO;   // sp_dot features in q
 
-  // a batch's replica blockIdx.y: its blocks and outputs (the table is
-  // shared); a flat launch (BATCH false) runs the body as it was
+  // a batch's replica blockIdx.y: its blocks and outputs, and its table
+  // unless the table is shared (tab_stride 0); a flat launch (BATCH false)
+  // runs the body as it was
   if constexpr (BATCH) {
     const size_t rep = blockIdx.y;
+    mask += rep * tab_stride * m;
+    tj += rep * tab_stride * m;
+    ti += rep * tab_stride;
     dr += rep * n * m * 3;
     si += rep * n * 3;
     sj += rep * n * m * 3;
@@ -700,8 +712,8 @@ int launch_atom_warp(const void* dr, const void* mask, const void* ti,
                      const void* c_rad, const void* c_ang, const void* c_spin,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* q_scale, void* e, void* hdir,
-                     void* abar, int n, int m, int nr, double cutoff,
-                     void* stream) {
+                     void* abar, int n, int m, int nr, int tab_stride,
+                     double cutoff, void* stream) {
   const size_t smem =
       sizeof(T) * (atom_shared_count<S>() + AWARPS * atom_warp_count<S>()) +
       sizeof(int) * AWARPS * m;
@@ -717,7 +729,7 @@ int launch_atom_warp(const void* dr, const void* mask, const void* ti,
       (const T*)si, (const T*)sj, (const T*)c_rad, (const T*)c_ang,
       (const T*)c_spin, (const T*)w1, (const T*)b1, (const T*)w2,
       (const T*)b2, (const T*)q_scale, (T*)e, (T*)hdir, (T*)abar, n, m,
-      T(cutoff));
+      tab_stride, T(cutoff));
   return (int)cudaGetLastError();
 }
 
@@ -728,28 +740,28 @@ int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
                           const void* c_spin, const void* w1, const void* b1,
                           const void* w2, const void* b2,
                           const void* q_scale, void* e, void* hdir,
-                          void* abar, int n, int m, int nr, Spec sp,
-                          void* stream) {
+                          void* abar, int n, int m, int nr,
+                          int tab_stride, Spec sp, void* stream) {
   if (is_atom<ProdSizes>(sp))
     return launch_atom_warp<ProdSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                           c_ang, c_spin, w1, b1, w2, b2,
                                           q_scale, e, hdir, abar, n, m, nr,
-                                          sp.cutoff, stream);
+                                          tab_stride, sp.cutoff, stream);
   if (is_atom<SmokeSizes>(sp))
     return launch_atom_warp<SmokeSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                            c_ang, c_spin, w1, b1, w2, b2,
                                            q_scale, e, hdir, abar, n, m, nr,
-                                           sp.cutoff, stream);
+                                           tab_stride, sp.cutoff, stream);
   if (is_atom<LoopSizes>(sp))
     return launch_atom_warp<LoopSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                           c_ang, c_spin, w1, b1, w2, b2,
                                           q_scale, e, hdir, abar, n, m, nr,
-                                          sp.cutoff, stream);
+                                          tab_stride, sp.cutoff, stream);
   if (is_atom<TrainSizes>(sp))
     return launch_atom_warp<TrainSizes, T>(dr, mask, ti, tj, si, sj, c_rad,
                                            c_ang, c_spin, w1, b1, w2, b2,
                                            q_scale, e, hdir, abar, n, m, nr,
-                                           sp.cutoff, stream);
+                                           tab_stride, sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
 
@@ -762,14 +774,15 @@ int launch_atom_pass_warp(const void* dr, const void* mask, const void* ti,
                       const void* c_spin, const void* w1, const void* b1,    \
                       const void* w2, const void* b2, const void* q_scale,   \
                       void* e, void* hdir, void* abar, int n, int m, int nr, \
-                      int n_types, int K, int n_rad, int n_ang, int l_max,   \
+                      int tab_stride, int n_types, int K, int n_rad,         \
+                      int n_ang, int l_max,                                  \
                       int n_spin, int n_onsite, int hidden, int spin,        \
                       double cutoff, void* stream) {                         \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,  \
                  spin, cutoff};                                              \
     return nep::LAUNCH<T>(dr, mask, ti, tj, si, sj, c_rad, c_ang, c_spin,    \
                           w1, b1, w2, b2, q_scale, e, hdir, abar, n, m, nr,  \
-                          sp, stream);                                       \
+                          tab_stride, sp, stream);                           \
   }
 
 NEP_ATOM_PASS_ENTRY(nep_atom_pass_f32, float, launch_atom_pass)

@@ -53,13 +53,17 @@
 //   with run-time loop bounds, so its per-pair arrays sit in local memory.
 //   It serves every other spec within the bounds of nep_common.cuh.
 //
-// Replica axis (the Replicated plan): one launch serves nr replicas that
-// share one table.  mask, tj, idx and ti are the table's, (n, m) and (n,);
-// dr, si, sj, the adjoints and both outputs carry a leading replica axis.
-// The grid's y axis is the replica: a block moves those pointers to its
-// replica's rows (so a neighbor's adjoint row is replica r's, at
-// r * n + idx) and runs the flat body unchanged, so replica r of a batched
-// launch is bitwise a launch on replica r's inputs alone.  The warp body's
+// Replica axis: one launch serves nr replicas.  dr, si, sj, the adjoints
+// and both outputs carry a leading replica axis.  The table (mask, tj, idx
+// (n, m), ti (n,)) is shared by every replica (the Replicated plan:
+// tab_stride 0) or is one per replica (the Sharded plan's replicas:
+// tab_stride n).  Each replica's adjoints are n_src >= n rows (n_src > n on
+// the Sharded plan: the owned slots, then the halo ring).  The grid's y axis
+// is the replica: a block moves those pointers to its replica's rows - the
+// table's by tab_stride rows, the adjoints' by n_src (so a neighbor's
+// adjoint row is replica r's, at r * n_src + idx) - and runs the flat body
+// unchanged, so replica r of a batched launch is bitwise a launch on
+// replica r's inputs alone.  The warp body's
 // flat instantiation (BATCH false, launched for nr = 1) leaves the move
 // out, as K1's does.
 #include "nep_common.cuh"
@@ -74,7 +78,8 @@ force_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                   const T* __restrict__ sj, const T* __restrict__ c_rad,
                   const T* __restrict__ c_ang, const T* __restrict__ c_spin,
                   const T* __restrict__ abar, T* __restrict__ f_out,
-                  T* __restrict__ h_out, int n, int m, Spec sp) {
+                  T* __restrict__ h_out, int n, int m, int tab_stride,
+                  int n_src, Spec sp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nt = sp.n_types, K = sp.K;
@@ -88,13 +93,17 @@ force_pass_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   if (sp.spin) stage(s_cspin, c_spin, nt * nt * sp.n_spin * K);
   __syncthreads();
 
-  // replica blockIdx.y: its blocks, adjoints and outputs (the table is
-  // shared)
+  // replica blockIdx.y: its blocks, adjoints and outputs, and its table
+  // unless the table is shared (tab_stride 0)
   const size_t rep = blockIdx.y;
+  mask += rep * tab_stride * m;
+  idx += rep * tab_stride * m;
+  tj += rep * tab_stride * m;
+  ti += rep * tab_stride;
   dr += rep * n * m * 3;
   si += rep * n * 3;
   sj += rep * n * m * 3;
-  abar += rep * n * A;
+  abar += rep * n_src * A;
   f_out += rep * n * 3;
   h_out += rep * n * 3;
 
@@ -258,7 +267,8 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
                       const void* ti, const void* tj, const void* si,
                       const void* sj, const void* c_rad, const void* c_ang,
                       const void* c_spin, const void* abar, void* f, void* h,
-                      int n, int m, int nr, Spec sp, void* stream) {
+                      int n, int m, int nr, int tab_stride, int n_src,
+                      Spec sp, void* stream) {
   const size_t smem = (size_t)sp.n_types * sp.n_types *
                       (sp.n_rad + sp.n_ang + (sp.spin ? sp.n_spin : 0)) *
                       sp.K * sizeof(T);
@@ -271,7 +281,7 @@ int launch_force_pass(const void* dr, const void* mask, const void* idx,
       (const T*)dr, (const bool*)mask, (const int*)idx, (const int*)ti,
       (const int*)tj, (const T*)si, (const T*)sj, (const T*)c_rad,
       (const T*)c_ang, (const T*)c_spin, (const T*)abar, (T*)f, (T*)h, n, m,
-      sp);
+      tab_stride, n_src, sp);
   return (int)cudaGetLastError();
 }
 
@@ -476,7 +486,8 @@ force_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
                        const T* __restrict__ c_ang,
                        const T* __restrict__ c_spin,
                        const T* __restrict__ abar, T* __restrict__ f_out,
-                       T* __restrict__ h_out, int n, int m, T rc) {
+                       T* __restrict__ h_out, int n, int m,
+                       int tab_stride, int n_src, T rc) {
   constexpr int A = S::A, LDA = S::LDA;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sc = reinterpret_cast<T*>(smem_raw);             // carriers
@@ -496,14 +507,19 @@ force_pass_warp_kernel(const T* __restrict__ dr, const bool* __restrict__ mask,
   T* own = s_own + warp * A;
   T* nbs = s_nb + warp * 32 * LDA;
   int* list = s_list + warp * m;
-  // a batch's replica blockIdx.y: its blocks, adjoints and outputs (the
-  // table is shared); a flat launch (BATCH false) runs the body as it was
+  // a batch's replica blockIdx.y: its blocks, adjoints and outputs, and
+  // its table unless the table is shared (tab_stride 0); a flat launch
+  // (BATCH false) runs the body as it was
   if constexpr (BATCH) {
     const size_t rep = blockIdx.y;
+    mask += rep * tab_stride * m;
+    idx += rep * tab_stride * m;
+    tj += rep * tab_stride * m;
+    ti += rep * tab_stride;
     dr += rep * n * m * 3;
     si += rep * n * 3;
     sj += rep * n * m * 3;
-    abar += rep * n * A;
+    abar += rep * n_src * A;
     f_out += rep * n * 3;
     h_out += rep * n * 3;
   }
@@ -579,7 +595,8 @@ int launch_warp(const void* dr, const void* mask, const void* idx,
                 const void* ti, const void* tj, const void* si,
                 const void* sj, const void* c_rad, const void* c_ang,
                 const void* c_spin, const void* abar, void* f, void* h,
-                int n, int m, int nr, double cutoff, void* stream) {
+                int n, int m, int nr, int tab_stride, int n_src,
+                double cutoff, void* stream) {
   const size_t smem = sizeof(T) * ((S::NC + 3) / 4 * 4 + WARPS * S::A +
                                    WARPS * 32 * S::LDA) +
                       sizeof(int) * WARPS * m;
@@ -594,7 +611,7 @@ int launch_warp(const void* dr, const void* mask, const void* idx,
       (const T*)dr, (const bool*)mask, (const int*)idx, (const int*)ti,
       (const int*)tj, (const T*)si, (const T*)sj, (const T*)c_rad,
       (const T*)c_ang, (const T*)c_spin, (const T*)abar, (T*)f, (T*)h, n, m,
-      T(cutoff));
+      tab_stride, n_src, T(cutoff));
   return (int)cudaGetLastError();
 }
 
@@ -604,20 +621,21 @@ int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
                            const void* sj, const void* c_rad,
                            const void* c_ang, const void* c_spin,
                            const void* abar, void* f, void* h, int n, int m,
-                           int nr, Spec sp, void* stream) {
+                           int nr, int tab_stride, int n_src, Spec sp,
+                           void* stream) {
   if (is<ProdSizes>(sp))
     return launch_warp<ProdSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
                                      c_ang, c_spin, abar, f, h, n, m, nr,
-                                     sp.cutoff, stream);
+                                     tab_stride, n_src, sp.cutoff, stream);
   // the md_loop scenario's spec shares SmokeSizes' carriers: it runs here
   if (is<SmokeSizes>(sp))
     return launch_warp<SmokeSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
                                       c_ang, c_spin, abar, f, h, n, m, nr,
-                                      sp.cutoff, stream);
+                                      tab_stride, n_src, sp.cutoff, stream);
   if (is<TrainSizes>(sp))
     return launch_warp<TrainSizes, T>(dr, mask, idx, ti, tj, si, sj, c_rad,
                                       c_ang, c_spin, abar, f, h, n, m, nr,
-                                      sp.cutoff, stream);
+                                      tab_stride, n_src, sp.cutoff, stream);
   return (int)cudaErrorInvalidValue;   // no instantiation for this spec
 }
 
@@ -628,13 +646,15 @@ int launch_force_pass_warp(const void* dr, const void* mask, const void* idx,
                       const void* ti, const void* tj, const void* si,         \
                       const void* sj, const void* c_rad, const void* c_ang,   \
                       const void* c_spin, const void* abar, void* f, void* h, \
-                      int n, int m, int nr, int n_types, int K, int n_rad,    \
-                      int n_ang, int l_max, int n_spin, int n_onsite,         \
-                      int hidden, int spin, double cutoff, void* stream) {    \
+                      int n, int m, int nr, int tab_stride, int n_src,        \
+                      int n_types, int K, int n_rad, int n_ang, int l_max,    \
+                      int n_spin, int n_onsite, int hidden, int spin,         \
+                      double cutoff, void* stream) {                          \
     nep::Spec sp{n_types, K, n_rad, n_ang, l_max, n_spin, n_onsite, hidden,   \
                  spin, cutoff};                                               \
     return nep::LAUNCH<T>(dr, mask, idx, ti, tj, si, sj, c_rad, c_ang,        \
-                          c_spin, abar, f, h, n, m, nr, sp, stream);          \
+                          c_spin, abar, f, h, n, m, nr, tab_stride, n_src,    \
+                          sp, stream);                                        \
   }
 
 NEP_FORCE_PASS_ENTRY(nep_force_pass_f32, float, launch_force_pass)

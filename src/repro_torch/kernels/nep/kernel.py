@@ -9,14 +9,18 @@ device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, raises if the launch reports a CUDA error, and counts its
 launches in a plain integer attribute (``nep_atom_pass.launches``).
 
-Replica axis: one launch serves R replicas that share one table.  ``mask``,
-``tj``, ``ti`` (and K2's ``idx``) are the table's, (N, M) and (N,); ``dr``
-(R, N, M, 3), ``si`` (R, N, 3), ``sj`` (R, N, M, 3) and K2's ``abar``
-(R, N, A) are per replica, and so are the outputs.  Without the leading axis
-the shapes are the flat ones.  The kernels' grid gains a replica axis over
-which each replica runs the flat body, so replica r of a batched launch is
-bitwise a flat launch on replica r's inputs; ``launches`` counts launches,
-not replicas.
+Replica axis: one launch serves R replicas.  ``dr`` (R, N, M, 3), ``si``
+(R, N, 3), ``sj`` (R, N, M, 3) and K2's ``abar`` (R, n_src >= N, A) are per
+replica, and so are the outputs.  The table - ``mask``, ``tj`` (and K2's
+``idx``) and ``ti`` - is either shared, (N, M) and (N,) (the Replicated
+plan's one table), or one per replica, (R, N, M) and (R, N) (the Sharded
+plan's replicas, each migrating its own atoms).  The kernels take the
+table's replica stride (0 for a shared table, N rows for per-replica ones)
+and ``abar``'s rows per replica; their grid gains a replica axis over which
+each replica runs the flat body, so replica r of a batched launch is
+bitwise a flat launch on replica r's table and inputs.  Without the leading
+axis the shapes are the flat ones.  ``launches`` counts launches, not
+replicas.
 
 Each kernel has two bodies: ``"warp"`` (one warp per atom, compiled for
 the specs of ``WARP_SPECS``) and ``"thread"`` (one thread per atom, any spec
@@ -53,9 +57,9 @@ MAX_REPLICAS = 65535                 # the CUDA grid's y extent
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SPEC_ARGS = [_I] * 9 + [_D, _P]     # n_types..spin, cutoff, stream
-_ARGTYPES = {                        # ..., n, m, replicas, spec
-    "nep_atom_pass": [_P] * 17 + [_I, _I, _I] + _SPEC_ARGS,
-    "nep_force_pass": [_P] * 13 + [_I, _I, _I] + _SPEC_ARGS,
+_ARGTYPES = {   # ..., n, m, replicas, table stride (K2: + n_src), spec
+    "nep_atom_pass": [_P] * 17 + [_I] * 4 + _SPEC_ARGS,
+    "nep_force_pass": [_P] * 13 + [_I] * 5 + _SPEC_ARGS,
 }
 
 
@@ -118,24 +122,27 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 
 def _check_common(spec, params, dr, mask, ti, tj, si, sj):
-    """Check a launch's inputs; returns ``(n, m, lead)`` with ``lead``
-    ``(R,)`` for a replica batch, else ``()``."""
+    """Check a launch's inputs; returns ``(n, m, lead, tab)`` with
+    ``lead`` ``(R,)`` for a replica batch, else ``()``, and ``tab`` the
+    table's lead: ``lead`` for per-replica tables, ``()`` for a shared
+    one."""
     if dr.device.type != "cuda":
         raise ValueError(f"NEP kernels run on CUDA or CPU tensors, got "
                          f"{dr.device}")
     if dr.dtype not in _DTYPES:
         raise TypeError(f"NEP kernels take float32 or float64, got {dr.dtype}")
     check_spec(spec)
-    n, m = mask.shape
+    n, m = mask.shape[-2:]
     lead = tuple(dr.shape[:1]) if dr.dim() == 4 else ()
     if lead and lead[0] > MAX_REPLICAS:
         raise ValueError(f"{lead[0]} replicas in one launch; the grid's "
                          f"replica axis holds at most {MAX_REPLICAS}")
+    tab = lead if mask.dim() == 3 else ()
     dev, dt = dr.device, dr.dtype
     _check("dr", dr, lead + (n, m, 3), dt, dev)
-    _check("mask", mask, (n, m), torch.bool, dev)
-    _check("ti", ti, (n,), torch.int32, dev)
-    _check("tj", tj, (n, m), torch.int32, dev)
+    _check("mask", mask, tab + (n, m), torch.bool, dev)
+    _check("ti", ti, tab + (n,), torch.int32, dev)
+    _check("tj", tj, tab + (n, m), torch.int32, dev)
     _check("si", si, lead + (n, 3), dt, dev)
     _check("sj", sj, lead + (n, m, 3), dt, dev)
     t, k, h, d = spec.n_types, spec.basis_size, spec.hidden, spec.n_desc
@@ -144,7 +151,7 @@ def _check_common(spec, params, dr, mask, ti, tj, si, sj):
               "w2": (t, h), "b2": (t,), "q_scale": (d,)}
     for field, shape in shapes.items():
         _check(field, getattr(params, field), shape, dt, dev)
-    return n, m, lead
+    return n, m, lead, tab
 
 
 def _spec_args(spec: NEPSpinSpec, device):
@@ -166,7 +173,8 @@ def nep_atom_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti, tj,
 
     dr (N,M,3), mask (N,M) bool, ti (N,) / tj (N,M) int32, si (N,3),
     sj (N,M,3); a replica batch adds a leading R to dr, si, sj and the
-    outputs (module docstring).  ``hdir = -dE_i/dS_i`` at fixed
+    outputs, and to mask, ti and tj for per-replica tables (module
+    docstring).  ``hdir = -dE_i/dS_i`` at fixed
     accumulators; ``abar`` is the packed dE_i/dA_i
     (:mod:`repro_torch.kernels.nep.layout`).  ``body`` defaults to
     :func:`atom_pass_body`; ``"thread"`` runs the thread-per-atom body for
@@ -175,7 +183,7 @@ def nep_atom_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti, tj,
     body = _pick("K1", body, atom_pass_body(spec))
     if dr.device.type == "cpu":
         return atom_pass_plain(spec, params, dr, mask, ti, tj, si, sj)
-    n, m, lead = _check_common(spec, params, dr, mask, ti, tj, si, sj)
+    n, m, lead, tab = _check_common(spec, params, dr, mask, ti, tj, si, sj)
     e = torch.empty(lead + (n,), dtype=dr.dtype, device=dr.device)
     hdir = torch.empty(lead + (n, 3), dtype=dr.dtype, device=dr.device)
     abar = torch.empty(lead + (n, acc_width(spec)), dtype=dr.dtype,
@@ -188,7 +196,8 @@ def nep_atom_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti, tj,
             dr.data_ptr(), mask.data_ptr(), ti.data_ptr(), tj.data_ptr(),
             si.data_ptr(), sj.data_ptr(), *(p.data_ptr() for p in params),
             e.data_ptr(), hdir.data_ptr(), abar.data_ptr(), n, m,
-            lead[0] if lead else 1, *_spec_args(spec, dr.device))
+            lead[0] if lead else 1, n if tab else 0,
+            *_spec_args(spec, dr.device))
     _raise_on("nep_atom_pass", rc)
     nep_atom_pass.launches += 1
     nep_atom_pass.body_launches[body] += 1
@@ -203,11 +212,12 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
                    ti, tj, si, sj, abar, *, body: str | None = None):
     """K2: ``(F (N,3), h2 (N,3))`` from K1's packed adjoints ``abar``
     (N, A), read through ``idx`` (N,M) int32 for each neighbor; a replica
-    batch adds a leading R to dr, si, sj, abar and the outputs, and reads
-    replica r's neighbor rows.  A flat launch also takes ``abar`` with
-    more rows than atoms, (n_src >= N, A): row i is atom i's own and
-    ``idx`` may point at any row below n_src (the Sharded plan's owned
-    slots followed by the halo ring).  ``body``
+    batch adds a leading R to dr, si, sj, abar and the outputs (and to
+    mask, idx, ti and tj for per-replica tables), and reads replica r's
+    neighbor rows.  ``abar`` may have more rows than atoms, (n_src >= N,
+    A), or (R, n_src, A): row i is atom i's own and ``idx`` may point at
+    any row below n_src (the Sharded plan's owned slots followed by the
+    halo ring).  ``body``
     defaults to :func:`force_pass_body`; ``"thread"`` runs the
     thread-per-atom body for any spec, ``"warp"`` raises for a spec it was
     not compiled for (on any device)."""
@@ -215,9 +225,9 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     if dr.device.type == "cpu":
         return force_pass_plain(spec, params, dr, mask, idx, ti, tj, si, sj,
                                 abar)
-    n, m, lead = _check_common(spec, params, dr, mask, ti, tj, si, sj)
-    _check("idx", idx, (n, m), torch.int32, dr.device)
-    n_src = n if lead else max(abar.shape[0], n)
+    n, m, lead, tab = _check_common(spec, params, dr, mask, ti, tj, si, sj)
+    _check("idx", idx, tab + (n, m), torch.int32, dr.device)
+    n_src = max(abar.shape[-2], n) if abar.dim() >= 2 else n
     _check("abar", abar, lead + (n_src, acc_width(spec)), dr.dtype,
            dr.device)
     if n_src > n and n * m and int(idx.max()) >= n_src:
@@ -233,8 +243,8 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
             tj.data_ptr(), si.data_ptr(), sj.data_ptr(),
             params.c_rad.data_ptr(), params.c_ang.data_ptr(),
             params.c_spin.data_ptr(), abar.data_ptr(), f.data_ptr(),
-            h2.data_ptr(), n, m, lead[0] if lead else 1,
-            *_spec_args(spec, dr.device))
+            h2.data_ptr(), n, m, lead[0] if lead else 1, n if tab else 0,
+            n_src, *_spec_args(spec, dr.device))
     _raise_on("nep_force_pass", rc)
     nep_force_pass.launches += 1
     nep_force_pass.body_launches[body] += 1

@@ -18,7 +18,8 @@ time is spent.  Nothing on the main path calls them.
 Both plain versions walk the atoms in row blocks of ``PLAIN_ROWS`` so their
 autograd intermediates stay bounded at production sizes, and take the
 kernels' replica batches (a leading R on dr, si, sj, abar and the outputs;
-one shared table) one replica at a time.
+one shared table, or a leading R on the table too) one replica at a
+time.
 """
 from __future__ import annotations
 
@@ -89,9 +90,10 @@ def atom_pass_plain(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, ti,
     dE_i/dA_i (:mod:`repro_torch.kernels.nep.layout`); replica batches as
     the kernel takes them."""
     if dr.dim() == 4:
+        own = mask.dim() == 3         # per-replica tables
         return _per_replica(
             lambda d, *a: atom_pass_plain(spec, params, d, *a), dr,
-            (False, mask), (False, ti), (False, tj), (True, si), (True, sj))
+            (own, mask), (own, ti), (own, tj), (True, si), (True, sj))
     outs = [_atom_block(spec, params, dr[b], mask[b], ti[b], tj[b], si[b],
                         sj[b]) for b in _row_blocks(dr.shape[0])]
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -153,12 +155,14 @@ def force_pass_plain(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     """K2 by autograd: ``(F (N,3), h2 (N,3))`` with
     ``F_i = sum_m dt/d(dr_im)`` and ``h2 = -dt/dS_i``; ``abar`` is K1's
     packed (N, A) buffer, gathered here through ``idx``.  The S_j gradient
-    belongs to atom j's own row and is discarded.  Replica batches as the
-    kernel takes them."""
+    belongs to atom j's own row and is discarded.  Replica batches (shared
+    or per-replica tables, ``abar`` (R, n_src, A)) as the kernel takes
+    them."""
     if dr.dim() == 4:
+        own = mask.dim() == 3         # per-replica tables
         return _per_replica(
             lambda d, *a: force_pass_plain(spec, params, d, *a), dr,
-            (False, mask), (False, idx), (False, ti), (False, tj),
+            (own, mask), (own, idx), (own, ti), (own, tj),
             (True, si), (True, sj), (True, abar))
     dp = params.desc_params()
     fs, hs = [], []

@@ -21,6 +21,8 @@ import math
 import os
 import sys
 
+from repro_torch.ckpt.elastic import straggler_chunks
+
 _BLOCKS = "▁▂▃▄▅▆▇█"
 
 _RESIL_EVENTS = ("fault_injected", "rollback", "retry", "degrade",
@@ -85,25 +87,6 @@ def _is_num(x) -> bool:
 
 def _fmt_s(s) -> str:
     return f"{s:.2f} s" if isinstance(s, (int, float)) else "?"
-
-
-def straggler_chunks(wall_times, *, window: int = 50,
-                     threshold: float = 1.5,
-                     min_samples: int = 4) -> list[int]:
-    """Indices of straggled chunks: a chunk whose wall time exceeds
-    ``threshold`` x the median of the trailing ``window`` records (once
-    ``min_samples`` are in).  The first (warm-up) chunk is never flagged
-    (the reference's ``ckpt.elastic.straggler_chunks``)."""
-    import numpy as np
-    times, flagged = [], []
-    for i, w in enumerate(wall_times):
-        times.append(float(w))
-        if len(times) > window:
-            times.pop(0)
-        if (len(times) >= min_samples and i > 0
-                and float(w) > threshold * float(np.median(times))):
-            flagged.append(i)
-    return flagged
 
 
 def _fmt_resil(e: dict) -> str:

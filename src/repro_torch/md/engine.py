@@ -52,6 +52,12 @@ which may be :class:`~repro_torch.ensemble.protocol.SlotSchedules`, its
 own generator, per-slot health vectors, and :meth:`Engine.write_slots` to
 seat a new job in a slot between chunks, evaluated by the same routine as
 every other evaluation, so the other slots keep their bits.
+:meth:`Engine.shard_replicas` (or ``Replicated(devices=...)``) splits the
+replica axis over ranks: each holds R / ranks replicas and their
+generators, a rebuild gathers every replica's positions for the shared
+table (bitwise the one-process table), the half-skin trip is a local max
+and an ``all_reduce(MAX)``, and checkpoints hold every replica, as one
+process writes them.
 
 Resilience (:mod:`repro_torch.resilience`): ``_fault_injector``, when set,
 is called at every chunk start on either plan with ``(engine, carry, n)``
@@ -73,17 +79,25 @@ their new cells in one fused exchange and counts what a full cell or a
 jump past the stencil drops; the run raises ``HealthError(kind=
 "overflow")`` at the chunk boundary.  ``Engine.state`` and ``_ff`` are
 gathered into the original atom order on every rank at a run's end.  Each
-rank draws its noise from its own ``torch.Generator``.
-
-Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1 item
-13b): elastic restore onto another mesh, ``rebind(plan=...)``, replicas
-composed with the spatial mesh, and the replica axis across several cards
-(``shard_replicas``).
+rank draws its noise from its own ``torch.Generator``.  ``Sharded(replicas=
+R)`` composes a replica axis with the spatial mesh (which may carry a
+``"replica"`` dimension): the carry's blocks gain a leading axis of the
+rank's local replicas, each with its own cells, table and generator; one
+K1 and one K2 launch serve them all; energies and observables are reduced
+over the spatial ranks only, the skin test, health and drop counts over the
+whole mesh, so every replica rebuilds together.  ``temperature`` is then
+(R,) and ``field`` (R, 3) (or Schedules with per-replica columns), the
+trace (C, R) and ``magnetization`` (C, R, 3).  ``restore(directory,
+plan=...)`` restores a Sharded checkpoint written on any mesh (elastic
+restore, :mod:`repro_torch.ckpt.elastic`) and ``rebind(plan=...)`` re-lays
+the plan at a new capacity, grid or mesh; both take one trajectory, as the
+reference's.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -302,6 +316,7 @@ def _replica_ff(ffs: ForceField, r: int) -> ForceField:
     return ForceField(ffs.energy[r], ffs.force[r], ffs.field[r])
 
 
+
 @dataclasses.dataclass
 class Engine:
     """MD engine: flat or replicated on one device, or sharded over the
@@ -375,6 +390,10 @@ class Engine:
         self.evict_slot_hook = None  # serving hook: (HealthError) -> info
                                      # dict, or None; the supervisor calls
                                      # it to evict one poisoned per-slot job
+        self._batch = 0             # replicas in this process's batch
+        self._rep0 = 0              # the global index of its first one
+        self._rep_ranks = None      # Replicated over ranks: their order
+        self._rep_group = None      # and their group (None: the world)
         if self._sharded:
             if self.table is not None:
                 raise ValueError("the Sharded plan builds its own per-rank "
@@ -391,6 +410,7 @@ class Engine:
                                  f"!= plan replicas {r}")
             self.state = self.state._replace(
                 step=np.asarray(self.state.step, np.int64).reshape(r))
+            self._batch = r
             self._setup_replica()
             if self.plan.devices is not None:
                 self.shard_replicas(self.plan.devices)
@@ -415,9 +435,13 @@ class Engine:
 
     @property
     def energy(self):
-        """Potential energy [eV]: a float, or (R,) on the replica plan."""
-        if self._replica:
+        """Potential energy [eV]: a float, or (R,) on a replica plan (every
+        replica's, on every rank, as of the last sync on a plan split over
+        ranks)."""
+        if self._replica and self._rep_ranks is None:
             return self._carry.ffs.energy.detach().cpu().numpy()
+        if self._replica or (self._sharded and self.replicas):
+            return self._ff.energy.detach().cpu().numpy()
         return float(self._carry.ff.energy)
 
     def _step_now(self) -> int:
@@ -467,18 +491,22 @@ class Engine:
     def _as_step_arg(self, rows, vec: bool, lead: tuple = ()):
         """A constant, or host float32 schedule values shaped ``lead`` +
         the value's own (and the replica axis), as the step takes them:
-        Python floats (lists of R on the replica plan) for temperatures,
-        (..., 3) or (..., R, 3) device tensors for fields."""
+        Python floats (lists of R on the replica plans) for temperatures,
+        (..., 3) or (..., R, 3) device tensors for fields.  A process that
+        holds only some replicas (a plan split over ranks) takes its own
+        columns."""
+        r = self.replicas if self._batch else 0
+        own = slice(self._rep0, self._rep0 + self._batch)
         if vec:
             v = torch.as_tensor(rows, dtype=self.state.pos.dtype,
                                 device=self.device)
-            if self._replica:
+            if r:
                 v = v.reshape(lead + (-1, 3)).expand(
-                    lead + (self.replicas, 3)).contiguous()
+                    lead + (r, 3))[..., own, :].contiguous()
             return v
-        if self._replica:
+        if r:
             rows = np.broadcast_to(np.reshape(rows, lead + (-1,)),
-                                   lead + (self.replicas,))
+                                   lead + (r,))[..., own]
             return rows.astype(np.float64).tolist()
         return np.asarray(rows, np.float64).tolist()
 
@@ -602,8 +630,10 @@ class Engine:
     def _setup_replica(self):
         """Shared-table replica batch: builder, step closure, the initial
         table, blocks and forces (no cell reordering: one table serves
-        every replica)."""
-        st = self.state
+        every replica).  ``self.state`` holds every replica; on a plan
+        split over ranks the carry keeps this rank's."""
+        full = self.state
+        st = self._own_rows(full)
         self._box0, self._types0 = st.box[0], st.types[0]
         build, _, _ = make_table_builder(
             self._box0, self.cutoff, self.capacity, self.cell_capacity,
@@ -623,7 +653,7 @@ class Engine:
             table = self.table
         else:
             with phase("rebuild"):
-                table = build(reference_pos(st.pos, box0), box0)
+                table = build(reference_pos(full.pos, box0), box0)
         nbh = self._shared(table, st.pos)
         self._carry = ReplicaCarry(st, self._replica_eval(nbh, st.spin, None,
                                                           f0),
@@ -645,17 +675,73 @@ class Engine:
 
     def _replica_rebuild(self, states, field):
         """A shared table from the replica-mean positions, every replica's
-        ``dr``, forces."""
+        ``dr``, forces.  Split over ranks, the positions of every replica
+        are gathered first (an ``all_gather``, not a sum over ranks), so
+        the mean is taken in the one-process order and the table is the
+        one-process table bit for bit."""
         with phase("rebuild"):
-            table = self._build(reference_pos(states.pos, self._box0),
-                                self._box0)
+            table = self._build(reference_pos(self._rep_all(states.pos),
+                                              self._box0), self._box0)
             nbh = self._shared(table, states.pos)
         return table, nbh, self._replica_eval(nbh, states.spin, None, field)
 
     def _sync_replica(self):
+        """``state`` and ``_ff`` as the carry has them - every replica's,
+        gathered from the ranks on a plan split over them."""
         c = self._carry
-        self.state, self._ff, self.table = c.states, c.ffs, c.table
+        self.state, self._ff = self._full_batch(c)
+        self.table = c.table
         self._obs_state = self.state
+
+    def _full_batch(self, c: ReplicaCarry):
+        """(states, forces) of every replica: the carry's own, or gathered
+        from the ranks of a plan split over them."""
+        if self._rep_ranks is None:
+            return c.states, c.ffs
+        st = c.states
+        steps = self._rep_all(torch.as_tensor(np.asarray(st.step),
+                                              device=self.device))
+        return (SpinLatticeState(
+            *(self._rep_all(getattr(st, k))
+              for k in ("pos", "vel", "spin", "types", "box")),
+            step=steps.cpu().numpy()),
+            ForceField(*(self._rep_all(x) for x in c.ffs)))
+
+    # -- the replica axis split over ranks ------------------------------
+    def _own_rows(self, states: SpinLatticeState) -> SpinLatticeState:
+        """This rank's replicas of a batch of every replica (the batch
+        itself on one process)."""
+        if self._rep_ranks is None or states.pos.shape[0] == self._batch:
+            return states
+        own = slice(self._rep0, self._rep0 + self._batch)
+        return SpinLatticeState(
+            *(getattr(states, k)[own]
+              for k in ("pos", "vel", "spin", "types", "box")),
+            step=np.asarray(states.step)[own])
+
+    def _rep_all(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's replicas of ``t`` (this rank's along ``dim``),
+        concatenated in replica order: an ``all_gather`` over the replica
+        ranks; ``t`` itself on one process."""
+        if self._rep_ranks is None:
+            return t
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in self._rep_ranks]
+        dist.all_gather(parts, t, group=self._rep_group)
+        order = sorted(self._rep_ranks)    # a group's ranks, ascending
+        return torch.cat([parts[order.index(r)] for r in self._rep_ranks],
+                         dim=dim)
+
+    def _rep_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced (``"sum"`` or ``"max"``) over the replica ranks."""
+        if self._rep_ranks is None:
+            return t
+        import torch.distributed as dist
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=self._rep_group)
+        return out
 
     def _replica_restart_if_swapped(self, farg):
         """Resync only when the caller swapped ``engine.state``: an
@@ -671,8 +757,8 @@ class Engine:
         if not torch.equal(self.state.box[0], self._box0):
             raise ValueError("the replica plan keeps its box; build a new "
                              "Engine for a new geometry")
-        st = self.state._replace(
-            step=np.asarray(self.state.step, np.int64).reshape(-1))
+        st = self._own_rows(self.state._replace(
+            step=np.asarray(self.state.step, np.int64).reshape(-1)))
         c = self._carry
         nbh = refresh_dr(c.nbh, st.pos, self._box0)
         ffs = self._replica_eval(nbh, st.spin, None,
@@ -681,11 +767,55 @@ class Engine:
         self._sync_replica()
 
     def shard_replicas(self, devices=None) -> "Engine":
-        """Shard the replica axis over ``devices``: a no-op on one card."""
-        if devices is not None and len(list(devices)) > 1:
-            raise NotImplementedError(
-                "the replica axis over several cards is ROADMAP queue 1 "
-                "item 13b; the port's Replicated plan runs on one card")
+        """Split the replica axis over the ranks ``devices`` names (a
+        ``DeviceMesh`` or a sequence of ranks of the default group, in
+        replica order): each holds R / ranks replicas, their generators,
+        forces and ``dr`` rows, and the shared table.  A no-op for one
+        rank (or None).
+
+        Every rank of the world calls it (a group over part of the world
+        is a collective).  Then a rebuild gathers every replica's positions
+        (the table is the one-process table), the half-skin trip is a local
+        max and an ``all_reduce(MAX)``, observables and health are
+        gathered, and ``run`` takes this rank's R / ranks generators.
+        ``state`` and ``_ff`` hold every replica on every rank after a
+        sync."""
+        if not self._replica:
+            raise ValueError("shard_replicas requires the Replicated plan")
+        from repro_torch.parallel.plan import replica_ranks
+        ranks = replica_ranks(devices)
+        if ranks is None or len(ranks) <= 1:
+            return self
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError("splitting replicas over ranks needs an "
+                             "initialised process group")
+        if self.per_slot:
+            raise ValueError("a per-slot batch (serving) stays on one "
+                             "process")
+        r = self.plan.replicas
+        if r % len(ranks):
+            raise ValueError(f"{r} replicas not divisible by {len(ranks)} "
+                             "ranks")
+        world = dist.get_world_size()
+        group = (None if sorted(ranks) == list(range(world))
+                 else dist.new_group(ranks=sorted(ranks)))
+        me = dist.get_rank()
+        if me not in ranks:
+            raise ValueError(f"rank {me} holds none of the replicas (ranks "
+                             f"{list(ranks)})")
+        self._sync_replica()                 # every replica, before the split
+        full = self.state
+        self._rep_ranks, self._rep_group = tuple(ranks), group
+        self._batch = r // len(ranks)
+        self._rep0 = ranks.index(me) * self._batch
+        own = slice(self._rep0, self._rep0 + self._batch)
+        c = self._carry
+        self._carry = c._replace(
+            states=self._own_rows(full),
+            ffs=ForceField(*(x[own] for x in c.ffs)),
+            nbh=c.nbh._replace(dr=c.nbh.dr[own].contiguous()))
+        self._sync_replica()
         return self
 
     def write_slots(self, slots, states: SpinLatticeState, *,
@@ -703,6 +833,8 @@ class Engine:
         :meth:`run`."""
         if not self._replica:
             raise ValueError("write_slots requires the Replicated plan")
+        if self._rep_ranks is not None:
+            raise ValueError("write_slots takes a batch on one process")
         idx = [int(i) for i in slots]
         if not idx:
             raise ValueError("slots must be a non-empty index sequence")
@@ -746,7 +878,8 @@ class Engine:
                             for r in range(states.pos.shape[0])])
 
     def _replica_observe(self, states, ffs) -> dict:
-        """The flat observables of every replica, stacked: {name: (R, ...)}."""
+        """The flat observables of every replica of this process's batch,
+        stacked: {name: (R, ...)}."""
         rows = [self._observe(unstack_state(states, r), _replica_ff(ffs, r))
                 for r in range(states.pos.shape[0])]
         return {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
@@ -760,8 +893,9 @@ class Engine:
         for i in range(n):
             temp, field = _arg_at(targ, i), _arg_at(farg, i)
             # any replica past half the skin rebuilds the shared table
-            if needs_rebuild(carry.table, carry.states.pos, box0,
-                             self.skin).item():
+            if self._rep_reduce(needs_rebuild(
+                    carry.table, carry.states.pos, box0,
+                    self.skin).to(torch.int32), "max").item():
                 table, nbh, ffs = self._replica_rebuild(carry.states, field)
                 carry = ReplicaCarry(carry.states, ffs, table, nbh,
                                      carry.n_rebuilds + 1)
@@ -779,6 +913,7 @@ class Engine:
         else:
             obs = {k: v[None][:0] for k, v in self._replica_observe(
                 carry.states, carry.ffs).items()}
+        obs = {k: self._rep_all(v, dim=1) for k, v in obs.items()}
         return carry, obs, self._replica_health(carry, etot0)
 
     def _replica_health(self, c: ReplicaCarry, etot0) -> dict:
@@ -787,11 +922,14 @@ class Engine:
         largest magnitude - and in per-slot mode the per-slot vectors of
         :func:`~repro_torch.telemetry.monitor.slot_signals`."""
         st, ffs = c.states, c.ffs
-        drift = ffs.energy + self._replica_kinetic(st) - etot0
+        drift = self._rep_all(ffs.energy + self._replica_kinetic(st)
+                              - etot0)
         mag = self.magnetic[st.types.long()]
         h = {"e_drift": drift[torch.argmax(torch.abs(drift))],
-             "spin_dev": spin_norm_dev(st.spin, mag),
-             "nonfinite": nonfinite_count(st.pos, ffs.force, st.spin),
+             "spin_dev": self._rep_reduce(spin_norm_dev(st.spin, mag),
+                                          "max"),
+             "nonfinite": self._rep_reduce(
+                 nonfinite_count(st.pos, ffs.force, st.spin), "sum"),
              "nbr_occ": occupancy_fraction(c.table.mask)}
         if self.per_slot:
             h.update(slot_signals(st.pos, ffs.force, st.spin, mag, drift))
@@ -802,7 +940,8 @@ class Engine:
     # ==================================================================
     def _setup_domain(self):
         """Resolve the plan against the state, bin it into the cell grid,
-        build this rank's step closure, table and forces."""
+        build this rank's step closure, table and forces.  With replicas
+        every local replica starts from the same binned state."""
         pot = self.potential
         self._use_kernel = bool(getattr(pot, "use_kernel", False))
         if not (hasattr(pot, "pair_energies") or self._use_kernel):
@@ -820,6 +959,7 @@ class Engine:
                                self.skin,
                                self.state.pos.dtype == torch.float32)
         self._rplan = rp
+        self._batch, self._rep0 = rp.local_replicas(), rp.replica_offset()
         self._n_atoms = n = self.state.pos.shape[0]
         packed, extras = pack_domain(
             rp.dspec, self.state.pos, self.state.vel, self.state.spin,
@@ -838,7 +978,7 @@ class Engine:
             st, ff, nbh, aid, moved, dropped = self._domain_rebuild(
                 start, blk(extras["aid"]), field)
             _, dropped = self._count_rebuild(moved, dropped)
-            ff = ff._replace(energy=self._reduce_sum(ff.energy))
+            ff = ff._replace(energy=self._reduce_spatial(ff.energy))
         self._carry = DomainCarry(st, ff, nbh, aid, st.pos, False, count0, 0,
                                   dropped)
         self._check_dropped()
@@ -846,11 +986,14 @@ class Engine:
 
     def _local_block(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's slab of a global (CX, CY, CZ, ...) host grid, on the
-        engine's device."""
+        engine's device - one copy per local replica with replicas."""
         rp = self._rplan
         sl = tuple(slice(o, o + c) for o, c in zip(rp.offsets,
                                                    rp.local_shape))
-        return t[sl].to(self.device).contiguous()
+        t = t[sl].to(self.device)
+        if self._batch:
+            t = t[None].expand((self._batch,) + tuple(t.shape))
+        return t.contiguous()
 
     def _build_domain_step(self):
         rp = self._rplan
@@ -858,7 +1001,13 @@ class Engine:
             rp.allgather
         # midpoint iterations evaluate at updated spins, so they exchange
         # spin ghosts per evaluation; otherwise one fused (pos, spin)
-        # exchange per drift and one adjoint round per evaluation
+        # exchange per drift and one adjoint round per evaluation.  The
+        # reference builds these evaluators with ``barrier=not replicas``:
+        # its issue-early barrier (interior work scheduled while the halo
+        # is in flight) has no vmap rule.  Here that overlap is the
+        # asynchronous exchange with the interior slab gathered from the
+        # local wrap (parallel/domain.py:_gather_blocks); local replicas
+        # ride one message and keep it, so nothing is switched off.
         sig = self._spin_in_gather = not self.cfg.midpoint
         if self._use_kernel:
             refresh, compute = make_domain_kernel_evaluator(
@@ -880,7 +1029,7 @@ class Engine:
             spin_aware_gather=sig)
         self._observe = make_domain_observe(
             self.observables, self.masses, self.magnetic, self.diag_grid,
-            self.pitch_axis, self.pitch_bins, self._reduce_sum,
+            self.pitch_axis, self.pitch_bins, self._reduce_spatial,
             self._reduce_fixed)
 
     def _domain_ff(self, nbh, spin, types, field) -> ForceField:
@@ -889,36 +1038,84 @@ class Engine:
             return ForceField(*self._domain_compute(nbh, spin, types, field))
 
     def _reduce_sum(self, t: torch.Tensor, op=None) -> torch.Tensor:
-        """``t`` reduced over every rank into a new tensor (a sum unless
-        ``op``); ``t`` itself on one rank."""
+        """``t`` reduced over every rank of the mesh into a new tensor (a
+        sum unless ``op``); ``t`` itself on one rank."""
         if self._rplan.world == 1:
             return t
         import torch.distributed as dist
         out = t.detach().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self._rplan.groups.mesh)
         return out
 
     def _reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
         return self._reduce_sum(t, op=dist.ReduceOp.MAX)
 
+    def _reduce_spatial(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks of this rank's spatial decomposition
+        (the whole mesh without a replica dimension; otherwise each
+        spatial dimension's group in turn, as the reference's psums)."""
+        spatial = self._rplan.groups.spatial
+        if spatial is None:
+            return self._reduce_sum(t)
+        import torch.distributed as dist
+        out = t.detach().clone()
+        for group in spatial:
+            if dist.get_world_size(group) > 1:
+                dist.all_reduce(out, group=group)
+        return out
+
     def _reduce_fixed(self, acc, bound, bad):
-        """The fixed-point parts of a binned sum, added over ranks before
-        the range check (:func:`repro_torch.md.analysis.segment_sum`)."""
-        return tuple(self._reduce_sum(t) for t in (acc, bound, bad))
+        """The fixed-point parts of a binned sum, added over the spatial
+        ranks before the range check
+        (:func:`repro_torch.md.analysis.segment_sum`)."""
+        return tuple(self._reduce_spatial(t) for t in (acc, bound, bad))
+
+    def _gather_mesh(self, t: torch.Tensor) -> list:
+        """Every mesh rank's ``t``, by linear mesh index."""
+        rp = self._rplan
+        if rp.world == 1:
+            return [t]
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(rp.world)]
+        group = rp.groups.mesh
+        dist.all_gather(parts, t, group=group)
+        order = (sorted(rp.groups.ranks) if group is not None
+                 else list(range(rp.world)))
+        return [parts[order.index(r)] for r in rp.groups.ranks]
+
+    def _gather_replicas(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's replicas of ``t`` (leading axis, reduced over the
+        spatial ranks already) -> every replica's (R, ...)."""
+        rp = self._rplan
+        if not rp.rep_in_mesh():
+            return t
+        out = [None] * self.replicas
+        for i, part in enumerate(self._gather_mesh(t)):
+            off = rp.replica_offset_of(i)
+            for j in range(self._batch):
+                out[off + j] = part[j]
+        return torch.stack(out)
 
     def _domain_tables(self, pos, spin, idx, mask, tj, tag: str):
         """A rebuilt table's blocks: its transpose over the ext-flat rows
-        (autograd) or its local-first renumbering (kernels), then the
-        fused refresh of ``dr`` (and ``sj``)."""
+        (autograd; one per local replica) or its local-first renumbering
+        (kernels), then the fused refresh of ``dr`` (and ``sj``)."""
         m = idx.shape[-1]
+        lead = idx.shape[:idx.dim() - 5]
         rev = lf = None
         if self._use_kernel:
-            lf = self._ext_to_lf[idx.reshape(-1, m).long()].to(torch.int32)
+            lf = self._ext_to_lf[idx.reshape(lead + (-1, m)).long()].to(
+                torch.int32)
         else:
             cx, cy, cz = self._rplan.local_shape
-            n_ext = (cx + 2) * (cy + 2) * (cz + 2) * idx.shape[3]
-            rev = reverse_index(idx.reshape(-1, m), n_rows=n_ext)
+            n_ext = (cx + 2) * (cy + 2) * (cz + 2) * idx.shape[-2]
+            rev = reverse_index(idx.reshape(-1, m), n_rows=n_ext) \
+                if not lead else tuple(
+                    reverse_index(x.reshape(-1, m), n_rows=n_ext)
+                    for x in idx)
         nbh = DomainNbh(idx=idx, mask=mask, tj=tj, dr=None, rev=rev, lf=lf)
         return self._domain_refresh(pos, nbh,
                                     spin if self._spin_in_gather else None,
@@ -926,7 +1123,8 @@ class Engine:
 
     def _domain_rebuild(self, state, aid, field):
         """Migrate atoms to their cells, rebuild the table, refresh the
-        blocks and evaluate; the counts come back rank-local."""
+        blocks and evaluate (every local replica, each its own cells and
+        table); the counts come back rank-local."""
         rp = self._rplan
         with phase("rebuild"):
             pos, vel, spin, types, aid, moved, dropped = migrate_cells(
@@ -953,19 +1151,45 @@ class Engine:
         return int(vec[0]), vec[1:]
 
     def _trip_local(self, state, r0) -> torch.Tensor:
-        """Did an atom of this rank move past half the skin since the
-        rebuild?"""
+        """Did an atom of this rank (of any local replica) move past half
+        the skin since the rebuild?"""
         d = state.pos - r0
         d = d - state.box * torch.round(d / state.box)
         d2 = torch.sum(d * d, dim=-1)
         d2 = torch.where(state.types >= 0, d2, torch.zeros_like(d2))
         return torch.max(d2) > (self.skin * 0.5) ** 2
 
+    def _domain_kinetic(self, state) -> torch.Tensor:
+        """Lattice kinetic energy of this rank's slots: a 0-d tensor, or
+        (R,) per local replica."""
+        if not self._batch:
+            return _slot_kinetic(state, self.masses)
+        return torch.stack([_slot_kinetic(self._replica_slab(state, r),
+                                          self.masses)
+                            for r in range(self._batch)])
+
+    @staticmethod
+    def _replica_slab(state: SpinLatticeState, r: int) -> SpinLatticeState:
+        return state._replace(pos=state.pos[r], vel=state.vel[r],
+                              spin=state.spin[r], types=state.types[r])
+
+    def _domain_observe(self, state, ff) -> dict:
+        """The observables of this rank's replicas: reduced over the
+        spatial ranks, then (replicas on the mesh) gathered, (R, ...)."""
+        if not self._batch:
+            return self._observe(state, ff)
+        rows = [self._observe(self._replica_slab(state, r),
+                              ff._replace(energy=ff.energy[r]))
+                for r in range(self._batch)]
+        return {k: self._gather_replicas(torch.stack([row[k]
+                                                      for row in rows]))
+                for k in rows[0]}
+
     def _domain_chunk(self, carry: DomainCarry, generator, targ, farg,
                       n: int, emit):
         """``n`` steps of this rank's slab; as :meth:`_chunk`."""
-        etot0 = carry.ff.energy + self._reduce_sum(_slot_kinetic(
-            carry.state, self.masses))
+        etot0 = carry.ff.energy + self._reduce_spatial(
+            self._domain_kinetic(carry.state))
         rows = []
         for i in range(n):
             temp, field = _arg_at(targ, i), _arg_at(farg, i)
@@ -980,41 +1204,60 @@ class Engine:
             with phase("integrate"):
                 st, ff, nbh = self._step(carry.state, carry.ff, carry.nbh,
                                          generator, temp, field)
-            # ONE fused scalar reduction a step: the global energy and the
-            # next step's skin test, read back once (module docstring)
             e = ff.energy
-            vec = self._reduce_sum(torch.stack(
-                [e, self._trip_local(st, carry.r0).to(e.dtype)]))
-            carry = carry._replace(state=st, ff=ff._replace(energy=vec[0]),
-                                   nbh=nbh, trip=bool(vec[1] > 0))
+            trip = self._trip_local(st, carry.r0).to(e.dtype)
+            if not self._batch:
+                # ONE fused scalar reduction a step: the global energy and
+                # the next step's skin test, read back once (module
+                # docstring)
+                vec = self._reduce_sum(torch.stack([e, trip]))
+                energy, trip = vec[0], vec[1]
+            else:
+                # replicas: energies over the spatial ranks; the skin test
+                # over the whole mesh, so every replica rebuilds together
+                vec = self._reduce_spatial(torch.cat([e, trip[None]]))
+                energy, trip = vec[:-1], vec[-1]
+                if self._rplan.rep_in_mesh():
+                    trip = self._reduce_max(trip)
+            carry = carry._replace(state=st, ff=ff._replace(energy=energy),
+                                   nbh=nbh, trip=bool(trip > 0))
             if emit is not None and i in emit:
-                rows.append(self._observe(st, carry.ff))
+                rows.append(self._domain_observe(st, carry.ff))
         if emit is None:
-            rows.append(self._observe(carry.state, carry.ff))
+            rows.append(self._domain_observe(carry.state, carry.ff))
         if rows:
             obs = {k: torch.stack([r[k] for r in rows])
                    for k in self.observables}
         else:
             obs = {k: v[None][:0] for k, v in
-                   self._observe(carry.state, carry.ff).items()}
+                   self._domain_observe(carry.state, carry.ff).items()}
         return carry, obs, self._domain_health(carry, etot0)
 
     def _domain_health(self, c: DomainCarry, etot0) -> dict:
-        """The health signals, global over ranks (plus ``cell_occ``, the
-        fullest cell's share of K)."""
+        """The health signals, global over the mesh (plus ``cell_occ``, the
+        fullest cell's share of K); with replicas ``e_drift`` is the signed
+        drift of the replica with the largest magnitude."""
         st, ff = c.state, c.ff
         occ = st.types >= 0
         dt = st.pos.dtype
         mag = self.magnetic[torch.clamp(st.types.long(), min=0)] & occ
-        sums = self._reduce_sum(torch.stack(
-            [_slot_kinetic(st, self.masses),
-             nonfinite_count(st.pos, ff.force, st.spin).to(dt)]))
         cell_occ = torch.max(torch.sum(occ, dim=-1)) / float(occ.shape[-1])
         maxes = self._reduce_max(torch.stack(
             [spin_norm_dev(st.spin, mag).to(dt),
              occupancy_fraction(c.nbh.mask).to(dt), cell_occ.to(dt)]))
-        return {"e_drift": ff.energy + sums[0] - etot0,
-                "spin_dev": maxes[0], "nonfinite": sums[1],
+        if not self._batch:
+            sums = self._reduce_sum(torch.stack(
+                [_slot_kinetic(st, self.masses),
+                 nonfinite_count(st.pos, ff.force, st.spin).to(dt)]))
+            drift, bad = ff.energy + sums[0] - etot0, sums[1]
+        else:
+            drift = self._gather_replicas(
+                ff.energy + self._reduce_spatial(self._domain_kinetic(st))
+                - etot0)
+            drift = drift[torch.argmax(torch.abs(drift))]
+            bad = self._reduce_sum(
+                nonfinite_count(st.pos, ff.force, st.spin).to(dt))
+        return {"e_drift": drift, "spin_dev": maxes[0], "nonfinite": bad,
                 "nbr_occ": maxes[1], "cell_occ": maxes[2]}
 
     def _check_dropped(self, chunk_index: int | None = None):
@@ -1047,32 +1290,45 @@ class Engine:
 
     def _sync_domain(self):
         """Gather every rank's slots and restore the original atom order:
-        ``state`` and ``_ff`` as the flat plan has them, on every rank."""
+        ``state`` and ``_ff`` as the flat plan has them (with replicas as
+        the Replicated plan has them, (R, N, ...)), on every rank."""
         c = self._carry
+        rp = self._rplan
         dt = c.state.pos.dtype
         cols = [c.state.pos, c.state.vel, c.state.spin, c.ff.force,
                 c.ff.field, c.state.types[..., None], c.aid[..., None]]
-        buf = torch.cat([x.reshape(-1, x.shape[-1]).to(dt) for x in cols],
-                        dim=-1)
-        if self._rplan.world > 1:
-            import torch.distributed as dist
-            parts = [torch.empty_like(buf) for _ in range(self._rplan.world)]
-            dist.all_gather(parts, buf)
-            buf = torch.cat(parts)
+        lead = (self._batch,) if self._batch else ()
+        buf = torch.cat([x.reshape(lead + (-1, x.shape[-1])).to(dt)
+                         for x in cols], dim=-1)
+        parts = self._gather_mesh(buf)
+        if not self._batch:
+            rows = self._unbin_rows(torch.cat(parts))
+            energy = c.ff.energy
+        else:
+            per = [[] for _ in range(self.replicas)]
+            for i, part in enumerate(parts):
+                off = rp.replica_offset_of(i)
+                for j in range(self._batch):
+                    per[off + j].append(part[j])
+            rows = torch.stack([self._unbin_rows(torch.cat(p)) for p in per])
+            energy = self._gather_replicas(c.ff.energy)
+        col = lambda lo: rows[..., lo:lo + 3].contiguous()
+        self.state = SpinLatticeState(
+            pos=col(0), vel=col(3), spin=col(6),
+            types=torch.round(rows[..., 15]).to(torch.int32),
+            box=c.state.box, step=c.state.step)
+        self._ff = ForceField(energy=energy, force=col(9), field=col(12))
+        self._obs_state = self.state
+
+    def _unbin_rows(self, buf: torch.Tensor) -> torch.Tensor:
+        """The rows of a gathered (slots, 17) buffer in original atom order
+        (its column 16 holds the atom id, -1 for an empty slot)."""
         aid = torch.round(buf[:, 16]).long()
         sel = torch.nonzero(aid >= 0).reshape(-1)
         order = torch.empty(self._n_atoms, dtype=torch.int64,
                             device=buf.device)
         order[aid[sel]] = sel
-        rows = buf[order]
-        col = lambda lo: rows[:, lo:lo + 3].contiguous()
-        self.state = SpinLatticeState(
-            pos=col(0), vel=col(3), spin=col(6),
-            types=torch.round(rows[:, 15]).to(torch.int32),
-            box=c.state.box, step=c.state.step)
-        self._ff = ForceField(energy=c.ff.energy, force=col(9),
-                              field=col(12))
-        self._obs_state = self.state
+        return buf[order]
 
     def _domain_ckpt_tree(self, c: DomainCarry) -> dict:
         """What a rank's shard holds: the carry without the position-
@@ -1084,15 +1340,17 @@ class Engine:
                 "n_migrated": c.n_migrated, "n_dropped": c.n_dropped}
 
     def _domain_layout(self) -> np.ndarray:
+        """(ranks, cells, K, local cells, replicas) of this engine's plan:
+        a checkpoint manifest's layout."""
         rp = self._rplan
         return np.asarray([rp.world, *rp.dspec.cells, rp.dspec.capacity,
-                           *rp.local_shape], np.int64)
+                           *rp.local_shape, rp.replicas], np.int64)
 
     def _domain_save(self, directory: str, generator, keep: int) -> str:
-        """Each rank writes its shard and generator state under
-        ``rank_<r>/``; after every rank has, rank 0 writes the step's
-        manifest (the layout), which marks the checkpoint complete."""
-        import os
+        """Each rank writes its shard and generator state(s) under
+        ``rank_<r>/`` (r its linear mesh index); after every rank has, the
+        first writes the step's manifest (the layout), which marks the
+        checkpoint complete."""
         rp = self._rplan
         step = self.ckpt_step()
         save_md(os.path.join(directory, f"rank_{rp.rank:05d}"), step,
@@ -1101,20 +1359,19 @@ class Engine:
         barrier = rp.world > 1
         if barrier:
             import torch.distributed as dist
-            dist.barrier()
+            dist.barrier(group=rp.groups.mesh)
         path = os.path.join(directory, f"step_{step:09d}")
         if rp.rank == 0:
             path = save_checkpoint(directory, step,
                                    {"layout": self._domain_layout()},
                                    keep=keep, pin=self.ckpt_pin)
         if barrier:
-            dist.barrier()
+            dist.barrier(group=rp.groups.mesh)
         return path
 
     def _domain_restore(self, directory: str, step: int | None):
         """Same-mesh restore: the manifest's layout must be this engine's;
         each rank loads its shard and re-derives the blocks."""
-        import os
         step = latest_step(directory) if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -1124,9 +1381,9 @@ class Engine:
         if not np.array_equal(tree["layout"], self._domain_layout()):
             raise ValueError(
                 f"checkpoint layout {tree['layout'].tolist()} (ranks, cells, "
-                f"K, local cells) is not this engine's "
-                f"{self._domain_layout().tolist()}; restoring onto another "
-                "mesh is elastic restore, ROADMAP queue 1 item 13b")
+                f"K, local cells, replicas) is not this engine's "
+                f"{self._domain_layout().tolist()}; restore it onto this "
+                "mesh with restore(directory, plan=...) (elastic restore)")
         rp = self._rplan
         shard, gstate, _ = load_md(
             os.path.join(directory, f"rank_{rp.rank:05d}"),
@@ -1140,7 +1397,42 @@ class Engine:
             shard["n_rebuilds"], shard["n_migrated"],
             np.asarray(shard["n_dropped"]))
         self._sync_domain()
-        return None if gstate is None else self._generator(gstate)
+        if gstate is None:
+            return None
+        if self._batch:
+            return [self._generator(g.clone()) for g in gstate]
+        return self._generator(gstate)
+
+    def _restore_elastic(self, directory: str, step: int | None, plan):
+        """Restore a Sharded checkpoint written on any mesh onto ``plan``
+        (a Sharded plan without replicas, on this process's ranks): gather
+        every shard into the flat state, re-resolve the plan, re-bin,
+        rebuild the tables and re-evaluate (:mod:`repro_torch.ckpt.
+        elastic`).  Returns this rank's generator, or None when the
+        checkpoint holds none."""
+        from repro_torch.ckpt.elastic import gather_md_state, rank_generator
+        if not self._sharded or self.replicas:
+            raise NotImplementedError(
+                "elastic restore re-bins sharded single-trajectory "
+                "carries; current plan is "
+                f"{type(self.plan).__name__}(replicas={self.replicas})")
+        plan = as_plan(plan)
+        if not isinstance(plan, Sharded) or plan.replicas:
+            raise NotImplementedError(
+                "elastic restore targets a Sharded plan without replicas")
+        state, seed, _ = gather_md_state(
+            directory, self._domain_ckpt_tree(self._carry), step=step,
+            device=self.device)
+        self.plan = plan
+        self.state = state
+        self.table = None
+        # drop the old mesh's carry BEFORE setup: _step_now falls back to
+        # the restored state's step while schedules are re-evaluated
+        self.__dict__.pop("_carry", None)
+        self._setup_domain()    # re-resolve, re-bin, rebuild, re-evaluate
+        if seed is None:
+            return None
+        return rank_generator(seed, self._rplan.rank, self.device)
 
     # ------------------------------------------------------------------
     def _health(self, c: FusedCarry, etot0) -> dict:
@@ -1249,13 +1541,13 @@ class Engine:
         if ((targ is not None or self.cfg.temperature > 0.0)
                 and generator is None):
             raise ValueError("a thermostatted run needs a torch.Generator"
-                             + (" per replica" if self._replica else ""))
-        if self._replica and generator is not None:
+                             + (" per replica" if self._batch else ""))
+        if self._batch and generator is not None:
             generator = list(generator)
-            if len(generator) != self.replicas:
+            if len(generator) != self._batch:
                 raise ValueError(f"the replica plan takes one generator per "
-                                 f"replica: {self.replicas}, got "
-                                 f"{len(generator)}")
+                                 f"replica of this process: {self._batch}, "
+                                 f"got {len(generator)}")
         self._restart(farg)
         session = None
         # on the Sharded plan rank 0 alone writes the runlog and the trace
@@ -1419,37 +1711,76 @@ class Engine:
         bitwise (and the run's generators, which the caller holds); the
         neighbor table and the forces are rebuilt (on the Sharded plan the
         cells are re-resolved and the atoms re-binned).  A new ``plan``
-        re-lays the Sharded plan (a new cell capacity or mesh), ROADMAP
-        queue 1 item 13b.
+        swaps the plan: on the Sharded plan a new cell grid, capacity or
+        mesh (the supervisor's capacity rung), or another plan kind; a flat
+        state is tiled for a Replicated plan.  The replicas x domain plan
+        is rejected, as by the reference: its batch cannot be re-packed
+        through one flat state.
         """
-        if plan is not None:
+        if self._sharded and self.replicas:
             raise NotImplementedError(
-                "rebind(plan=...) re-lays the Sharded plan's cells and mesh, "
-                "ROADMAP queue 1 item 13b")
+                "rebind on the replicated-sharded plan is not supported "
+                "(the flat re-pack path is single-trajectory)")
         self._sync_observation()
         if cfg is not None:
             self.cfg = cfg
         if skin is not None:
             self.skin = skin
-        self.table = None
         count = self._carry.n_rebuilds      # cumulative across rebinds
+        if plan is not None:
+            self._swap_plan(as_plan(plan, replicas=self.replicas))
+        self.table = None
         if self._sharded:
             self._setup_domain()
+            self._carry = self._carry._replace(n_rebuilds=count)
             return
         if self._replica:
+            if self.state.pos.dim() == 2:
+                st = replicate(self.state, self.plan.replicas)
+                self.state = st._replace(step=np.full(
+                    self.plan.replicas, int(self.state.step), np.int64))
             self._setup_replica()
             self._carry = self._carry._replace(n_rebuilds=count)
+            if self.plan.devices is not None:
+                self.shard_replicas(self.plan.devices)
             return
         self._setup_flat()
         self._init_carry(field_now=self._value_now(
             self._norm_arg(self.field, vec=True), vec=True))
+        self._carry = self._carry._replace(n_rebuilds=count)
+
+    def _swap_plan(self, plan) -> None:
+        """Take ``plan`` for the next setup.  The state's form follows: one
+        flat state for the flat and Sharded plans (a replica batch only
+        when it holds one replica)."""
+        if self._replica and not isinstance(plan, Replicated):
+            if self.state.pos.shape[0] != 1:
+                raise ValueError("a replica batch cannot be re-packed into "
+                                 "one flat state; keep the Replicated plan")
+            self.state = unstack_state(self.state, 0)
+        if (self._replica and isinstance(plan, Replicated)
+                and plan.replicas != self.plan.replicas):
+            raise ValueError("rebind keeps the replica count")
+        if self.per_slot and not isinstance(plan, Replicated):
+            raise ValueError("per_slot=True requires the Replicated plan")
+        self.plan = plan
+        self._replica = isinstance(plan, Replicated)
+        self._sharded = isinstance(plan, Sharded)
+        self._batch = plan.replicas if self._replica else 0
+        self._rep0 = 0
+        self._rep_ranks = self._rep_group = None
+        if self._sharded and not hasattr(self, "_halo"):
+            self._halo = HaloTrace()
+        self.__dict__.pop("_carry", None)   # _step_now -> state.step
 
     # ------------------------------------------------------------------
     def _ckpt_tree(self, c) -> dict:
         """What a checkpoint holds: the carry without its neighbor blocks,
-        which :meth:`restore` re-derives from ``table`` and ``state``."""
+        which :meth:`restore` re-derives from ``table`` and ``state`` (on
+        a replica plan split over ranks, every replica's rows)."""
         if self._replica:
-            return {"states": c.states, "ffs": c.ffs, "table": c.table,
+            states, ffs = self._full_batch(c)
+            return {"states": states, "ffs": ffs, "table": c.table,
                     "n_rebuilds": c.n_rebuilds}
         return {"state": c.state, "ff": c.ff, "table": c.table,
                 "perm": c.perm, "n_rebuilds": c.n_rebuilds}
@@ -1467,34 +1798,73 @@ class Engine:
             path = self._domain_save(directory, generator, keep)
             self._last_ckpt, self._last_ckpt_step = path, step
             return path
-        path = save_md(directory, step, self._ckpt_tree(self._carry),
-                       generator, keep=keep, pin=self.ckpt_pin)
+        tree = self._ckpt_tree(self._carry)
+        if self._rep_ranks is not None:
+            # one checkpoint of every replica and generator, as one
+            # process writes it: the first replica rank writes it
+            import torch.distributed as dist
+            mine = [] if generator is None else [g.get_state()
+                                                 for g in generator]
+            got = [None] * len(self._rep_ranks)
+            dist.all_gather_object(got, mine, group=self._rep_group)
+            order = sorted(self._rep_ranks)
+            states = [st for r in self._rep_ranks
+                      for st in got[order.index(r)]]
+            if dist.get_rank() == self._rep_ranks[0]:
+                save_md(directory, step, tree, states or None, keep=keep,
+                        pin=self.ckpt_pin)
+            dist.barrier(group=self._rep_group)
+            path = os.path.join(directory, f"step_{step:09d}")
+            self._last_ckpt, self._last_ckpt_step = path, step
+            return path
+        path = save_md(directory, step, tree, generator, keep=keep,
+                       pin=self.ckpt_pin)
         self._last_ckpt, self._last_ckpt_step = path, step
         return path
 
-    def restore(self, directory: str, step: int | None = None):
+    def restore(self, directory: str, step: int | None = None, *,
+                plan=None):
         """Restore the carry from a checkpoint (the newest by default);
         returns the saved generator state as a ``torch.Generator`` on the
-        engine's device - on the replica plan a list of them, one per
-        replica - or None if none was saved.  ``run(remaining, g)`` then
-        continues the trajectory bitwise.  On the Sharded plan each rank
-        restores its own shard and generator, onto the same mesh."""
+        engine's device - on a replica plan a list of them, one per
+        replica of this process - or None if none was saved.
+        ``run(remaining, g)`` then continues the trajectory bitwise.  On
+        the Sharded plan each rank restores its own shard and generator(s),
+        onto the same mesh.
+
+        ``plan`` (a Sharded plan) switches on **elastic restore**: the
+        checkpoint of a Sharded run on any mesh - any number of ranks - is
+        gathered into the flat state in input atom order, the plan is
+        re-resolved on this engine's ranks, the atoms re-binned, the tables
+        rebuilt and the forces re-evaluated (a chunk boundary's rebuild).
+        The generator handed back is this rank's of a fresh Sharded run
+        whose seed is derived from the checkpoint's generator states
+        (:func:`repro_torch.ckpt.elastic.rank_generator`): a thermostatted
+        run is not bitwise across an elastic restore (nor is the
+        reference's)."""
+        if plan is not None:
+            return self._restore_elastic(directory, step, plan)
         if self._sharded:
             return self._domain_restore(directory, step)
         tree, gstate, _ = load_md(directory, self._ckpt_tree(self._carry),
                                   step=step)
         if self._replica:
-            st, tab = tree["states"], tree["table"]
+            tab = tree["table"]
+            st = self._own_rows(tree["states"])
             if not torch.equal(st.box[0], self._box0):
                 raise ValueError("the checkpoint holds another box; restore "
                                  "it into an Engine built for that geometry")
-            self._carry = ReplicaCarry(st, tree["ffs"], tab,
+            own = slice(self._rep0, self._rep0 + self._batch)
+            ffs = tree["ffs"]
+            if self._rep_ranks is not None:
+                ffs = ForceField(*(x[own] for x in ffs))
+            self._carry = ReplicaCarry(st, ffs, tab,
                                        self._shared(tab, st.pos),
                                        tree["n_rebuilds"])
             self._sync_replica()
             if gstate is None:
                 return None
-            return [self._generator(g.clone()) for g in gstate]
+            return [self._generator(g.clone()) for g in gstate[own]]
         st, tab = tree["state"], tree["table"]
         if not torch.equal(st.box, self._carry.state.box):
             self.state = st      # a new geometry: re-derive the statics

@@ -99,7 +99,8 @@ def _precession_rate(field: torch.Tensor, spin: torch.Tensor,
     if cfg.spin_alpha > 0.0 and noise is not None:
         sigma = _scale(temp, lambda t: math.sqrt(
             2.0 * cfg.spin_alpha * units.KB * t
-            / (units.GYRO * cfg.moment * units.MU_B * tau)), noise, 2)
+            / (units.GYRO * cfg.moment * units.MU_B * tau)), noise,
+            noise.dim() - 1)
         b = b + sigma * noise
     gp = units.GYRO / (1.0 + cfg.spin_alpha ** 2)
     omega = gp * b
@@ -151,7 +152,7 @@ def _longitudinal_step(spin: torch.Tensor, ff: ForceField,
     dnrm = eta * cfg.dt * f_long
     if noise is not None:
         dnrm = dnrm + _scale(temp, lambda t: math.sqrt(
-            2.0 * eta * units.KB * t * cfg.dt), noise, 2) * noise
+            2.0 * eta * units.KB * t * cfg.dt), noise, noise.dim() - 1) * noise
     new_nrm = torch.clamp(nrm + dnrm, min=1e-3)
     return torch.where(mag_mask[..., None], shat * new_nrm, spin)
 
@@ -161,7 +162,8 @@ def _lattice_langevin(vel: torch.Tensor, masses: torch.Tensor,
                       temp: float) -> torch.Tensor:
     """Exact half-step Ornstein-Uhlenbeck velocity update (OBABO)."""
     c1 = math.exp(-cfg.lattice_gamma * 0.5 * cfg.dt)
-    kt = _scale(temp, lambda t: units.KB * t * (1.0 - c1 ** 2), vel, 1)
+    kt = _scale(temp, lambda t: units.KB * t * (1.0 - c1 ** 2), vel,
+                vel.dim() - 2)
     # (a Python scalar over a tensor is the tensor's reciprocal times it)
     sigma = torch.sqrt(torch.reciprocal(masses * units.MVV2E) * kt)
     return c1 * vel + sigma[..., None] * noise
@@ -190,7 +192,8 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
 
     A replica batch (``state.pos`` (R, N, 3)) takes a sequence of R
     generators, ``temperature`` None or a sequence of R values and
-    ``field`` (R, 3) (module docstring).
+    ``field`` (R, 3) (module docstring); so does the Sharded plan's batch
+    of local replicas, (R, cx, cy, cz, K, ...) blocks.
 
     Cell-blocked domain tensors (the Sharded plan: ``(cx, cy, cz, K, ...)``)
     go through the same elementwise updates: ``atom_mask="from_types"``
@@ -202,7 +205,8 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
     def step(state: SpinLatticeState, ff: ForceField, nbh,
              generator: torch.Generator | None = None, temperature=None,
              field=None, noise: dict | None = None):
-        batched = state.pos.dim() == 3
+        # a replica axis: (R, N, 3), or (R, cx, cy, cz, K, 3) cell blocks
+        batch = state.pos.dim() in (3, 6)
         types = torch.clamp(state.types.long(), min=0)
         m = masses[types][..., None]
         mag = magnetic[types]
@@ -211,7 +215,7 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
             mag = mag & occ
         dt = cfg.dt
         stochastic = (temperature is not None) or cfg.temperature > 0.0
-        if batched:   # one temperature per replica: _scale takes the list
+        if batch:     # one temperature per replica: _scale takes the list
             temp = ([cfg.temperature] * state.pos.shape[0]
                     if temperature is None
                     else [max(float(t), 0.0) for t in temperature])
@@ -229,7 +233,7 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
                 raise ValueError("a stochastic step needs a torch.Generator "
                                  f"or pre-drawn noise[{key!r}]")
             kw = dict(dtype=state.pos.dtype, device=state.pos.device)
-            if batched:   # replica r's draw from its own generator
+            if batch:     # replica r's draw from its own generator
                 return torch.stack([torch.randn(shape, generator=g, **kw)
                                     for g in generator])
             return torch.randn(shape, generator=generator, **kw)
@@ -237,7 +241,7 @@ def make_fused_step(gather: Callable, compute: Callable, cfg: IntegratorConfig,
         def field_eval(nb):
             return lambda s: compute(nb, s, state.types, field)
 
-        shape = tuple(state.pos.shape[1:] if batched else state.pos.shape)
+        shape = tuple(state.pos.shape[1:] if batch else state.pos.shape)
         thermo_lattice = cfg.lattice_gamma > 0.0 and stochastic
         vel = state.vel
         if not cfg.frozen_lattice:

@@ -204,7 +204,11 @@ class SimulationSharded:
     ``use_kernel=True``, the q_Fp adjoint halo between K1 and K2), cell
     migration at rebuilds, and a cell overflow raised at the chunk boundary
     where it is detected.  ``state`` comes back in the original atom order
-    on every rank."""
+    on every rank.  ``replicas > 0`` composes a leading replica axis with
+    the spatial mesh (``mesh`` may carry a ``"replica"`` dimension): each
+    rank then runs with one generator per local replica, ``temperature``
+    may be (R,) and ``field`` (R, 3), and ``state`` / the trace carry the
+    replica axis."""
 
     potential: Any                     # .pair_energies / .site_moments
     cfg: IntegratorConfig
@@ -219,7 +223,8 @@ class SimulationSharded:
     mesh: Any = None                   # DeviceMesh (None -> 1-D "sx")
     axis_map: tuple | None = None      # spatial dim -> mesh dimension name
     halo_mode: str = "auto"            # "ppermute" | "allgather" | "auto"
-    field: Any = None                  # (3,) Tesla, or a Schedule
+    field: Any = None                  # (3,) / (R, 3) Tesla, or a Schedule
+    replicas: int = 0                  # replicas x domain plan (0: one)
     device: Any = "cuda"
     trace: DomainChunkTrace | None = None
 
@@ -230,7 +235,8 @@ class SimulationSharded:
             masses=self.masses, magnetic=self.magnetic, cutoff=self.cutoff,
             plan=Sharded(mesh=self.mesh, axis_map=self.axis_map,
                          halo_mode=self.halo_mode, cells=self.cells,
-                         cell_capacity=self.cell_capacity),
+                         cell_capacity=self.cell_capacity,
+                         replicas=self.replicas),
             field=self.field,
             observables=("energy", "kinetic", "magnetization"),
             capacity=self.capacity, skin=self.skin, device=self.device)
@@ -267,10 +273,11 @@ class SimulationSharded:
     def _check_dropped(self):
         self._engine._check_dropped()
 
-    def run(self, n_steps: int, generator: torch.Generator | None = None,
+    def run(self, n_steps: int, generator=None,
             chunk: int = 20, temperature=None, telemetry=None):
-        """Advance ``n_steps``; ``temperature`` (K or a Schedule) and
-        ``self.field`` are run-time arguments.  Per-chunk diagnostics land
+        """Advance ``n_steps``; ``temperature`` (K, (R,) K or a Schedule)
+        and ``self.field`` are run-time arguments; ``generator`` is this
+        rank's (a list of one per local replica with replicas).  Per-chunk diagnostics land
         in ``self.trace``; returns the final state in the original atom
         order."""
         self._engine.run(n_steps, generator, chunk=chunk,

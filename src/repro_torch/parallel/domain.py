@@ -16,6 +16,14 @@ the kernel path renumbers the table once per rebuild into a *local-first*
 row space: rows ``0..n_slots-1`` are the owned slots, the halo ring follows
 (:func:`local_first_index`).
 
+Local replicas (the Sharded plan with ``replicas > 0``): every block may
+carry a leading replica axis, ``(R, cx, cy, cz, K, ...)``.  Each replica
+migrates its own atoms and builds its own table; every halo round carries
+all local replicas in one message (the cell dims are dims 1-3); K1 and K2
+launch once for all of them, each on its own table
+(:func:`make_domain_kernel_evaluator`).  A replica's numbers are its flat
+evaluation's: float sums over a replica's slots run per replica.
+
 Reverse sums over the ext-flat rows (the pair reactions and neighbor-spin
 gradients scattered onto ghosts) go through the table's transpose
 (:func:`repro_torch.md.neighbor.reverse_index` / ``reverse_sum``), never
@@ -30,8 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch.md.neighbor import reverse_index, reverse_sum
-from repro_torch.parallel.halo import (exchange_halo, exchange_halo_multi,
-                                       fold_halo_multi, local_wrap)
+from repro_torch.parallel.halo import (cell_dims, exchange_halo,
+                                       exchange_halo_multi, fold_halo_multi,
+                                       local_wrap)
 from repro_torch.parallel.overlap import shell_slabs
 from repro_torch.utils import units
 
@@ -223,6 +232,33 @@ def _min_image(dr, box):
 TABLE_CHUNK_PAIRS = 1 << 26
 
 
+def _lead(types: torch.Tensor) -> int:
+    """Leading batch dims of a cell block: 1 for (R, cx, cy, cz, K), 0 for
+    (cx, cy, cz, K)."""
+    return types.dim() - 4
+
+
+def per_replica(fn, lead: int, *blocks):
+    """``fn(*blocks)`` on flat blocks, or for a leading replica axis on each
+    replica's blocks, the outputs stacked (a tuple of outputs, or one)."""
+    if not lead:
+        return fn(*blocks)
+    outs = [fn(*(b[r] for b in blocks)) for r in range(blocks[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def slot_sum(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """The sum over a block's slots; with a leading replica axis each
+    replica's, taken on a fresh copy of its rows so the reduction runs as
+    on a flat block of that size (its order, and its bits, the flat
+    one's)."""
+    if not lead:
+        return torch.sum(x)
+    return per_replica(lambda r: torch.sum(r.clone()), lead, x)
+
+
 def build_local_table(dspec: DomainSpec, axes, local_shape, capacity: int,
                       pos, types, allgather: bool = False):
     """Per-rank pruned neighbor table.
@@ -231,17 +267,29 @@ def build_local_table(dspec: DomainSpec, axes, local_shape, capacity: int,
     block, keeps the ``capacity`` nearest within cutoff+skin (top-k, as
     the flat tables) and returns the cell-major table ``(idx (cx,cy,cz,K,M)
     int32 into the ext-flat slots - self-padded where invalid, mask, tj
-    neighbor types)``.  One fused (pos, types) halo round.  Cells are
-    processed in chunks of about ``TABLE_CHUNK_PAIRS`` candidate pairs, so
-    the (cells, K, 27K, 3) candidate block never exists whole."""
+    neighbor types)``.  One fused (pos, types) halo round, for every local
+    replica at once (a leading replica axis gives each replica its own
+    table, with that axis).  Cells are processed in chunks of about
+    ``TABLE_CHUNK_PAIRS`` candidate pairs, so the (cells, K, 27K, 3)
+    candidate block never exists whole."""
+    lead = _lead(types)
+    ext = exchange_halo_multi({"pos": pos, "types": types}, axes,
+                              tag="rebuild", allgather=allgather, lead=lead)
+    return per_replica(
+        lambda p, t, ep, et: _local_table(dspec, local_shape, capacity, p, t,
+                                          ep, et),
+        lead, pos, types, ext["pos"], ext["types"])
+
+
+def _local_table(dspec, local_shape, capacity, pos, types, ext_pos,
+                 ext_types):
+    """One replica's table from its halo-extended (pos, types)."""
     cx, cy, cz = local_shape
     k = types.shape[3]
     box = torch.as_tensor(dspec.box, dtype=pos.dtype, device=pos.device)
     rc = dspec.rc
-    ext = exchange_halo_multi({"pos": pos, "types": types}, axes,
-                              tag="rebuild", allgather=allgather)
-    exf_pos = ext["pos"].reshape(-1, 3)
-    exf_typ = ext["types"].reshape(-1)
+    exf_pos = ext_pos.reshape(-1, 3)
+    exf_typ = ext_types.reshape(-1)
     cand, own, _ = _ext_flat_index(local_shape, k, pos.device)
     n_cells = cx * cy * cz
     cand, own = cand.reshape(n_cells, 27 * k), own.reshape(n_cells, k)
@@ -281,16 +329,17 @@ def migrate_cells(dspec: DomainSpec, axes, local_shape, offsets, pos, vel,
     makes every migrating atom visible to its new owner, and each target
     cell packs its claimants in stencil order (a cumulative sum over the
     shift-major candidates; overflowing claimants go to a discarded dump
-    column).  ``offsets`` are this rank's first global cell per dim.
+    column).  ``offsets`` are this rank's first global cell per dim.  With
+    a leading replica axis every replica migrates its own atoms; the halo
+    round carries them all.
 
     Returns (pos, vel, spin, types, aid, n_moved, n_dropped), the counts
-    this rank's (0-d tensors, not yet reduced): n_moved owned atoms that
-    changed cell; n_dropped atoms lost to a full cell plus atoms that
-    moved further than one cell (a skin violation).  The engine reduces
-    them and fails loudly at the chunk boundary."""
+    this rank's (0-d tensors over all its replicas, not yet reduced):
+    n_moved owned atoms that changed cell; n_dropped atoms lost to a full
+    cell plus atoms that moved further than one cell (a skin violation).
+    The engine reduces them and fails loudly at the chunk boundary."""
     cx, cy, cz = local_shape
-    k = types.shape[3]
-    n_cells = cx * cy * cz
+    lead = _lead(types)
     dtype, dev = pos.dtype, pos.device
     box = torch.as_tensor(dspec.box, dtype=dtype, device=dev)
     cells = torch.as_tensor(dspec.cells, dtype=torch.int64, device=dev)
@@ -317,8 +366,21 @@ def migrate_cells(dspec: DomainSpec, axes, local_shape, offsets, pos, vel,
                                                                  -1))
     ext = exchange_halo_multi(
         {"pos": pos, "vel": vel, "spin": spin, "types": types, "aid": aid,
-         "enc": enc}, axes, tag="migrate", allgather=allgather)
+         "enc": enc}, axes, tag="migrate", allgather=allgather, lead=lead)
+    names = ("pos", "vel", "spin", "types", "aid", "enc")
+    out = per_replica(lambda *e: _claim(local_shape, types.shape[-1],
+                                        dict(zip(names, e))),
+                      lead, *(ext[k] for k in names))
+    return (*out[:5], n_moved, torch.sum(out[5]) + n_out_of_reach)
 
+
+def _claim(local_shape, k: int, ext: dict):
+    """One replica's cells claim the atoms of its halo-extended block whose
+    displacement points at them; returns (pos, vel, spin, types, aid,
+    n_overflow)."""
+    cx, cy, cz = local_shape
+    n_cells = cx * cy * cz
+    dtype, dev = ext["pos"].dtype, ext["pos"].device
     cand, _, shift_id = _ext_flat_index(local_shape, k, dev)
     cand = cand.reshape(n_cells, 27 * k)
     cand_enc = ext["enc"].reshape(-1)[cand]
@@ -358,8 +420,7 @@ def migrate_cells(dspec: DomainSpec, axes, local_shape, offsets, pos, vel,
                            torch.full_like(got, -1, dtype=torch.int32)
                            ).reshape(cx, cy, cz, k)
 
-    return (field(0), field(3), field(6), ids(9), ids(10), n_moved,
-            n_overflow + n_out_of_reach)
+    return field(0), field(3), field(6), ids(9), ids(10), n_overflow
 
 
 class DomainNbh(NamedTuple):
@@ -369,7 +430,9 @@ class DomainNbh(NamedTuple):
     until the next rebuild; ``dr`` (and, on the fused-gather path, the
     neighbor-spin block ``sj``) is refreshed by ONE fused halo exchange
     per drift.  The cell-major twin of
-    :class:`repro_torch.md.neighbor.Neighborhood`."""
+    :class:`repro_torch.md.neighbor.Neighborhood`; with local replicas
+    every block has a leading replica axis (``rev`` is then one transpose
+    per replica)."""
 
     idx: torch.Tensor   # (cx, cy, cz, K, M) int32 into ext-flat slots
     mask: torch.Tensor  # (cx, cy, cz, K, M) bool
@@ -382,16 +445,36 @@ class DomainNbh(NamedTuple):
     lf: torch.Tensor | None = None   # (n_slots, M) int32 local-first idx
 
 
-def _gather_blocks(pending, idx, slabs, local_of, gather):
+def replica_nbh(nbh: DomainNbh, r: int) -> DomainNbh:
+    """Replica ``r``'s blocks of a replica-batched :class:`DomainNbh`."""
+    pick = lambda x: None if x is None else x[r]
+    return DomainNbh(*(pick(x) for x in nbh))
+
+
+def _rows(src: torch.Tensor, idx: torch.Tensor, lead: int) -> torch.Tensor:
+    """Gather the (..., 3) rows ``idx`` of a halo-extended block, per
+    replica with a leading replica axis."""
+    if not lead:
+        return src.reshape(-1, 3)[idx]
+    r = torch.arange(src.shape[0], device=idx.device).reshape(
+        (-1,) + (1,) * (idx.dim() - 1))
+    return src.reshape(src.shape[0], -1, 3)[r, idx]
+
+
+def _gather_blocks(pending, idx, slabs, local_of, gather, lead: int = 0):
     """Run ``gather(src, sl) -> {name: block}`` over the slabs: from the
     exchange's result when no other rank takes part, else the interior
     slab from the local wrap (``local_of()``) before waiting for the
-    exchange, the shell after it.  Returns {name: full block}."""
+    exchange, the shell after it.  ``sl`` indexes the cell dims after
+    ``lead`` batch dims.  Returns {name: full block}."""
+    pre = (slice(None),) * lead
     if not pending.communicates:
-        return gather(pending.wait(), (slice(None),) * 3)
-    parts = [(sl, gather(local_of(), sl)) for sl, inner in slabs if inner]
+        return gather(pending.wait(), pre + (slice(None),) * 3)
+    parts = [(pre + sl, gather(local_of(), pre + sl))
+             for sl, inner in slabs if inner]
     ext = pending.wait()
-    parts += [(sl, gather(ext, sl)) for sl, inner in slabs if not inner]
+    parts += [(pre + sl, gather(ext, pre + sl))
+              for sl, inner in slabs if not inner]
     out = {name: torch.empty(idx.shape + blk.shape[idx.dim():],
                              dtype=blk.dtype, device=blk.device)
            for name, blk in parts[0][1].items()}
@@ -406,33 +489,36 @@ def make_domain_refresh(dspec: DomainSpec, axes, local_shape,
                         allgather: bool = False):
     """THE one halo exchange per drift: ``refresh(pos, nbh[, spin], tag)
     -> nbh`` packs boundary positions (and, with ``spin_in_gather``, spins)
-    into one fused round, then gathers the min-imaged pair vectors (and
-    neighbor spins) through the table.  The interior slab gathers from the
-    local wrap while the exchange is in flight
-    (:mod:`repro_torch.parallel.overlap`)."""
+    into one fused round - every local replica in the same message - then
+    gathers the min-imaged pair vectors (and neighbor spins) through the
+    table.  The interior slab gathers from the local wrap while the
+    exchange is in flight (:mod:`repro_torch.parallel.overlap`)."""
     slabs = shell_slabs(local_shape)
     boxt = tuple(dspec.box)
 
     def refresh(pos, nbh: DomainNbh, spin=None, tag: str = "drift-pos"
                 ) -> DomainNbh:
+        lead = pos.dim() - 5
         fields = {"pos": pos}
         if spin_in_gather and spin is not None:
             fields["spin"] = spin
         box = torch.as_tensor(boxt, dtype=pos.dtype, device=pos.device)
         pending = exchange_halo_multi(fields, axes, tag=tag,
-                                      allgather=allgather, async_op=True)
+                                      allgather=allgather, async_op=True,
+                                      lead=lead)
 
         def gather(src, sl):
             idx = nbh.idx[sl].long()
-            out = {"dr": _min_image(src["pos"].reshape(-1, 3)[idx]
+            out = {"dr": _min_image(_rows(src["pos"], idx, lead)
                                     - pos[sl][..., None, :], box)}
             if "spin" in src:
-                out["sj"] = src["spin"].reshape(-1, 3)[idx]
+                out["sj"] = _rows(src["spin"], idx, lead)
             return out
 
         got = _gather_blocks(
             pending, nbh.idx, slabs,
-            lambda: {k: local_wrap(v) for k, v in fields.items()}, gather)
+            lambda: {k: local_wrap(v, dims=cell_dims(lead))
+                     for k, v in fields.items()}, gather, lead)
         return nbh._replace(dr=got["dr"], sj=got.get("sj", nbh.sj))
 
     return refresh
@@ -443,6 +529,19 @@ def _zeeman_moments(potential, ti, occ, like):
     return torch.where(occ, mom, torch.zeros_like(mom)).to(like.dtype)
 
 
+def _field_block(field, like: torch.Tensor, lead: int) -> torch.Tensor:
+    """A field as a tensor broadcasting over a block's (..., 3) rows: (3,),
+    or per replica (R, 3) against a leading replica axis."""
+    b = torch.as_tensor(field, dtype=like.dtype, device=like.device)
+    if lead and b.dim() == 2:
+        b = b.reshape((b.shape[0],) + (1,) * (like.dim() - 2) + (3,))
+    return b
+
+
+def _zeeman_energy(mom, spin, b, lead: int) -> torch.Tensor:
+    return units.MU_B * slot_sum(mom[..., None] * spin * b, lead)
+
+
 def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
                           spin_in_gather: bool = True,
                           allgather: bool = False):
@@ -450,12 +549,13 @@ def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
     with the ``pair_energies`` / ``site_moments`` surface.
 
     ``compute(nbh, spin, types, field) -> (E_local, F, H_eff)`` evaluates
-    from the gathered blocks by autograd; the reaction forces and the
-    neighbor-spin gradients scattered onto ext slots (a deterministic
-    reverse sum) fold back to their owners in ONE adjoint round
-    (:func:`repro_torch.parallel.halo.fold_halo_multi`, tag ``"adjoint"``).  The
-    energy stays rank-local: the engine folds its reduction into the
-    per-step scalar one.
+    from the gathered blocks by autograd (each local replica in turn); the
+    reaction forces and the neighbor-spin gradients scattered onto ext
+    slots (a deterministic reverse sum) fold back to their owners in ONE
+    adjoint round for every local replica
+    (:func:`repro_torch.parallel.halo.fold_halo_multi`, tag ``"adjoint"``).
+    The energy stays rank-local ((R,) with local replicas): the engine
+    folds its reduction into the per-step scalar one.
 
     ``spin_in_gather=True`` reads the neighbor spins the drift refresh
     gathered (exact when a step evaluates once at fixed spins);
@@ -469,7 +569,9 @@ def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
                                   spin_in_gather=spin_in_gather,
                                   allgather=allgather)
 
-    def evaluate(nbh: DomainNbh, spin, sj, types, field):
+    def grads(nbh: DomainNbh, spin, sj, types, field):
+        """One replica: (E_local, direct force, -dE/dS, the pair
+        reactions and neighbor-spin gradients on the ext-flat rows)."""
         k, m_cap = types.shape[3], nbh.idx.shape[-1]
         occ = types >= 0
         ti = torch.where(occ, types, torch.zeros_like(types))
@@ -489,21 +591,32 @@ def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
                 mom = _zeeman_moments(potential, ti, occ, s)
                 b = torch.as_tensor(field, dtype=s.dtype, device=s.device)
                 e = e - units.MU_B * torch.sum(mom[..., None] * s * b)
-            grads = torch.autograd.grad(e, (dr, s, sjv), allow_unused=True)
-        g_dr, g_s, g_sj = (torch.zeros_like(x) if g is None else g
-                           for g, x in zip(grads, (dr, s, sjv)))
+            g = torch.autograd.grad(e, (dr, s, sjv), allow_unused=True)
+        g_dr, g_s, g_sj = (torch.zeros_like(x) if gi is None else gi
+                           for gi, x in zip(g, (dr, s, sjv)))
         m = nbh.mask[..., None]
         g_f = torch.where(m, g_dr, torch.zeros_like(g_dr))
         g_n = torch.where(m, g_sj, torch.zeros_like(g_sj))
-        direct = torch.sum(g_f, dim=-2)
         payload = torch.cat([g_f, g_n], dim=-1).reshape(-1, 6)
         scat = reverse_sum(payload, nbh.rev).reshape(cx + 2, cy + 2, cz + 2,
                                                      k, 6)
+        return e.detach(), torch.sum(g_f, dim=-2), g_s, scat
+
+    def evaluate(nbh: DomainNbh, spin, sj, types, field):
+        lead = _lead(types)
+        if lead:
+            per_rep = field is not None and torch.as_tensor(field).dim() == 2
+            per = [grads(replica_nbh(nbh, r), spin[r], sj[r], types[r],
+                         field[r] if per_rep else field)
+                   for r in range(types.shape[0])]
+            e, direct, g_s, scat = (torch.stack(p) for p in zip(*per))
+        else:
+            e, direct, g_s, scat = grads(nbh, spin, sj, types, field)
         folded = fold_halo_multi({"react": scat[..., :3],
                                   "gspin": scat[..., 3:]}, axes,
-                                 tag="adjoint", allgather=allgather)
-        return (e.detach(), direct - folded["react"],
-                -(g_s + folded["gspin"]))
+                                 tag="adjoint", allgather=allgather,
+                                 lead=lead)
+        return e, direct - folded["react"], -(g_s + folded["gspin"])
 
     def compute_fused(nbh: DomainNbh, spin, types, field=None):
         """From the pre-gathered (dr, sj) blocks: no forward message, one
@@ -513,14 +626,16 @@ def make_domain_evaluator(potential, dspec: DomainSpec, axes, local_shape,
     def compute_exchanging(nbh: DomainNbh, spin, types, field=None):
         """Re-exchanges spin ghosts (midpoint iterations evaluate at
         updated spins): one spin halo and one adjoint fold."""
-        pending = exchange_halo(spin, axes, tag="spin", allgather=allgather,
-                                async_op=True)
+        lead = _lead(types)
+        pending = exchange_halo(spin, axes, dims=cell_dims(lead), tag="spin",
+                                allgather=allgather, async_op=True)
 
         def gather(src, sl):
-            return {"sj": src.reshape(-1, 3)[nbh.idx[sl].long()]}
+            return {"sj": _rows(src, nbh.idx[sl].long(), lead)}
 
         sj = _gather_blocks(pending, nbh.idx, slabs,
-                            lambda: local_wrap(spin), gather)["sj"]
+                            lambda: local_wrap(spin, dims=cell_dims(lead)),
+                            gather, lead)["sj"]
         return evaluate(nbh, spin, sj, types, field)
 
     return refresh, (compute_fused if spin_in_gather else compute_exchanging)
@@ -544,6 +659,11 @@ def make_domain_kernel_evaluator(potential, dspec: DomainSpec, axes,
       abar_ring)``, and gives complete forces and fields of the owned
       atoms in one neighbour traversal.
 
+    With local replicas (a leading replica axis on every block) one K1 and
+    one K2 launch serve all of them, each replica on its own clamped
+    ``ti``, its own local-first table ``lf`` and its own ``abar`` rows
+    (R, n_src, A); their adjoints share one q_Fp round.
+
     ``compute`` reads the ``dr`` AND ``sj`` blocks of the drift refresh
     (``nbh.lf``, the local-first table, comes from the rebuild), so
     self-consistent midpoint configs are not supported."""
@@ -557,37 +677,44 @@ def make_domain_kernel_evaluator(potential, dspec: DomainSpec, axes,
                                 params.w1.device)
 
     def compute(nbh: DomainNbh, spin, types, field=None):
-        k, m_cap = types.shape[3], nbh.idx.shape[-1]
+        lead = _lead(types)
+        rl = types.shape[:lead]                   # () or (R,)
+        k, m_cap = types.shape[-1], nbh.idx.shape[-1]
         n_slots = cx * cy * cz * k
-        occ = types.reshape(-1) >= 0
-        ti = torch.where(occ, types.reshape(-1), torch.zeros_like(occ,
-                         dtype=types.dtype)).contiguous()
-        dr = nbh.dr.reshape(n_slots, m_cap, 3)
-        mask = nbh.mask.reshape(n_slots, m_cap)
-        tj = nbh.tj.reshape(n_slots, m_cap)
-        si = spin.reshape(n_slots, 3)
-        sj = nbh.sj.reshape(n_slots, m_cap, 3)
+        occ = types.reshape(rl + (-1,)) >= 0
+        ti = torch.where(occ, types.reshape(rl + (-1,)),
+                         torch.zeros_like(occ, dtype=types.dtype)
+                         ).contiguous()
+        dr = nbh.dr.reshape(rl + (n_slots, m_cap, 3))
+        mask = nbh.mask.reshape(rl + (n_slots, m_cap))
+        tj = nbh.tj.reshape(rl + (n_slots, m_cap))
+        si = spin.reshape(rl + (n_slots, 3))
+        sj = nbh.sj.reshape(rl + (n_slots, m_cap, 3))
         e, hdir, abar = nep_atom_pass(spec, params, dr, mask, ti, tj, si, sj)
-        o1, o2 = occ[:, None], occ
+        o1, o2 = occ[..., None], occ
         e = torch.where(o2, e, torch.zeros_like(e))
         hdir = torch.where(o1, hdir, torch.zeros_like(hdir))
         abar = torch.where(o1, abar, torch.zeros_like(abar))
-        # the q_Fp exchange: every adjoint channel in one halo round
-        ext = exchange_halo(abar.reshape(cx, cy, cz, k, -1), axes, tag="qfp",
+        # the q_Fp exchange: every adjoint channel of every local replica
+        # in one halo round
+        a = abar.shape[-1]
+        ext = exchange_halo(abar.reshape(rl + (cx, cy, cz, k, a)), axes,
+                            dims=cell_dims(lead), tag="qfp",
                             allgather=allgather)
-        rows = torch.cat([abar, ext.reshape(-1, abar.shape[-1])[ring]])
+        rows = torch.cat([abar, ext.reshape(rl + (-1, a))[..., ring, :]],
+                         dim=-2)
         f, h2 = nep_force_pass(spec, params, dr, mask, nbh.lf, ti, tj, si,
                                sj, rows)
         force = torch.where(o1, f, torch.zeros_like(f)).reshape(
             types.shape + (3,))
         heff = torch.where(o1, hdir + h2, torch.zeros_like(h2)).reshape(
             types.shape + (3,))
-        e_loc = torch.sum(e)
+        e_loc = slot_sum(e, lead)
         if field is not None:
             mom = _zeeman_moments(potential, types.clamp(min=0), types >= 0,
                                   spin)
-            b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
-            e_loc = e_loc - units.MU_B * torch.sum(mom[..., None] * spin * b)
+            b = _field_block(field, spin, lead)
+            e_loc = e_loc - _zeeman_energy(mom, spin, b, lead)
             heff = heff + units.MU_B * mom[..., None] * b
         return e_loc, force, heff
 

@@ -19,7 +19,10 @@ dimension as this rank sees it.
 costs one message round however many fields ride along (integer fields ride
 the float payload, exact below the mantissa bound).  :func:`fold_halo` is
 the adjoint: ghost-layer contributions travel back to their owners and are
-added onto the core block (the force / field "reverse communication").
+added onto the core block (the force / field "reverse communication").  A
+block may carry leading batch dims before its cells (the Sharded plan's
+local replicas): ``dims`` names the cell dims, and every replica rides the
+same message.
 
 gloo takes CUDA tensors in ``all_gather`` but has no send/recv of device
 tensors, so a ppermute-mode exchange of CUDA tensors under gloo raises.
@@ -292,20 +295,29 @@ def _unpack(buf: torch.Tensor, layout, lead: int) -> dict:
     return out
 
 
+def cell_dims(lead: int = 0) -> tuple:
+    """The three cell dims of a block with ``lead`` leading batch dims (a
+    leading replica axis: ``lead = 1``)."""
+    return tuple(d + lead for d in (0, 1, 2))
+
+
 def exchange_halo_multi(fields: Mapping[str, torch.Tensor], axes,
                         width: int = 1, tag: str = "halo",
-                        allgather: bool = False, async_op: bool = False):
+                        allgather: bool = False, async_op: bool = False,
+                        lead: int = 0):
     """Fused multi-field exchange: ONE buffer, one message round per
     sharded axis, however many fields ride along.  Fields share the leading
-    (cx, cy, cz, K) block; integer and bool fields ride the float payload
-    (exact below the mantissa bound) and are rounded back.  ``async_op``
-    as in :func:`exchange_halo`."""
-    buf, layout = _pack(fields, 4)
-    ext = exchange_halo(buf, axes, dims=(0, 1, 2), width=width, tag=tag,
-                        allgather=allgather, async_op=async_op)
+    (cx, cy, cz, K) block - after ``lead`` batch dims, e.g. (R, cx, cy, cz,
+    K) with a leading replica axis, so every local replica rides the same
+    message; integer and bool fields ride the float payload (exact below
+    the mantissa bound) and are rounded back.  ``async_op`` as in
+    :func:`exchange_halo`."""
+    buf, layout = _pack(fields, 4 + lead)
+    ext = exchange_halo(buf, axes, dims=cell_dims(lead), width=width,
+                        tag=tag, allgather=allgather, async_op=async_op)
     if not async_op:
-        return _unpack(ext, layout, 4)
-    return PendingHalo(lambda: _unpack(ext.wait(), layout, 4),
+        return _unpack(ext, layout, 4 + lead)
+    return PendingHalo(lambda: _unpack(ext.wait(), layout, 4 + lead),
                        ext.communicates)
 
 
@@ -374,9 +386,10 @@ def fold_halo(x: torch.Tensor, axes, dims=(0, 1, 2), width: int = 1,
 
 def fold_halo_multi(fields: Mapping[str, torch.Tensor], axes,
                     width: int = 1, tag: str = "adjoint",
-                    allgather: bool = False) -> dict:
+                    allgather: bool = False, lead: int = 0) -> dict:
     """Fused multi-field fold: one buffer, one message round per sharded
-    axis (the adjoint mirror of :func:`exchange_halo_multi`)."""
-    buf, layout = _pack(fields, 4)
-    return _unpack(fold_halo(buf, axes, width=width, tag=tag,
-                             allgather=allgather), layout, 4)
+    axis (the adjoint mirror of :func:`exchange_halo_multi`, ``lead`` as
+    there)."""
+    buf, layout = _pack(fields, 4 + lead)
+    return _unpack(fold_halo(buf, axes, dims=cell_dims(lead), width=width,
+                             tag=tag, allgather=allgather), layout, 4 + lead)

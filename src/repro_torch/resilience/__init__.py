@@ -2,19 +2,18 @@
 of ``repro.resilience``).
 
 * :mod:`.faults` - deterministic, seeded fault injection at chunk
-  boundaries (NaN, bit-flip SDC, host crash) through the engine's
-  ``_fault_injector`` hook, on the flat and the replica plan.
+  boundaries (NaN, bit-flip SDC, host crash; on the Sharded plan a
+  migration overflow and a corrupted halo face on one rank) through the
+  engine's ``_fault_injector`` hook, on every plan.
 * :mod:`.supervisor` - :class:`Supervisor` wraps ``Engine.run`` with
   rollback-retry: on a :class:`~repro_torch.telemetry.monitor.HealthError`
   it restores the newest checkpoint (carry and generators), pins it, backs
   off and retries; repeated same-class failures climb the degradation
-  ladder (evict one slot through the engine's ``evict_slot_hook``, or a
-  reduced-dt span through ``Engine.rebind``).  Every action lands in the
-  runlog as a structured event that :mod:`repro_torch.launch.report`
-  renders.
-
-The Sharded plan's faults (``overflow``, ``halo``), the capacity rung and
-elastic restore are ROADMAP queue 1 item 13b.
+  ladder (evict one slot through the engine's ``evict_slot_hook``, a
+  larger cell capacity for an overflow, or a reduced-dt span, both through
+  ``Engine.rebind``); :meth:`Supervisor.elastic_restore` moves a Sharded
+  run onto another mesh.  Every action lands in the runlog as a
+  structured event that :mod:`repro_torch.launch.report` renders.
 """
 from repro_torch.resilience.faults import (Fault, FaultInjector, FaultPlan,
                                            install_faults)

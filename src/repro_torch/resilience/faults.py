@@ -7,8 +7,10 @@ compiles it into a host-side injector on the engine's chunk-boundary hook
 (``engine._fault_injector``): right before a chunk whose step window covers
 a fault's trigger step, the injector copies the target carry leaf to the
 host, corrupts it, and writes it back on the leaf's device in the leaf's
-dtype.  It works on the flat and the replica plan alike (on the replica
-carry, the rows of every replica are candidates).
+dtype.  It works on the flat, replica and Sharded plans alike (on a
+replica carry the rows of every replica are candidates; on the Sharded
+plan every rank runs its own injector on its own slab, so ``nan`` and
+``bit_flip`` corrupt each rank's occupied slots).
 
 Fault kinds and what they model:
 
@@ -18,12 +20,20 @@ Fault kinds and what they model:
                representation (the bit clamped to 30 for f32, 62 for f64).
                High exponent bits make it detectable through the energy and
                non-finite health signals.
+``overflow``   a migration overflow on one rank: adds ``count`` to the
+               carry's per-rank ``n_dropped`` entry of rank ``device``, and
+               keeps firing until the engine's cell capacity exceeds the
+               capacity at install time - it models *this layout is too
+               small*, which the supervisor's capacity rung fixes.
+               Sharded plan only.
+``halo``       corruption of ONE rank's boundary face (a bad link): NaN in
+               the occupied position slots of rank ``device``'s last local
+               x-cell layer (of every local replica).  Sharded plan only.
 ``crash``      the host dies: ``SIGKILL`` to the current process (for
                kill-and-resume runs in a child process).
 
-``overflow`` (a migration overflow on one device) and ``halo`` (a corrupted
-halo face) target the ``Sharded`` plan's per-device state, ROADMAP queue 1
-item 13b: installing either raises ``NotImplementedError``.
+``device`` is a rank's linear index over the whole mesh, every dimension
+folded (the replica one included), taken modulo the mesh's size.
 
 Transient faults fire once ever (``once=True``): after the supervisor
 rolls back past the trigger step, the re-run sails through.  ``once=False``
@@ -58,7 +68,8 @@ class Fault:
     kind: str                 # one of _KINDS
     step: int                 # global step the fault triggers at
     leaf: str = "force"       # target carry leaf (nan / bit_flip)
-    count: int = 1            # elements corrupted
+    device: int = 0           # target rank (overflow / halo)
+    count: int = 1            # elements corrupted / atoms dropped
     bit: int = 62             # bit index for bit_flip (f64: 62 = top
                               # exponent bit; f32 tensors clamp to 30)
     once: bool = True         # transient (fire once ever) vs persistent
@@ -108,16 +119,21 @@ class FaultInjector:
     """The compiled form of a :class:`FaultPlan` for one engine."""
 
     def __init__(self, engine, plan: FaultPlan, *, runlog=None):
+        from repro_torch.parallel.plan import Sharded
         self.plan = plan
         self.runlog = runlog
         self.fired: list[dict] = []
         self._done: set[int] = set()
+        sharded = isinstance(engine.plan, Sharded)
         for f in plan.faults:
-            if f.kind in ("overflow", "halo"):
-                raise NotImplementedError(
-                    f"fault kind {f.kind!r} targets the Sharded plan's "
-                    "per-device state, ROADMAP queue 1 item 13b; the port's "
-                    f"engine runs {type(engine.plan).__name__}")
+            if f.kind in ("overflow", "halo") and not sharded:
+                raise ValueError(f"fault kind {f.kind!r} targets the "
+                                 "sharded plan's per-device state; engine "
+                                 f"plan is {type(engine.plan).__name__}")
+        # overflow models "the capacity at install is too small": it goes
+        # inert once the engine's capacity grows past this
+        self._cap0 = (int(engine._rplan.dspec.capacity) if sharded
+                      else None)
 
     def __call__(self, engine, carry, n: int):
         state, _, _ = _split(carry)
@@ -125,23 +141,43 @@ class FaultInjector:
         for i, f in enumerate(self.plan.faults):
             if i in self._done or not (step0 <= f.step < step0 + n):
                 continue
+            if (f.kind == "overflow"
+                    and int(engine._rplan.dspec.capacity) > self._cap0):
+                continue    # the capacity rung fixed it; the fault is inert
             if (f.while_dt_ge is not None
                     and float(engine.cfg.dt) < f.while_dt_ge):
                 continue    # the dt ladder fixed it; the fault is inert
             if f.once:
                 self._done.add(i)
             record = {"kind": f.kind, "fault_step": f.step,
-                      "chunk_step": step0, "leaf": f.leaf}
+                      "chunk_step": step0, "leaf": f.leaf,
+                      "device": f.device}
             self.fired.append(record)
             if self.runlog is not None:
                 from repro_torch.telemetry.runlog import append_event
                 append_event(self.runlog, "fault_injected", **record)
-            carry = self._fire(carry, f, i)
+            carry = self._fire(engine, carry, f, i)
         return carry
 
-    def _fire(self, carry, f: Fault, index: int):
+    def _fire(self, engine, carry, f: Fault, index: int):
         if f.kind == "crash":
             os.kill(os.getpid(), _signal.SIGKILL)
+        if f.kind == "overflow":
+            vec = np.array(carry.n_dropped, copy=True).reshape(-1)
+            vec[f.device % vec.size] += f.count
+            return carry._replace(n_dropped=vec)
+        if f.kind == "halo":
+            rp = engine._rplan
+            if f.device % rp.world != rp.rank:
+                return carry            # another rank's face
+            lead = carry.state.types.dim() - 4
+            face = (slice(None),) * lead + (-1,)     # last local x layer
+            pos = carry.state.pos.clone()
+            occ = carry.state.types[face] >= 0
+            layer = pos[face]
+            layer[occ] = float("nan")
+            pos[face] = layer
+            return carry._replace(state=carry.state._replace(pos=pos))
         rng = np.random.default_rng(
             np.random.SeedSequence([self.plan.seed, index]))
         state, ff, rebuild = _split(carry)

@@ -23,13 +23,15 @@ always good, which makes recovery mechanical:
      (:func:`attribute_slot`) pin the fault on one slot, the hook evicts
      that job, and the batch retries with its healthy batch-mates
      untouched;
+   - ``overflow``: rebind the Sharded plan at ``capacity_factor`` x the
+     resolved cell capacity (permanent: the layout was too small);
    - ``nonfinite`` / ``drift`` / ``spin``: rebind at ``dt_factor`` x dt,
      integrate ``degrade_span`` chunks through the trouble spot, then
      restore the original config and continue at full dt.
 
-   The ``overflow`` rung (rebind the Sharded plan at a larger cell
-   capacity) and :meth:`Supervisor.elastic_restore` belong to the
-   Sharded plan, ROADMAP queue 1 item 13b, and raise.
+:meth:`Supervisor.elastic_restore` restores a Sharded checkpoint onto
+another mesh (``Engine.restore(..., plan=...)``) and logs the layout
+transition.
 
 Every rollback / retry / degrade / give-up lands in the runlog as a
 structured record (:mod:`repro_torch.launch.report` renders them); retry
@@ -135,6 +137,7 @@ class SupervisorConfig:
     degrade_after: int = 2      # consecutive same-class fails -> ladder
     dt_factor: float = 0.5      # transient ladder: dt multiplier
     degrade_span: int = 2       # chunks to run at reduced dt
+    capacity_factor: float = 2.0  # overflow ladder: capacity multiplier
 
 
 class Supervisor:
@@ -250,9 +253,18 @@ class Supervisor:
                             step=engine._step_now(), **info)
                 return generator
         if kind == "overflow":
-            raise NotImplementedError(
-                "the capacity rung rebinds the Sharded plan at a larger "
-                "cell capacity: ROADMAP queue 1 item 13b")
+            cap = int(engine._rplan.dspec.capacity)
+            new_cap = max(int(cap * cfg.capacity_factor), cap + 1)
+            plan = dataclasses.replace(engine.plan, cell_capacity=new_cap)
+            self._event(log_path, "degrade", kind=kind, action="capacity",
+                        cell_capacity=new_cap, prev_capacity=cap,
+                        step=engine._step_now())
+            engine.rebind(plan=plan)    # permanent: the layout was wrong
+            # the rollback target again, in the new layout (a same-mesh
+            # restore reads only its own engine's layout)
+            engine.save(checkpoint_dir, generator)
+            engine.ckpt_pin = engine.ckpt_step()
+            return generator
         if kind in _TRANSIENT:
             old_cfg = engine.cfg
             new_dt = old_cfg.dt * cfg.dt_factor
@@ -286,9 +298,20 @@ class Supervisor:
                     step=engine._step_now())
         return generator
 
-    def elastic_restore(self, engine, checkpoint_dir, plan, **kw):
-        """Restore a Sharded checkpoint onto another mesh: the Sharded plan
-        and elastic restore are ROADMAP queue 1 item 13b."""
-        raise NotImplementedError(
-            "elastic restore needs the Sharded plan and ckpt/elastic.py, "
-            "ROADMAP queue 1 item 13b")
+    def elastic_restore(self, engine, checkpoint_dir, plan, *,
+                        step: int | None = None, runlog=None):
+        """``Engine.restore(..., plan=...)`` plus the event record: restore
+        a Sharded checkpoint onto another mesh or rank count and log the
+        layout transition (``from_layout`` / ``to_layout``).  Returns this
+        rank's generator (:meth:`repro_torch.md.engine.Engine.restore`)."""
+        log_path = runlog if runlog is not None else self.runlog
+        rp = getattr(engine, "_rplan", None)
+        before = (rp.describe() if rp is not None
+                  else {"plan": type(engine.plan).__name__})
+        gen = engine.restore(checkpoint_dir, step=step, plan=plan)
+        after = engine._rplan.describe()
+        engine.ckpt_pin = engine.ckpt_step()
+        self._event(log_path, "elastic_restore",
+                    step=engine._step_now(), from_layout=before,
+                    to_layout=after, checkpoint=str(checkpoint_dir))
+        return gen

@@ -339,10 +339,12 @@ def test_engine_cell_order_is_layout_only():
         torch.testing.assert_close(getattr(runs[0].state, field),
                                    getattr(runs[1].state, field), rtol=1e-10,
                                    atol=1e-10)
-    # the Sharded plan runs (tests/test_torch_sharded.py); replicas on its
-    # spatial mesh are not ported yet
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        _small_engine(plan=as_plan("sharded", replicas=2))
+    # the Sharded plan runs (tests/test_torch_sharded.py), and so do
+    # replicas on its spatial mesh: two identical replicas at construction
+    rep = _small_engine(plan=as_plan("sharded", replicas=2))
+    assert rep.state.pos.shape[0] == 2 and rep.energy.shape == (2,)
+    assert torch.equal(rep.state.pos[0], rep.state.pos[1])
+    assert rep.energy[0] == rep.energy[1]
 
 
 def test_engine_needs_device_when_no_card(monkeypatch):

@@ -446,8 +446,11 @@ def test_plan_errors():
         Engine(ham, state=st, per_slot=True, **kw)
     with pytest.raises(ValueError, match="batch"):
         Engine(ham, state=replicate(st, 2), plan=Replicated(3), **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # devices are a DeviceMesh or ranks; more than one rank needs a group
+    with pytest.raises(ValueError, match="ranks"):
         Engine(ham, state=st, plan=Replicated(2, devices=("a", "b")), **kw)
+    with pytest.raises(ValueError, match="process group"):
+        Engine(ham, state=st, plan=Replicated(2, devices=(0, 1)), **kw)
     eng = Engine(ham, state=st, plan=Replicated(2), **kw)
     assert eng.state.pos.shape[0] == 2 and eng.shard_replicas() is eng
     with pytest.raises(ValueError, match="one generator per replica"):

@@ -22,7 +22,7 @@ from repro_torch.md.engine import Engine
 from repro_torch.md.integrator import IntegratorConfig
 from repro_torch.md.lattice import b20_fege, simple_cubic
 from repro_torch.md.state import init_state
-from repro_torch.parallel.plan import Replicated
+from repro_torch.parallel.plan import Replicated, Sharded
 from repro_torch.resilience import (Fault, FaultPlan, Supervisor,
                                     SupervisorConfig, install_faults)
 from repro_torch.resilience.supervisor import (Strikes, attribute_slot,
@@ -35,9 +35,9 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
 
 
-def _make_engine(**kw):
+def _make_engine(cells=(4, 4, 4), **kw):
     lat = simple_cubic()
-    st = init_state(lat, (4, 4, 4), temperature=300.0, spin_init="helix_x",
+    st = init_state(lat, cells, temperature=300.0, spin_init="helix_x",
                     generator=torch.Generator().manual_seed(3),
                     device="cpu")
     return Engine(potential=HeisenbergDMIModel(d0=0.008),
@@ -86,7 +86,8 @@ def test_supervised_nan_recovery_bitwise(flat_recovery):
         ["rollback", "retry", "recovered"]
     assert r["sup"].events[0]["kind"] == "nonfinite"
     assert r["inj"].fired == [{"kind": "nan", "fault_step": 25,
-                               "chunk_step": 20, "leaf": "force"}]
+                               "chunk_step": 20, "leaf": "force",
+                               "device": 0}]
     assert r["eng"]._step_now() == 40
     _assert_bitwise(r["ref"], r["out"])
 
@@ -226,10 +227,11 @@ def test_fault_validation():
         Fault(kind="gremlin", step=0)
     with pytest.raises(ValueError, match="leaf"):
         Fault(kind="nan", step=0, leaf="mass")
-    # overflow / halo target the Sharded plan's per-device state
+    # overflow / halo target the Sharded plan's per-device state: the flat
+    # plan rejects them at install, as the reference's
     eng = _make_engine()
     for kind in ("overflow", "halo"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="sharded"):
             install_faults(eng, FaultPlan(faults=(Fault(kind=kind,
                                                          step=0),)))
 
@@ -252,8 +254,9 @@ def test_rebind_keeps_the_trajectory_state(tmp_path):
     """rebind on the flat plan: positions, velocities, spins, step and the
     rebuild count carry over bitwise, the table and forces are rebuilt,
     and a rebind to the same config continues the run (the rebuilt table
-    changes only the rounding); a new plan is the Sharded plan's lever and
-    names its item."""
+    changes only the rounding); a new plan swaps the plan kind - the
+    Sharded plan on one rank, then Replicated(2) tiling the flat state -
+    and the state carries over bitwise through both."""
     ref = _make_engine()
     ref.run(30, _gen(), chunk=10)
     eng = _make_engine()
@@ -270,9 +273,17 @@ def test_rebind_keeps_the_trajectory_state(tmp_path):
         assert float((x - y).abs().max()) < 1e-4, k
     eng.rebind(skin=0.3)
     assert eng.skin == 0.3 and eng.state.step == 30
-    for plan in ("sharded", Replicated(2)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            eng.rebind(plan=plan)
+    before = eng.state
+    eng.rebind(plan="sharded")
+    assert isinstance(eng.plan, Sharded) and eng.state.step == 30
+    for k in ("pos", "vel", "spin"):
+        assert torch.equal(getattr(eng.state, k), getattr(before, k))
+    eng.rebind(plan=Replicated(2))
+    assert eng.state.pos.shape[0] == 2 and list(eng.state.step) == [30, 30]
+    for k in ("pos", "vel", "spin"):
+        assert torch.equal(getattr(eng.state, k)[1], getattr(before, k))
+    eng.run(10, [_gen(1), _gen(2)], chunk=10)
+    assert list(eng.state.step) == [40, 40]
 
 
 def test_rebind_on_the_replicated_plan():
@@ -332,13 +343,37 @@ def test_evict_rung_with_a_stub_hook(tmp_path):
     assert seen == ["nonfinite"] and eng.cfg.dt == 2e-3
 
 
-def test_capacity_rung_and_elastic_restore_name_their_item():
+def test_capacity_rung_and_elastic_restore_name_their_item(tmp_path):
+    """The overflow rung rebinds a (one-rank) Sharded engine at twice its
+    cell capacity with a ``degrade`` event and re-saves the rollback
+    target in the new layout; ``elastic_restore`` re-bins a Sharded
+    checkpoint onto a plan of another capacity with its event, and names
+    the reference's limit on a flat engine."""
     sup = Supervisor()
-    eng = _make_engine()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sup._degrade(eng, "overflow", None, 10, "ck", 1, None, 40, None, {})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sup.elastic_restore(eng, "ck", plan=None)
+    eng = _make_engine(cells=(6, 6, 6), plan=Sharded())
+    cap0 = eng._rplan.dspec.capacity
+    before = eng.state
+    sup._degrade(eng, "overflow", None, 10, str(tmp_path / "ck"), 1, None,
+                 40, None, {})
+    assert eng._rplan.dspec.capacity == 2 * cap0
+    ev = sup.events[-1]
+    assert (ev["event"], ev["action"], ev["prev_capacity"],
+            ev["cell_capacity"]) == ("degrade", "capacity", cap0, 2 * cap0)
+    for k in ("pos", "vel", "spin"):
+        assert torch.equal(getattr(eng.state, k), getattr(before, k))
+    assert eng.restore(str(tmp_path / "ck")) is None   # the new layout
+    eng.run(10, chunk=10, checkpoint_dir=str(tmp_path / "ck2"))
+    fresh = _make_engine(cells=(6, 6, 6), plan=Sharded())
+    sup.elastic_restore(fresh, str(tmp_path / "ck2"),
+                        Sharded(cell_capacity=cap0 + 1))
+    ev = sup.events[-1]
+    assert ev["event"] == "elastic_restore" and ev["step"] == 10
+    assert (ev["from_layout"]["cell_capacity"],
+            ev["to_layout"]["cell_capacity"]) == (cap0, cap0 + 1)
+    for k in ("pos", "vel", "spin"):
+        assert torch.equal(getattr(fresh.state, k), getattr(eng.state, k))
+    with pytest.raises(NotImplementedError, match="single-trajectory"):
+        sup.elastic_restore(_make_engine(), "ck", plan=Sharded())
 
 
 # ---------------------------------------------------------------------------

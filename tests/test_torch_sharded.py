@@ -524,13 +524,27 @@ def test_check_dropped_raises_overflow():
 
 
 def test_plan_errors_and_facade():
-    """Replicas on the spatial mesh and a device subset name item 13b;
-    SimulationSharded runs the plan."""
+    """Replicas on the spatial mesh resolve on one rank (every replica
+    local); a device subset of more than one rank needs a process group,
+    ``devices=(0,)`` is the one-rank plan; SimulationSharded runs the
+    plan."""
     assert as_plan("sharded") == Sharded()
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        Sharded(replicas=2)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        Sharded(devices=("a", "b"))
+    assert as_plan("sharded", replicas=2) == Sharded(replicas=2)
+    with pytest.raises(ValueError, match="replicas >= 0"):
+        Sharded(replicas=-1)
+    with pytest.raises(ValueError, match="names no rank"):
+        Sharded(devices=())
+    box = torch.full((3,), 18.0, dtype=F64)
+    pos = torch.rand((64, 3), generator=torch.Generator().manual_seed(1),
+                     dtype=F64) * 18.0
+    rp = Sharded(replicas=2).resolve(box, pos, 5.0, 0.2, False)
+    assert (rp.replicas, rp.local_replicas(), rp.replica_offset(),
+            rp.rep_in_mesh(), rp.spatial_axes) == (2, 2, 0, False, ("sx",))
+    assert rp.describe()["devices"] == 1 and rp.rank == 0
+    with pytest.raises(ValueError, match="process group"):
+        Sharded(devices=(0, 1)).resolve(box, pos, 5.0, 0.2, False)
+    one = Sharded(devices=(0,)).resolve(box, pos, 5.0, 0.2, False)
+    assert one.world == 1 and one.mesh is None
     from repro_torch.md.simulate import SimulationSharded
     from repro_torch.md.state import init_state
     lat = simple_cubic()
