@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--serve-only | --sharded-only]
+    python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
-process), ``--sharded-only`` phases 1, J and K; neither prints the result
-line.  Needs one CUDA card and the CUDA
+process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
+and L (without L (c)'s readings, which come from phases 4 and G); none
+prints the result line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
 
@@ -223,6 +224,21 @@ K. the rest of the Sharded plan: (a) the main path's lattice through
    (0, 1))`` run on two of the ranks) and ``Replicated(4)`` split over 2
    gloo ranks (through a checkpoint) ``torch.equal`` to its one-process
    run; one ``{"sharded_replicas": ...}`` line;
+L. the legacy per-evaluation domain paths on one NCCL rank: (a)
+   ``distributed_kernel_force_fn`` (K1 -> one q_Fp halo round -> K2) on
+   the main path's 262,144-atom state binned into cells at least the
+   cutoff wide: E, F and H_eff within 1e-4 of the flat ``nep_compute``,
+   one K1 and one K2 launch, both warp; K1/K2 on its slots against the
+   plain versions (first ``LEGACY_KERNEL_ROWS``, f32 1e-4) and timed; one
+   evaluation timed; (b) the stencil and pruned autograd paths and the
+   kernel path at f64 on B20 8^3 against the flat evaluation and each
+   other at ``tests/test_domain.py``'s bars (of max(|ref|, 1)); (c)
+   ``launch/roofline.py``'s ``nep_report`` at the main path (taken in
+   phase 4: its bounds must read ``MAIN_PATH_BOUNDS``) and at the fitted
+   spec (taken in phase G); (d) ``python -m repro_torch.launch.dryrun
+   --all`` (md_small and md_large on fake 256- and 512-rank worlds, host
+   only, started at the phase's beginning in the background) and
+   ``report.dryrun_main``'s tables; one ``{"legacy": ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
     earlier body's time in this run; FA's ``previous_ms`` null, as its
@@ -237,8 +253,11 @@ K. the rest of the Sharded plan: (a) the main path's lattice through
     slots) and ``max_rel_err_sharded``, and from phase K
     ``launches_sharded_replicas``, ``ms_sharded_replicas`` (one batched
     launch over 4 x 400,896 slots), ``sharded_replicas_flat_ms`` (4 flat
-    launches) and ``max_rel_err_sharded_replicas``), then
-    ``{"ok": true, "device": ...}``.
+    launches) and ``max_rel_err_sharded_replicas``, and from phase L
+    ``launches_legacy``, ``ms_legacy``, ``max_rel_err_legacy`` and the
+    fitted spec's ``bound_ms_fitted``, ``bound_by_fitted`` and
+    ``ms_fitted``), then ``{"ok": true, "device": ...}``.  Every bound is
+    ``launch/roofline.py``'s.
 """
 from __future__ import annotations
 
@@ -254,9 +273,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM, bf16 dense tensor cores
 KERNELS = {
     "nep_atom_pass": dict(
         source="src/repro_torch/kernels/nep/csrc/nep_atom_pass.cu",
@@ -344,42 +360,6 @@ def time_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-# ---------------------------------------------------------------------------
-# analytic work of one call, counted over this run's pairs inside the cutoff
-# ---------------------------------------------------------------------------
-
-def flops_atom_pass(spec, n_atoms, n_pairs) -> float:
-    """K1: per pair the distance, basis, carriers and accumulation; per atom
-    finalize, the MLP forward and backward, and the adjoints."""
-    k, nm = spec.basis_size, (spec.l_max + 1) * (spec.l_max + 2) * (
-        spec.l_max + 3) // 6
-    d = spec.n_desc
-    pair = (18 + 6 * k + 2 * spec.n_rad * k + 12 + 2 * nm
-            + spec.n_ang * (2 * k + 2 * nm))
-    atom = 3 * spec.n_ang * nm + 4 * d * spec.hidden + 6 * spec.hidden
-    if spec.spin:
-        pair += 30 + spec.n_spin * (2 * k + 18)
-        atom += 20 * spec.n_spin + 4 * spec.n_onsite
-    return float(pair * n_pairs + atom * n_atoms)
-
-
-def flops_force_pass(spec, n_atoms, n_pairs) -> float:
-    """K2: per pair the distance, basis and its derivative, both halves'
-    coefficient sums, the angular and spin contractions, the rhat gradient
-    and the projection onto dr."""
-    k, nm = spec.basis_size, (spec.l_max + 1) * (spec.l_max + 2) * (
-        spec.l_max + 3) // 6
-    pair = (21 + 12 * k + 4 * spec.n_rad * k + 12 + 2 * nm
-            + spec.n_ang * (8 * k + 9 * nm) + 15 * nm + 2 * k + 24)
-    if spec.spin:
-        pair += 75 + spec.n_spin * (8 * k + 47)
-    return float(pair * n_pairs + 6 * n_atoms)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def ptxas_report(text: str) -> dict:
@@ -639,6 +619,8 @@ def lm_kernels_main(torch, dev, cfg, sweep_err, launches, ptxas):
     time the card could take."""
     import math
 
+    from repro_torch.launch.roofline import nbytes
+
     from repro_torch.kernels.attention import kernel as fa
     from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.models.ssm import ssm_dims
@@ -780,9 +762,9 @@ def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
     """One row of the kernels line for a bf16 LM kernel: the bound is the
     larger of its bytes at 3.35 TB/s and its contraction flops at the bf16
     dense tensor-core peak of 989 TFLOP/s."""
-    t_bytes = 1e3 * nbytes_ / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / BF16_FLOPS_PER_S
-    bound = max(t_bytes, t_ops)
+    from repro_torch.launch.roofline import bound as card_bound
+    bd = card_bound(nbytes_, flops, "bfloat16")
+    t_bytes, t_ops, bound = bd["bytes_ms"], bd["ops_ms"], bd["bound_ms"]
     lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
     log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, library {lib}); "
         f"{nbytes_ / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.2f} "
@@ -792,8 +774,7 @@ def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
     return {"name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches,
             "max_abs_err": abs_err, **extra, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": bd["bound_by"],
             "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
             "library_ms": library_ms}
 
@@ -801,6 +782,7 @@ def kernel_row(name, launches, abs_err, ms, plain_ms, library_ms, nbytes_,
 def lm_phases(torch, dev, ptxas):
     """Phases 5-9 (the LM serving path); returns their kernel rows."""
     from repro_torch import configs
+    from repro_torch.launch.roofline import nbytes
     from repro_torch.models import lm
     cfg = configs.get(LM_ARCH)
     log(f"phase 5: SSD and FA against their plain versions on the "
@@ -1384,6 +1366,8 @@ def phase_replica(torch, dev, spec, lat, moments, kern, ref) -> dict:
 
     import numpy as np
 
+    from repro_torch.launch.roofline import nbytes
+
     from repro_torch.configs.fege_spinlattice import main_path
     from repro_torch.core.potential import init_params
     from repro_torch.ensemble.replica import spawn_generators
@@ -1799,6 +1783,9 @@ def phase_training(torch, dev, kern, ref, random_weight_k) -> dict:
           for k, t in ms.items()}
     log(f"  K1/K2 at the fitted spec, {md['n_atoms']} atoms, by body (ms): "
         f"{ms}")
+    from repro_torch.launch import roofline
+    fitted = roofline.nep_report(md["spec"], p, c.nbh, c.state.spin,
+                                 c.state.types)
     out = {"accuracy": table, "gates": gates, "loss_first": hist[0],
            "loss_last": hist[-1], "adam_ms_per_step": adam_ms,
            "snes_ms_per_generation": snes_ms, "snes_best": snes_hist,
@@ -1809,7 +1796,7 @@ def phase_training(torch, dev, kern, ref, random_weight_k) -> dict:
            "fe_spin_norm": [smin, smax], "launches": counts,
            "bodies": bodies, "kernel_path_vs_autograd": path_err,
            "kernel_rel_err": errs, "kernel_ms": ms,
-           "random_weight_k": random_weight_k}
+           "random_weight_k": random_weight_k, "roofline": fitted}
     del sim, keep, c, blocks, a1, k2
     torch.cuda.empty_cache()
     return out
@@ -3257,10 +3244,295 @@ def phase_sharded_replicas(torch, dev, spec, lat, moments, kern, ref,
     return out
 
 
+LEGACY_DIR = SURFACE_DIR / "legacy"
+LEGACY_SMALL = (8, 8, 8)                     # (b): B20 unit cells, f64
+LEGACY_KERNEL_ROWS = 8192                    # (a): slots against plain
+# (b): tests/test_domain.py's bars, of max(|ref|, 1): at 4,096 atoms the
+# energy is O(10^3) eV, and an f64 sum in another order moves it by more
+# than 1e-10 absolute
+LEGACY_BARS = {"stencil": (1e-10, 1e-12), "pruned": (1e-8, 1e-10),
+               "kernel": (1e-8, 1e-10)}
+# phase 4's reading of the main path's bounds (PERF.md), ms
+MAIN_PATH_BOUNDS = (0.2047, 0.5002)
+
+
+def _scaled_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1.0)
+
+
+def legacy_domain(torch, state, dev):
+    """The legacy paths' domain of a flat state on one rank: cells at least
+    the cutoff wide (skin 0), the capacity its fullest cell needs; returns
+    (DomainSpec, the binned DomainState on ``dev``, each slot's atom id
+    (host))."""
+    import numpy as np
+
+    from repro_torch.parallel.domain import DomainSpec, pack_domain
+    b = state.box.cpu().numpy()
+    grid = tuple(int(x // 5.0) for x in b)
+    ci = np.clip((state.pos.cpu().numpy() / b * grid).astype(np.int64), 0,
+                 np.asarray(grid) - 1)
+    flat = (ci[:, 0] * grid[1] + ci[:, 1]) * grid[2] + ci[:, 2]
+    dspec = DomainSpec(cells=grid, capacity=int(np.bincount(flat).max()),
+                       cutoff=5.0, box=tuple(float(x) for x in b),
+                       axis_map=("sx", None, None))
+    dspec.check_loop({"sx": 1})       # >= 3 cells a dim: 27 distinct cells
+    dst, ex = pack_domain(dspec, state.pos, state.vel, state.spin,
+                          state.types,
+                          extras={"aid": np.arange(state.pos.shape[0])})
+    return dspec, type(dst)(*(x.to(dev) for x in dst)), ex["aid"]
+
+
+def _unbin(torch, aid, dev, *blocks):
+    """Cell blocks -> flat (N, 3) tensors on ``dev`` in atom order."""
+    from repro_torch.parallel.domain import unbin_cells
+    return [torch.from_numpy(x).to(dev) for x in unbin_cells(
+        aid, *(t.cpu().numpy() for t in blocks))]
+
+
+def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
+    """Phase L: the legacy per-evaluation domain paths on one NCCL rank,
+    the roofline module's bounds at the main path and the fitted spec
+    (``reports``: phase 4's and phase G's ``nep_report``, or None), and the
+    MD dry run on fake worlds in a background process."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import report
+    t_phase = time.perf_counter()
+    shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+    LEGACY_DIR.mkdir(parents=True)
+    dry_dir = LEGACY_DIR / "dryrun"
+    # (d) starts first: host work with no card, beside (a)-(c)
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(dry_dir)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        dist.init_process_group("nccl", init_method="file://" + str(
+            LEGACY_DIR / "rendezvous"), world_size=1, rank=0)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("sx",))
+            out["kernel_path"] = _legacy_kernel_path(
+                torch, dev, spec, lat, moments, kern, ref, mesh)
+            out["autograd_f64"] = _legacy_autograd(torch, dev, spec, lat,
+                                                   moments, mesh)
+        finally:
+            dist.destroy_process_group()
+        out["roofline"] = _legacy_roofline(reports)
+        text, _ = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    log("phase L (d): python -m repro_torch.launch.dryrun --all (fake "
+        "worlds of 256 and 512 ranks, a child process each)")
+    for line in text.splitlines():
+        log("  " + line)
+    if dry.returncode != 0:
+        raise AssertionError(f"the dry run exited with {dry.returncode}")
+    cells = {(r["shape"], "pod2" if r["mesh"].get("pod") else "pod1"): r
+             for r in report.load_all(str(dry_dir))}
+    for key in (("md_small", "pod1"), ("md_small", "pod2")):
+        if "roofline" not in cells.get(key, {}):
+            raise AssertionError(f"dry run: no record for {key}: "
+                                 f"{cells.get(key)}")
+    report.dryrun_main(str(dry_dir))
+    out["dryrun"] = {f"{s}__{p}": {k: r.get(k) for k in (
+        "flops_total", "bytes_total", "bytes_naive", "memory", "collectives",
+        "roofline", "elapsed_s", "error")} for (s, p), r in cells.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase L: {out['phase_s']:.1f} s")
+    return out
+
+
+def _legacy_kernel_path(torch, dev, spec, lat, moments, kern, ref,
+                        mesh) -> dict:
+    """Phase L (a): ``distributed_kernel_force_fn`` at fege-main's width
+    against the flat ``nep_compute``; K1/K2 on its slots against the plain
+    versions; the time of one evaluation."""
+    import types as pytypes
+
+    from repro_torch.configs.fege_spinlattice import main_path
+    from repro_torch.core.potential import init_params
+    from repro_torch.kernels.nep.ops import nep_compute
+    from repro_torch.md.neighbor import cell_neighbor_table, gather_blocks
+    from repro_torch.md.state import init_state
+    from repro_torch.parallel.domain import distributed_kernel_force_fn
+    from repro_torch.parallel.halo import HaloTrace, halo_axes
+    run = main_path()
+    dtype = getattr(torch, run.dtype)
+    g = torch.Generator(device=dev).manual_seed(0)     # phase 3's state
+    st = init_state(lat, run.unit_cells, generator=g,
+                    temperature=run.temperature, dtype=dtype, device=dev)
+    params = init_params(spec, g, dtype=dtype, device=dev)
+    mom = moments.to(dtype)
+    field = torch.tensor(run.field, dtype=dtype, device=dev)
+    t0 = time.perf_counter()
+    dspec, dst, aid = legacy_domain(torch, st, dev)
+    build, effn = distributed_kernel_force_fn(
+        spec, dspec, mesh, capacity=run.capacity, field=field, moments=mom)
+    idx, nmask = build(dst.pos, dst.types, dst.mask)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_slots = dst.types.numel()
+    log(f"phase L (a): distributed_kernel_force_fn on one NCCL rank, B20 "
+        f"{run.unit_cells} = {run.n_atoms} atoms, f32: grid {dspec.cells} x "
+        f"K = {dspec.capacity} ({n_slots} slots), table M = "
+        f"{idx.shape[-1]}; bin + table {setup_s:.2f} s")
+    args = (dst.pos, dst.spin, dst.types, dst.mask, idx, nmask)
+    reset_md_counters(kern)
+    with HaloTrace() as ledger:
+        e, f, h = effn(params, *args)
+    torch.cuda.synchronize()
+    counts = read_md_counters(kern)
+    for name, (n, by_body) in counts.items():
+        if n != 1 or by_body != {"warp": 1, "thread": 0}:
+            raise AssertionError(f"legacy kernel path {name}: launches {n} "
+                                 f"by body {by_body}, expected one warp")
+    tab = cell_neighbor_table(st.pos, st.box, spec.cutoff, run.capacity,
+                              cell_capacity=run.cell_capacity)
+    nbh = gather_blocks(st.pos, st.types, tab, st.box)
+    ef, ff, hf = nep_compute(spec, params, nbh, st.spin, st.types, field,
+                             mom)
+    fl, hl = _unbin(torch, aid, dev, f, h)
+    errs = {"E": abs(float(e) - float(ef)) / abs(float(ef)),
+            "F": rel_err(fl, ff), "H": rel_err(hl, hf)}
+    log(f"  E {float(e):.6f} eV (flat {float(ef):.6f}); rel err vs flat "
+        f"nep_compute {errs} (bar 1e-4); launches {counts}; ledger "
+        f"{ledger.snapshot()}")
+    if not max(errs.values()) < 1e-4:
+        raise AssertionError(f"legacy kernel path vs flat: {errs}")
+    del tab, nbh, ff, hf, fl, hl
+    # K1 and K2 on this path's own slot blocks, as sharded_kernels reads
+    # an Engine's
+    nbh_l, typ = effn.blocks(*args)
+    ns = pytypes.SimpleNamespace
+    eng = ns(_carry=ns(state=ns(types=typ, spin=dst.spin), nbh=nbh_l),
+             potential=ns(spec=spec, params=params),
+             _rplan=ns(local_shape=tuple(dspec.cells),
+                       axes=halo_axes(mesh, dspec.axis_map), allgather=True))
+    kerr, kms = sharded_kernels(torch, kern, ref, eng, 1e-4,
+                                rows=LEGACY_KERNEL_ROWS, timed=True)
+    eval_ms = time_ms(torch, lambda: effn(params, *args), 5)
+    log(f"  K1/K2 vs plain on the first {LEGACY_KERNEL_ROWS} slots {kerr} "
+        f"(bar 1e-4); on all {n_slots} slots {kms} ms; one evaluation "
+        f"(exchanges, gathers, K1, q_Fp, K2) {eval_ms:.3f} ms")
+    out = {"atoms": run.n_atoms, "cells": list(dspec.cells),
+           "cell_capacity": dspec.capacity, "slots": n_slots,
+           "setup_s": setup_s, "rel_err_vs_flat": errs, "launches": counts,
+           "kernel_rel_err": kerr, "kernel_ms": kms, "eval_ms": eval_ms,
+           "ledger": ledger.snapshot()}
+    del eng, nbh_l, typ, e, f, h, idx, nmask, dst, st, params, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _legacy_autograd(torch, dev, spec, lat, moments, mesh) -> dict:
+    """Phase L (b): the stencil and pruned autograd paths (and the kernel
+    path) at f64 on B20 8^3 against the flat evaluation."""
+    from repro_torch.core.potential import energy_forces_field, init_params
+    from repro_torch.md.neighbor import dense_neighbor_table
+    from repro_torch.md.state import init_state
+    from repro_torch.parallel.domain import (distributed_energy_fn,
+                                             distributed_energy_fn_pruned,
+                                             distributed_kernel_force_fn)
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(11)
+    st = init_state(lat, LEGACY_SMALL, generator=g, temperature=300.0,
+                    spin_init="random", dtype=f64, device=dev)
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(7),
+                         dtype=f64, device=dev)
+    mom = moments.to(f64)
+    field = torch.tensor([0.0, 0.0, 0.2], dtype=f64, device=dev)
+    dspec, dst, aid = legacy_domain(torch, st, dev)
+    tab = dense_neighbor_table(st.pos, st.box, spec.cutoff, 64)
+    ef, ff, hf = energy_forces_field(spec, params, st.pos, st.spin, st.types,
+                                     tab, st.box, field, mom)
+    got, secs = {}, {}
+    t0 = time.perf_counter()
+    _, eff = distributed_energy_fn(spec, dspec, mesh, field=field,
+                                   moments=mom)
+    got["stencil"] = eff(params, dst)
+    torch.cuda.synchronize()
+    secs["stencil"] = time.perf_counter() - t0
+    for name, make in (("pruned", distributed_energy_fn_pruned),
+                       ("kernel", distributed_kernel_force_fn)):
+        t0 = time.perf_counter()
+        build, fn = make(spec, dspec, mesh, capacity=64, field=field,
+                         moments=mom)
+        got[name] = fn(params, dst.pos, dst.spin, dst.types, dst.mask,
+                       *build(dst.pos, dst.types, dst.mask))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    res = {name: (e, *_unbin(torch, aid, dev, f, h))
+           for name, (e, f, h) in got.items()}
+    errs = {"stencil_vs_flat": dict(zip("EFH", (
+        _scaled_err(a, b) for a, b in zip(res["stencil"], (ef, ff, hf)))))}
+    for name in ("pruned", "kernel"):
+        errs[f"{name}_vs_stencil"] = dict(zip("EFH", (
+            _scaled_err(a, b) for a, b in zip(res[name], res["stencil"]))))
+    log(f"phase L (b): B20 {LEGACY_SMALL} = {st.pos.shape[0]} atoms f64, "
+        f"grid {dspec.cells} x K = {dspec.capacity}, E {float(ef):.9f} eV; "
+        f"errors (of max(|ref|, 1)) {errs}; seconds {secs}")
+    for key, e in errs.items():
+        be, bf = LEGACY_BARS[key.split("_")[0]]
+        if not (e["E"] < be and e["F"] < bf and e["H"] < bf):
+            raise AssertionError(f"phase L (b) {key}: {e} past ({be:g}, "
+                                 f"{bf:g})")
+    return {"atoms": int(st.pos.shape[0]), "cells": list(dspec.cells),
+            "cell_capacity": dspec.capacity, "errors": errs, "seconds": secs}
+
+
+def _legacy_roofline(reports) -> dict:
+    """Phase L (c): ``roofline.nep_report``'s readings at the main path
+    (phase 4) and the fitted spec (phase G); the main path's bounds must
+    read phase 4's."""
+    out = {}
+    for name, rep in reports.items():
+        if rep is None:
+            log(f"phase L (c): {name}: not run in this mode")
+            continue
+        m = rep["measured"]
+        row = {k: {f: m[k][f] for f in ("bound_ms", "bound_by", "bytes",
+                                        "flops", "ms", "share_of_bound",
+                                        "gflop_per_s", "gb_per_s")}
+               for k in ("nep_atom_pass", "nep_force_pass")}
+        row.update(n_atoms=m["n_atoms"], n_pairs=m["n_pairs"],
+                   flops_ratio=rep["flops_ratio"],
+                   analytic_flops=rep["analytic"]["flops"],
+                   analytic_hbm_bytes=rep["analytic"]["hbm_bytes"])
+        out[name] = row
+        log(f"phase L (c): roofline.nep_report at the {name}: "
+            f"{m['n_atoms']} atoms, {m['n_pairs']} pairs inside the cutoff; "
+            + "; ".join(f"{k} {row[k]['ms']:.3f} ms, bound "
+                        f"{row[k]['bound_ms']:.4f} ms ({row[k]['bound_by']}),"
+                        f" {100 * row[k]['share_of_bound']:.2f}% of it, "
+                        f"{row[k]['gflop_per_s']:.0f} GFLOP/s, "
+                        f"{row[k]['gb_per_s']:.0f} GB/s"
+                        for k in ("nep_atom_pass", "nep_force_pass"))
+            + f"; counted / analytic FLOPs {rep['flops_ratio']:.3f}")
+    main = out.get("main path")
+    if main is not None:
+        got = (round(main["nep_atom_pass"]["bound_ms"], 4),
+               round(main["nep_force_pass"]["bound_ms"], 4))
+        if got != MAIN_PATH_BOUNDS:
+            raise AssertionError(f"main-path bounds {got} ms, expected "
+                                 f"{MAIN_PATH_BOUNDS}")
+    return out
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--serve-only"], ["--sharded-only"]):
-        print("usage: chip_smoke.py [--serve-only | --sharded-only]",
-              file=sys.stderr)
+    if argv not in ([], ["--serve-only"], ["--sharded-only"],
+                    ["--legacy-only"]):
+        print("usage: chip_smoke.py [--serve-only | --sharded-only | "
+              "--legacy-only]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3280,6 +3552,7 @@ def main(argv) -> int:
     from repro_torch.kernels.nep import ref
     from repro_torch.kernels.nep.layout import unpack_abar
     from repro_torch.kernels.nep.ops import nep_compute
+    from repro_torch.launch import roofline
     from repro_torch.md.engine import Engine
     from repro_torch.md.integrator import IntegratorConfig
     from repro_torch.md.lattice import b20_fege
@@ -3325,6 +3598,12 @@ def main(argv) -> int:
         print(json.dumps({"sharded_replicas": phase_sharded_replicas(
             torch, dev, spec, lat, moments, kern, ref,
             sharded["one_rank"]["steps_per_s"])}), flush=True)
+        print(card, flush=True)
+        return 0
+    if argv == ["--legacy-only"]:
+        print(json.dumps({"legacy": phase_legacy(
+            torch, dev, spec, lat, moments, kern, ref,
+            {"main path": None, "fitted spec": None})}), flush=True)
         print(card, flush=True)
         return 0
 
@@ -3449,8 +3728,7 @@ def main(argv) -> int:
     sj = spin[nbh.idx.long()]
     blocks = (nbh.dr, nbh.mask, types, nbh.tj, spin, sj)
     n_atoms = spin.shape[0]
-    r = torch.sqrt((nbh.dr * nbh.dr).sum(-1) + 1e-12)
-    n_pairs = int((nbh.mask & (r < spec.cutoff)).sum())
+    n_pairs = roofline.pairs_inside(nbh.dr, nbh.mask, spec.cutoff)
     log(f"  {n_atoms} atoms x {nbh.mask.shape[1]} slots, "
         f"{int(nbh.mask.sum())} pairs in the table, {n_pairs} inside the "
         "cutoff")
@@ -3506,22 +3784,17 @@ def main(argv) -> int:
                     *k1_args), 2),
                 "nep_force_pass": time_ms(torch, lambda: ref.force_pass_plain(
                     *k2_args), 2)}
-    pbytes = nbytes(*params)
     work = {
-        "nep_atom_pass": (
-            nbytes(*blocks, *k1) + pbytes,
-            flops_atom_pass(spec, n_atoms, n_pairs)),
-        "nep_force_pass": (
-            nbytes(nbh.dr, nbh.mask, nbh.idx, types, nbh.tj, spin, sj, k1[2],
-                   *k2) + nbytes(params.c_rad, params.c_ang, params.c_spin),
-            flops_force_pass(spec, n_atoms, n_pairs)),
+        "nep_atom_pass": roofline.atom_pass_work(spec, params, *blocks, k1,
+                                                 n_pairs),
+        "nep_force_pass": roofline.force_pass_work(*k2_args, k2, n_pairs),
     }
     step_ms = 1e3 * run_s / steps
     rows = []
     for name, (b, f) in work.items():
         meta = KERNELS[name]
-        t_bytes, t_ops = 1e3 * b / HBM_BYTES_PER_S, 1e3 * f / F32_FLOPS_PER_S
-        bound = max(t_bytes, t_ops)
+        bd = roofline.bound(b, f, dtype)
+        t_bytes, t_ops, bound = bd["bytes_ms"], bd["ops_ms"], bd["bound_ms"]
         log(f"  {name}: {ms[name]:.3f} ms (plain {plain_ms[name]:.1f} ms); "
             f"{b / 1e6:.1f} MB -> {t_bytes:.4f} ms, {f / 1e9:.2f} GFLOP -> "
             f"{t_ops:.4f} ms; bound {bound:.4f} ms = "
@@ -3533,11 +3806,12 @@ def main(argv) -> int:
             "max_rel_err_f32": max(errs[name]["f32"], main_err[name][0]),
             "max_rel_err_f64": errs[name]["f64"],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, **extra[name],
+            "bound_by": bd["bound_by"], "library_ms": None, **extra[name],
         })
     log(f"  main path step {step_ms:.2f} ms, of which K1 + K2 "
         f"{ms['nep_atom_pass'] + ms['nep_force_pass']:.2f} ms per evaluation")
+    # the roofline module's record at this geometry (phase L (c) reads it)
+    main_report = roofline.nep_report(spec, params, nbh, spin, types)
     del eng, c, nbh, blocks, k1, p1, k2, p2, state, st, ff
     torch.cuda.empty_cache()
 
@@ -3617,6 +3891,22 @@ def main(argv) -> int:
             row["max_rel_err_sharded_replicas"] = srep["replicas"][
                 "kernel_rel_err"][row["name"]]
     print(json.dumps({"sharded_replicas": srep}), flush=True)
+    torch.cuda.empty_cache()
+    legacy = phase_legacy(torch, dev, spec, lat, moments, kern, ref,
+                          {"main path": main_report,
+                           "fitted spec": training["roofline"]})
+    for row in rows:
+        name = row["name"]
+        if name in ("nep_atom_pass", "nep_force_pass"):
+            kp = legacy["kernel_path"]
+            row["launches_legacy"] = kp["launches"][name][0]
+            row["ms_legacy"] = kp["kernel_ms"][name]
+            row["max_rel_err_legacy"] = kp["kernel_rel_err"][name]
+            fitted = legacy["roofline"]["fitted spec"][name]
+            row["bound_ms_fitted"] = fitted["bound_ms"]
+            row["bound_by_fitted"] = fitted["bound_by"]
+            row["ms_fitted"] = fitted["ms"]
+    print(json.dumps({"legacy": legacy}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,15 +16,151 @@ figure; ``--halo-mode`` as ``Sharded.halo_mode``).  Rank 0 prints the
 steps/s, rebuilds, migrations, the halo ledger and the charge trace, then
 one JSON line.  ``--check-flat`` runs f64 NVE instead (no thermostat, no schedule)
 and rank 0 then runs the flat Engine from the same state for as many
-steps: ``vs_flat`` is the largest |difference| of pos, vel and spin.  The
-dry-run half of the reference module (lowering and cost analysis) is
-ROADMAP queue 1 item 14.
+steps: ``vs_flat`` is the largest |difference| of pos, vel and spin.
+
+The dry-run half (:func:`build_md_dryrun`, which ``launch/dryrun.py``
+drives) counts one integrator step of the fege-spinlattice cell on one
+rank's slab of fake tensors inside a fake process group of the mesh's
+world size: FLOPs and bytes by :mod:`repro_torch.utils.cost`, collectives
+by the halo ledger, memory from the shapes and the live fake tensors.
+Nothing is allocated on a device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+
+# per-rank cell grids (the paper's weak-scaling analogue: small and large)
+MD_SHAPES = {
+    "md_small": (8, 8, 8),      # ~0.13M atoms a card, 67M on 512 cards
+    "md_large": (16, 16, 16),   # ~1.05M atoms a card, 536M on 512 cards
+}
+
+
+def domain_for_mesh(mesh, cells_per_device, cell_size):
+    """The global domain of ``cells_per_device`` cells on every rank of
+    ``mesh``: mesh dimensions onto space as data -> X, model -> Y,
+    pod -> Z (capacity 16, cutoff 5.0, skin 0)."""
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.parallel.domain import DomainSpec
+    shape = mesh_shape(mesh)
+    axis_map = ("data", "model", "pod" if "pod" in shape else None)
+    grid = [shape.get(a, 1) if a else 1 for a in axis_map]
+    cells = tuple(c * g for c, g in zip(cells_per_device, grid))
+    box = tuple(c * cell_size for c in cells)
+    return DomainSpec(cells=cells, capacity=16, cutoff=5.0, box=box,
+                      axis_map=axis_map)
+
+
+def build_md_dryrun(shape_name: str, mesh, dtype=None,
+                    temperature: float = 160.0, midpoint: bool = False,
+                    impl: str = "stencil", nbr_capacity: int = 64) -> dict:
+    """Count one step of the MD cell on this rank; returns the record's
+    meta.
+
+    The step is the reference's: Langevin lattice and sLLG spin
+    thermostats at ``temperature``, a 0.1 T field along z, moments 1.16 /
+    0.0 (Fe / Ge), one force/field evaluation by ``impl``: ``"stencil"``
+    (27-shift streaming) or ``"pruned"`` (the pre-staged top-M table, an
+    INPUT of the step as in the reference: it is rebuilt on skin
+    violations, and its build is data-dependent, which fake tensors cannot
+    run).  It runs on fake tensors (``FakeTensorMode``) of this rank's slab
+    inside the initialised (fake) world of ``mesh``; the meta holds the
+    reference's atom counts, the op-cost triple and op counts
+    (``op_cost``, ``ops``), the halo ledger (``ledger``) and the
+    memory: argument and output bytes from the shapes, temp bytes the peak
+    of live op outputs during the step."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.fege_spinlattice import config
+    from repro_torch.core.potential import init_params
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.md.integrator import (ForceField, IntegratorConfig,
+                                           make_fused_step)
+    from repro_torch.md.state import SpinLatticeState
+    from repro_torch.parallel.domain import (distributed_energy_fn,
+                                             distributed_energy_fn_pruned)
+    from repro_torch.parallel.halo import HaloTrace
+    from repro_torch.utils import units
+    from repro_torch.utils.cost import CostCounter
+    from repro_torch.utils.tree import tree_bytes
+
+    dtype = dtype or torch.float32
+    mdcfg = config()
+    spec = mdcfg.spec
+    dspec = domain_for_mesh(mesh, MD_SHAPES[shape_name], mdcfg.cell_size)
+    dspec.check()
+    n_dev = int(mesh.mesh.numel())
+    cx, cy, cz = dspec.local_shape(mesh_shape(mesh))
+    k = dspec.capacity
+    icfg = IntegratorConfig(
+        dt=mdcfg.dt, moment=1.16, midpoint=midpoint, midpoint_iters=2,
+        temperature=temperature, lattice_gamma=1.0, spin_alpha=0.01,
+        spin_longitudinal=0.1)
+    field = (0.0, 0.0, 0.1)                     # Fig. 9 field protocol
+
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        gen = torch.Generator().manual_seed(0)
+        masses = torch.tensor([units.MASS_FE, units.MASS_GE], dtype=dtype)
+        magnetic = torch.tensor([True, False])
+        moments = torch.tensor([1.16, 0.0], dtype=dtype)
+        params = init_params(spec, gen, dtype=dtype, device="cpu")
+        cell = lambda *tail: torch.empty((cx, cy, cz, k) + tail, dtype=dtype)
+        types = torch.zeros((cx, cy, cz, k), dtype=torch.int32)
+        mask = torch.ones((cx, cy, cz, k), dtype=torch.bool)
+        state = SpinLatticeState(
+            pos=cell(3), vel=cell(3), spin=cell(3), types=types,
+            box=torch.tensor(dspec.box, dtype=dtype))
+        ff = ForceField(energy=torch.zeros((), dtype=dtype), force=cell(3),
+                        field=cell(3))
+        inputs = [params, state[:4], mask, ff]
+        if impl == "pruned":
+            _, effn = distributed_energy_fn_pruned(
+                spec, dspec, mesh, capacity=nbr_capacity, field=field,
+                moments=moments)
+            tbl = (torch.zeros((cx, cy, cz, k, nbr_capacity),
+                               dtype=torch.int32),
+                   torch.ones((cx, cy, cz, k, nbr_capacity),
+                              dtype=torch.bool))
+            inputs.append(tbl)
+
+            def evaluate(pos, spin, types):
+                return effn(params, pos, spin, types, mask, *tbl)
+        elif impl == "stencil":
+            _, effn = distributed_energy_fn(spec, dspec, mesh, field=field,
+                                            moments=moments)
+
+            def evaluate(pos, spin, types):
+                return effn.raw(params, pos, spin, types, mask)
+        else:
+            raise ValueError(f"impl {impl!r}: 'stencil' or 'pruned'")
+        step = make_fused_step(
+            gather=lambda pos, _nbh: pos,
+            compute=lambda pos, spin, types, _field: ForceField(*evaluate(
+                pos, spin, torch.clamp(types, min=0))),
+            cfg=icfg, masses=masses, magnetic=magnetic,
+            atom_mask="from_types")
+        with CostCounter() as counter, HaloTrace() as ledger:
+            new_state, new_ff, _ = step(state, ff, state.pos, gen)
+            out_bytes = tree_bytes([new_state[:4], new_ff])
+        del new_state, new_ff
+
+    n_atoms = dspec.cells[0] * dspec.cells[1] * dspec.cells[2] * 13
+    rec = counter.record()
+    return {"kind": "md", "tokens": n_atoms, "atoms": n_atoms,
+            "atoms_per_device": n_atoms // n_dev,
+            "cells": tuple(dspec.cells), "local_cells": (cx, cy, cz),
+            "capacity": k, "impl": impl, "dtype": str(dtype).split(".")[-1],
+            "op_cost": {key: rec[key] for key in
+                        ("flops", "bytes_naive", "bytes_anchor")},
+            "ops": rec["ops"],
+            "ledger": ledger.snapshot(),
+            "memory": {"argument_bytes": tree_bytes(inputs),
+                       "output_bytes": out_bytes,
+                       "temp_bytes": rec["peak_bytes"]}}
 
 
 def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,

@@ -12,11 +12,14 @@ with the per-tenant accounting table, and the final status.  A serving
 journal (``journal.jsonl``, :mod:`repro_torch.serve.journal`) renders as
 a lifecycle report (:func:`journal_report`).
 
-Not ported yet: the dry-run roofline tables (``summary``, ROADMAP queue 1
-item 14); it raises ``NotImplementedError``.
+With no argument it prints the dry run's summary and roofline tables
+(:func:`dryrun_main`) from ``experiments/dryrun/*.json``
+(``python -m repro_torch.launch.dryrun --all`` writes them).
 """
 from __future__ import annotations
 
+import glob
+import json
 import math
 import os
 import sys
@@ -349,16 +352,90 @@ def runlog_report(path: str | os.PathLike) -> str:
     return "\n".join(lines)
 
 
-def summary(recs=None) -> str:
-    """The dry-run roofline tables: ROADMAP queue 1 item 14."""
-    raise NotImplementedError("the dry-run roofline summary is ROADMAP "
-                              "queue 1 item 14 (launch and tooling)")
+# ---------------------------------------------------------------------------
+# dry-run / roofline tables
+# ---------------------------------------------------------------------------
+
+
+def load_all(d="experiments/dryrun"):
+    recs = []
+    for p in sorted(glob.glob(os.path.join(d, "*.json"))):
+        with open(p) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def fmt_e(x):
+    return f"{x:.2e}" if x is not None else "-"
+
+
+def roofline_table(recs, pod="pod1") -> str:
+    lines = [
+        "| arch | shape | compute [s] | memory [s] | collective [s] | "
+        "bound | MODEL/HLO | hbm args [GB/dev] |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        tag_pod = "pod2" if r["mesh"].get("pod") else "pod1"
+        if tag_pod != pod:
+            continue
+        if "skipped" in r:
+            lines.append(f"| {r['arch']} | {r['shape']} | - | - | - | "
+                         f"SKIP | - | - |")
+            continue
+        if "error" in r:
+            lines.append(f"| {r['arch']} | {r['shape']} | - | - | - | "
+                         f"ERROR | - | - |")
+            continue
+        rf = r["roofline"]
+        mem = r.get("memory", {})
+        args_gb = (mem.get("argument_bytes") or 0) / 1e9
+        ratio = rf.get("useful_flops_ratio")
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {rf['compute_s']:.2e} | "
+            f"{rf['memory_s']:.2e} | {rf['collective_s']:.2e} | "
+            f"**{rf['bottleneck']}** | "
+            f"{(f'{ratio:.2f}' if ratio else '-')} | {args_gb:.2f} |")
+    return "\n".join(lines)
+
+
+def summary(recs) -> str:
+    ok = [r for r in recs if "roofline" in r]
+    skip = [r for r in recs if "skipped" in r]
+    err = [r for r in recs if "error" in r]
+    out = [f"cells: {len(ok)} compiled OK, {len(skip)} skipped "
+           f"(documented), {len(err)} errors"]
+    if ok:
+        worst = min(
+            (r for r in ok if r["meta"].get("kind") == "train"),
+            key=lambda r: (r["roofline"]["compute_s"] /
+                           max(r["roofline"]["step_time_s"], 1e-30)),
+            default=None)
+        if worst:
+            out.append(
+                f"worst compute-fraction train cell: {worst['arch']} "
+                f"{worst['shape']}")
+        coll = max(ok, key=lambda r: r["roofline"]["collective_s"])
+        out.append(f"most collective-bound: {coll['arch']} {coll['shape']} "
+                   f"({coll['roofline']['collective_s']:.2e}s)")
+    return "\n".join(out)
+
+
+def dryrun_main(d="experiments/dryrun"):
+    recs = load_all(d)
+    print("## Dry-run + roofline summary\n")
+    print(summary(recs))
+    print("\n### Single-pod (16x16 = 256 cards)\n")
+    print(roofline_table(recs, "pod1"))
+    print("\n### Multi-pod (2x16x16 = 512 cards)\n")
+    print(roofline_table(recs, "pod2"))
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
-        summary()
+        dryrun_main()
+        return
     for i, path in enumerate(argv):
         if i:
             print()

@@ -1,5 +1,7 @@
 """Spatial domain decomposition of the coupled spin-lattice system (port of
-``repro.parallel.domain``, the sharded fused loop's half).
+``repro.parallel.domain``): the sharded fused loop's pieces, and the legacy
+per-evaluation paths (27-stencil and pruned-table autograd, and K1 -> q_Fp
+halo -> K2) at the end of the module.
 
 State layout: cell-major tensors ``(cx, cy, cz, K, ...)`` - a global grid of
 link cells (each at least cutoff+skin wide) with a fixed per-cell atom
@@ -39,8 +41,8 @@ import torch
 
 from repro_torch.md.neighbor import reverse_index, reverse_sum
 from repro_torch.parallel.halo import (cell_dims, exchange_halo,
-                                       exchange_halo_multi, fold_halo_multi,
-                                       local_wrap)
+                                       exchange_halo_multi, fold_halo,
+                                       fold_halo_multi, local_wrap)
 from repro_torch.parallel.overlap import shell_slabs
 from repro_torch.utils import units
 
@@ -719,3 +721,333 @@ def make_domain_kernel_evaluator(potential, dspec: DomainSpec, axes,
         return e_loc, force, heff
 
     return refresh, compute
+
+
+# ---------------------------------------------------------------------------
+# the legacy per-evaluation paths (one evaluation = halo exchange + local
+# evaluation + one scalar energy reduction; no carried table state)
+# ---------------------------------------------------------------------------
+#
+# Each function runs on one rank's slab of ``pack_domain``'s global grid:
+# ``pos``/``spin`` (cx, cy, cz, K, 3), ``types`` (cx, cy, cz, K) (empty slots
+# may hold any type: ``mask`` says which slots hold atoms).  The reference
+# differentiates the psum'd energy inside shard_map, whose transpose of
+# ppermute folds the ghosts' gradients back for free; here the local energy
+# is differentiated through :class:`_HaloExchange` (its backward is
+# ``fold_halo``) and only the scalar value is all-reduced, outside the graph.
+# Ledger tags: ``legacy-pos``/``-spin``/``-types``/``-ids`` for the forward
+# exchanges, ``legacy-adjoint`` for the folds, ``qfp`` for the kernel path's
+# adjoint round, ``energy`` for each all_reduce of the energy.
+
+def _legacy_axes(dspec: DomainSpec, mesh):
+    """(halo axes, allgather, local cell shape) of this rank: the Sharded
+    plan's ``"auto"`` halo mode, allgather when every sharded axis is at
+    most 8 wide."""
+    from repro_torch.parallel.halo import halo_axes
+    from repro_torch.parallel.plan import _mesh_shape
+    axes = halo_axes(mesh, dspec.axis_map)
+    return (axes, all(ax is None or ax.size <= 8 for ax in axes),
+            tuple(dspec.local_shape(_mesh_shape(mesh))))
+
+
+class _HaloExchange(torch.autograd.Function):
+    """``exchange_halo`` whose backward is ``fold_halo``: the gradients on
+    ghost copies travel back to their owners (the reverse communication
+    the reference gets from shard_map's transpose of ppermute)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, tag, allgather):
+        ctx.axes, ctx.allgather = axes, allgather
+        return exchange_halo(x, axes, tag=tag, allgather=allgather)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (fold_halo(g.contiguous(), ctx.axes, tag="legacy-adjoint",
+                          allgather=ctx.allgather), None, None, None)
+
+
+def _exchange(x, axes, tag: str, allgather: bool):
+    if x.is_floating_point():
+        return _HaloExchange.apply(x, axes, tag, allgather)
+    return exchange_halo(x, axes, tag=tag, allgather=allgather)
+
+
+def _rank_index(axes) -> int:
+    """This rank's linear index over the sharded axes (the reference's
+    axis_index over the axis map)."""
+    dev = 0
+    for ax in axes:
+        if ax is not None:
+            dev = dev * ax.size + ax.index
+    return dev
+
+
+def reduce_energy(e: torch.Tensor, axes) -> torch.Tensor:
+    """The rank-local energy summed over every sharded axis (one
+    ``all_reduce`` per axis, as the reference's psum per axis name),
+    outside the graph; recorded in the ledger under ``"energy"``."""
+    e = e.detach().clone()
+    for ax in axes:
+        if ax is not None and ax.size > 1:
+            import torch.distributed as dist
+            from repro_torch.parallel.halo import record
+            record("energy", e.numel() * e.element_size())
+            dist.all_reduce(e, group=ax.group)
+    return e
+
+
+def _eps(dtype) -> float:
+    return 1e-12 if dtype == torch.float32 else 1e-30
+
+
+def _site_energy(spec, params, q, ti, mask, spin, field, moments):
+    """Masked MLP energy of the descriptors plus the Zeeman term."""
+    from repro_torch.core.potential import mlp_energy
+    e = mlp_energy(params, q.reshape(-1, spec.n_desc), ti.reshape(-1))
+    etot = torch.sum(torch.where(mask.reshape(-1), e, torch.zeros_like(e)))
+    if field is not None:
+        mom = moments.to(dtype=spin.dtype, device=spin.device)[ti.long()]
+        mom = torch.where(mask, mom, torch.zeros_like(mom))
+        b = torch.as_tensor(field, dtype=spin.dtype, device=spin.device)
+        etot = etot - units.MU_B * torch.sum(mom[..., None] * spin * b)
+    return etot
+
+
+def _local_energy(spec, dspec: DomainSpec, axes, params, pos, spin, types,
+                  mask, field, moments, allgather: bool = False):
+    """Rank-local energy: halo exchange + 27-shift streaming accumulation
+    (one own-cell x neighbour-cell (K x K) pair block per shift).
+
+    Under autograd each shift's pair block is recomputed in the backward
+    pass (``torch.utils.checkpoint`` per shift, the reference's
+    ``jax.checkpoint`` over its scan body), so the 27 blocks are never all
+    live at once."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core.descriptor import accumulate, finalize, \
+        init_accumulators
+    dtype, dev = pos.dtype, pos.device
+    box = torch.as_tensor(dspec.box, dtype=dtype, device=dev)
+    cx, cy, cz, k = mask.shape
+    n_loc = cx * cy * cz * k
+    # globally unique slot ids (0 = empty) for the self-pair exclusion
+    ids = (torch.arange(n_loc, dtype=torch.int32, device=dev).reshape(
+        mask.shape) + _rank_index(axes) * n_loc + 1)
+    ids = torch.where(mask, ids, torch.zeros_like(ids))
+    ext_pos = _exchange(pos, axes, "legacy-pos", allgather)
+    ext_spin = _exchange(spin, axes, "legacy-spin", allgather)
+    ext_type = _exchange(types, axes, "legacy-types", allgather)
+    ext_ids = _exchange(ids, axes, "legacy-ids", allgather)
+    ti = torch.where(mask, types, torch.zeros_like(types))
+    eps = _eps(dtype)
+    dp = params.desc_params()
+
+    def shift(acc, ext_pos, ext_spin, pos, spin, sx, sy, sz):
+        cut = (slice(sx, sx + cx), slice(sy, sy + cy), slice(sz, sz + cz))
+        npos, nspin = ext_pos[cut], ext_spin[cut]
+        ntype, nids = ext_type[cut], ext_ids[cut]
+        dr = _min_image(npos[..., None, :, :] - pos[..., :, None, :], box)
+        dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + eps)
+        pmask = (mask[..., :, None] & (nids[..., None, :] > 0)
+                 & (ids[..., :, None] != nids[..., None, :])
+                 & (dist <= dspec.cutoff))
+        tj = torch.where(nids > 0, ntype, torch.zeros_like(ntype))
+        return accumulate(spec, dp, acc, dr, dist, pmask, ti,
+                          tj[..., None, :].expand(cx, cy, cz, k, k), spin,
+                          nspin[..., None, :, :].expand(cx, cy, cz, k, k, 3))
+
+    acc = init_accumulators(spec, (cx, cy, cz, k), dtype, dev)
+    for dx, dy, dz in _SHIFTS:
+        args = (acc, ext_pos, ext_spin, pos, spin, 1 + dx, 1 + dy, 1 + dz)
+        if torch.is_grad_enabled():
+            acc = checkpoint(shift, *args, use_reentrant=False)
+        else:
+            acc = shift(*args)
+    q = finalize(spec, acc, spin)
+    return _site_energy(spec, params, q, ti, mask, spin, field, moments)
+
+
+def _moments(spec, moments):
+    if moments is not None:
+        return torch.as_tensor(moments)
+    return torch.ones(max(spec.n_types, 1))
+
+
+def _grad_evaluator(local_energy, axes):
+    """``(E, F, H_eff)`` of a rank-local energy function of (pos, spin):
+    E summed over the ranks, F and H_eff the negative gradients of the
+    local energy, ghosts folded back."""
+    def evaluate(pos, spin, *rest):
+        p = pos.detach().requires_grad_(True)
+        s = spin.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = local_energy(p, s, *rest)
+            gp, gs = torch.autograd.grad(e, (p, s))
+        return reduce_energy(e, axes), -gp, -gs
+    return evaluate
+
+
+def distributed_energy_fn(spec, dspec: DomainSpec, mesh, field=None,
+                          moments=None):
+    """``(energy_fn, energy_forces_field_fn)`` of the 27-stencil path on
+    this rank of ``mesh`` (a ``DeviceMesh`` whose dimensions ``dspec.
+    axis_map`` names; None: one rank, no process group).
+
+    ``energy(params, state) -> E`` and ``energy_forces_field(params, state)
+    -> (E, F, H_eff)`` take this rank's :class:`DomainState` slab; E is
+    the global energy (one scalar all_reduce per sharded axis), F and
+    H_eff this rank's blocks.  ``energy_forces_field.raw(params, pos,
+    spin, types, mask)`` takes the blocks.  Halos go in the Sharded plan's
+    ``"auto"`` mode."""
+    axes, ag, _ = _legacy_axes(dspec, mesh)
+    mom = _moments(spec, moments)
+
+    def local(params, pos, spin, types, mask):
+        return _local_energy(spec, dspec, axes, params, pos, spin, types,
+                             mask, field, mom, ag)
+
+    def energy(params, state: DomainState):
+        with torch.no_grad():
+            return reduce_energy(local(params, state.pos, state.spin,
+                                       state.types, state.mask), axes)
+
+    def raw(params, pos, spin, types, mask):
+        return _grad_evaluator(
+            lambda p, s: local(params, p, s, types, mask), axes)(pos, spin)
+
+    def energy_forces_field(params, state: DomainState):
+        return raw(params, state.pos, state.spin, state.types, state.mask)
+
+    energy_forces_field.raw = raw
+    return energy, energy_forces_field
+
+
+# ---------------------------------------------------------------------------
+# the pre-staged (pruned) table: the paper's Phase-A/B pre-staging
+# ---------------------------------------------------------------------------
+#
+# The 27-cell stencil enumerates 27*K candidates per atom, of which ~40-55
+# fall inside the cutoff.  A pruned per-atom table (the M nearest, into the
+# halo-extended slots) built once per skin violation lets an evaluation
+# stream exactly M candidates.
+
+def build_domain_table(spec, dspec: DomainSpec, axes, capacity: int, pos,
+                       types, mask, allgather: bool = False):
+    """This rank's pruned table ``(idx (cx,cy,cz,K,M) int32 into the
+    ext-flat slots, nbr_mask (cx,cy,cz,K,M) bool)``, M = min(capacity,
+    27K): :func:`build_local_table` with ``mask`` as the occupancy (at the
+    legacy paths' skin 0 the reference's table; its invalid entries point
+    at the atom's own slot instead of 0)."""
+    typ = torch.where(mask, types, torch.full_like(types, -1))
+    idx, nmask, _ = build_local_table(dspec, axes, tuple(mask.shape[:3]),
+                                      capacity, pos, typ,
+                                      allgather=allgather)
+    return idx, nmask
+
+
+def _local_energy_pruned(spec, dspec: DomainSpec, axes, params, pos, spin,
+                         types, mask, tbl_idx, tbl_mask, field, moments,
+                         allgather: bool = False):
+    """Rank-local energy through the pruned table: ONE accumulate pass
+    over M candidates instead of 27 stencil blocks."""
+    from repro_torch.core.descriptor import accumulate, finalize, \
+        init_accumulators
+    dtype = pos.dtype
+    box = torch.as_tensor(dspec.box, dtype=dtype, device=pos.device)
+    exf_pos = _exchange(pos, axes, "legacy-pos", allgather).reshape(-1, 3)
+    exf_spin = _exchange(spin, axes, "legacy-spin", allgather).reshape(-1, 3)
+    exf_type = _exchange(torch.clamp(types, min=0), axes, "legacy-types",
+                         allgather).reshape(-1)
+    idx = tbl_idx.long()
+    dr = _min_image(exf_pos[idx] - pos[..., None, :], box)
+    dist = torch.sqrt(torch.sum(dr * dr, dim=-1) + _eps(dtype))
+    pmask = tbl_mask & (dist <= dspec.cutoff)
+    ti = torch.where(mask, types, torch.zeros_like(types))
+    acc = init_accumulators(spec, tuple(mask.shape), dtype, pos.device)
+    acc = accumulate(spec, params.desc_params(), acc, dr, dist, pmask, ti,
+                     exf_type[idx], spin, exf_spin[idx])
+    q = finalize(spec, acc, spin)
+    return _site_energy(spec, params, q, ti, mask, spin, field, moments)
+
+
+def distributed_energy_fn_pruned(spec, dspec: DomainSpec, mesh,
+                                 capacity: int = 64, field=None,
+                                 moments=None):
+    """Pre-staged variant: ``(build_table, energy_forces_field)``.
+
+    ``build_table(pos, types, mask) -> (idx, nbr_mask)`` on this rank
+    (rebuilt on skin violations, as the flat path's table);
+    ``energy_forces_field(params, pos, spin, types, mask, idx, nbr_mask)
+    -> (E, F, H_eff)`` as :func:`distributed_energy_fn`'s."""
+    axes, ag, _ = _legacy_axes(dspec, mesh)
+    mom = _moments(spec, moments)
+
+    def build(pos, types, mask):
+        return build_domain_table(spec, dspec, axes, capacity, pos, types,
+                                  mask, allgather=ag)
+
+    def energy_forces_field(params, pos, spin, types, mask, tbl_idx,
+                            tbl_mask):
+        return _grad_evaluator(
+            lambda p, s: _local_energy_pruned(
+                spec, dspec, axes, params, p, s, types, mask, tbl_idx,
+                tbl_mask, field, mom, ag), axes)(pos, spin)
+
+    return build, energy_forces_field
+
+
+# ---------------------------------------------------------------------------
+# the kernel path: K1 -> one q_Fp halo round -> K2, per evaluation
+# ---------------------------------------------------------------------------
+
+def distributed_kernel_force_fn(spec, dspec: DomainSpec, mesh,
+                                capacity: int = 64, field=None, moments=None):
+    """``(build_table, energy_forces_field)`` with the signatures of
+    :func:`distributed_energy_fn_pruned`, evaluated by the hand-written
+    kernels instead of autograd: K1 on the rank's slots, the adjoints
+    ``abar`` to the neighbouring ranks in one halo round (tag ``"qfp"``),
+    K2 reading them through the table renumbered local-first.  It is the
+    sharded loop's evaluator (:func:`make_domain_kernel_evaluator`, with
+    :func:`local_first_index`) driven per evaluation: one fused (pos, spin)
+    exchange gathers ``dr`` and the neighbour spins, one ``types`` exchange
+    gives the neighbour types.  On CUDA tensors K1 and K2 launch (or
+    raise); on CPU tensors their plain versions run.  The kernels take any
+    number of slots (no tile padding)."""
+    from repro_torch.core.potential import NEPSpinPotential
+    axes, ag, local = _legacy_axes(dspec, mesh)
+    mom = _moments(spec, moments)
+    refresh = make_domain_refresh(dspec, axes, local, allgather=ag)
+    ext_to_lf = {}
+
+    def build(pos, types, mask):
+        return build_domain_table(spec, dspec, axes, capacity, pos, types,
+                                  mask, allgather=ag)
+
+    def blocks(pos, spin, types, mask, tbl_idx, tbl_mask):
+        """What one evaluation hands K1/K2: ``(DomainNbh with dr, sj, tj
+        and the local-first table lf, types with -1 on empty slots)``."""
+        dev = pos.device
+        if dev not in ext_to_lf:
+            ext_to_lf[dev] = local_first_index(local, dspec.capacity, dev)[0]
+        ext_t = exchange_halo(torch.clamp(types, min=0), axes,
+                              tag="legacy-types", allgather=ag)
+        idx = tbl_idx.long()
+        tj = torch.where(tbl_mask, ext_t.reshape(-1)[idx],
+                         torch.zeros_like(idx)).to(torch.int32)
+        lf = ext_to_lf[dev][idx.reshape(-1, idx.shape[-1])].to(torch.int32)
+        nbh = refresh(pos, DomainNbh(idx=tbl_idx, mask=tbl_mask, tj=tj,
+                                     dr=None, lf=lf), spin, tag="legacy-pos")
+        return nbh, torch.where(mask, types, torch.full_like(types, -1))
+
+    def energy_forces_field(params, pos, spin, types, mask, tbl_idx,
+                            tbl_mask):
+        potential = NEPSpinPotential(spec, params, mom.to(
+            dtype=pos.dtype, device=pos.device), use_kernel=True)
+        _, compute = make_domain_kernel_evaluator(potential, dspec, axes,
+                                                  local, allgather=ag)
+        nbh, typ = blocks(pos, spin, types, mask, tbl_idx, tbl_mask)
+        e, force, heff = compute(nbh, spin, typ, field)
+        return reduce_energy(e, axes), force, heff
+
+    energy_forces_field.blocks = blocks
+    return build, energy_forces_field

@@ -92,7 +92,10 @@ class HaloTrace:
 _ACTIVE: list[HaloTrace] = []
 
 
-def _record(tag: str, n_bytes: int) -> None:
+def record(tag: str, n_bytes: int) -> None:
+    """Record one collective of ``n_bytes`` per rank under ``tag`` into
+    every active ledger (the exchanges and folds below call it; so does the
+    legacy paths' energy reduction)."""
     for ledger in _ACTIVE:
         ledger.record(tag, n_bytes)
 
@@ -233,7 +236,7 @@ def exchange_halo(x: torch.Tensor, axes, dims=(0, 1, 2), width: int = 1,
     axis's messages are issued before it returns and the axes after it run
     in ``wait()`` - the caller computes what needs no ghost in between."""
     if tag is not None:
-        _record(tag, _message_bytes(x, dims, axes, width, allgather))
+        record(tag, _message_bytes(x, dims, axes, width, allgather))
     todo = list(zip(dims, axes))
     while todo and not _communicates(todo[0][1]):
         d, ax = todo.pop(0)
@@ -378,7 +381,7 @@ def fold_halo(x: torch.Tensor, axes, dims=(0, 1, 2), width: int = 1,
     reverse of the exchange order, so edge and corner contributions travel
     the way their ghosts came."""
     if tag is not None:
-        _record(tag, _message_bytes(x, dims, axes, width, allgather))
+        record(tag, _message_bytes(x, dims, axes, width, allgather))
     for d, ax in reversed(list(zip(dims, axes))):
         x = fold_axis(x, d, ax, width, allgather)
     return x

@@ -131,10 +131,11 @@ def test_incomplete_and_failed_runs(tmp_path):
     assert "FAILED" in text and "error: boom" in text
 
 
-def test_later_items_name_themselves(tmp_path, capsys):
+def test_later_items_name_themselves(tmp_path, capsys, monkeypatch):
     # item 12 (serve/) is in: a journal renders through main() as a
     # lifecycle report (tests/test_torch_serve_reference.py holds it line
-    # for line against the reference's)
+    # for line against the reference's); item 14 too: with no argument
+    # main() prints the dry run's summary and tables (none written here)
     from repro_torch.serve.journal import JobJournal
     journal = JobJournal(str(tmp_path / "wal"))
     journal.write("journal_start", slots=2, chunk=10, schedule_knots=8)
@@ -142,8 +143,11 @@ def test_later_items_name_themselves(tmp_path, capsys):
     report.main([journal.path])
     assert "- bucket b0: 1 segment(s) committed, ckpt step 10" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 14"):
-        report.main([])
+    monkeypatch.chdir(tmp_path)
+    report.main([])
+    out = capsys.readouterr().out
+    assert "cells: 0 compiled OK, 0 skipped (documented), 0 errors" in out
+    assert "### Multi-pod (2x16x16 = 512 cards)" in out
     path = str(tmp_path / "r.jsonl")
     _write_records(path)
     report.main([path])
