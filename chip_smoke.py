@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only]
+    python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only |
+                           --lm-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
-and L (without L (c)'s readings, which come from phases 4 and G); none
-prints the result line.  Needs one CUDA card and the CUDA
+and L (without L (c)'s readings, which come from phases 4 and G),
+``--lm-only`` phases 1, 5-9 and M-R (the LM serving path); none prints the
+result line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
 
@@ -63,6 +65,43 @@ Phases (each raises on failure):
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
    and the least time the card could take (bytes at 3.35 TB/s or
    contraction flops at the bf16 dense peak of 989 TFLOP/s);
+M. FA's new instantiations against ``flash_attention_plain`` at the zoo's
+   prefill shapes (B=2): d = 120 with window 4,096 at h2o-danube's 32 / 8
+   heads, S = T = 8,192 (the 8-k-step body, its last k-step on zeroed pad
+   columns); d = 192, dv = 128 at deepseek-v3's 128 heads, S = T = 4,096
+   (the 12-k-step body); non-causal S = 2,048 against T = 8,192 at
+   seamless's 16 heads of 64: f32 within 1e-4 of max |ref|, bf16 within
+   2e-2 and row by row beyond rounding within 1e-4 (phases 5 and 9's
+   bars), every bf16 launch on the case's tensor-core body; each timed in
+   bf16 beside the plain version, ``scaled_dot_product_attention`` (GQA;
+   the window as a boolean mask) and the bound (bytes at 3.35 TB/s or the
+   pairs the masks keep, 2 (d + dv) flops each, at 989 TFLOP/s);
+N. qwen2-7b at full width and depth (28 layers, d_model 3,584, random
+   weights): f32 forward against decode at B=2, S=256 with TF32 off
+   (5e-3 of max |logit|); ``make_prefill_fn`` in bf16 at B=2, S=8,192, one
+   warm call and the median of 3 (FA 28 launches a call, all on the
+   tensor-core body; finite logits), decode at B=8 against 8,192-slot
+   caches, 64 steps after 2 warm ones (no launch);
+O. h2o-danube-3-4b (every FA launch at d = 120), minitron-4b and
+   starcoder2-3b at full width and depth: a warm and a timed bf16 prefill
+   (FA n_layers a call), ``ZOO_DECODE_STEPS`` decode steps; positions/s,
+   tokens/s, peak memory;
+P. moonshot-v1-16b-a3b at full width (64 experts, top 6, 2 shared, the
+   dense dispatch), its depth cut from 48 layers to the largest whose bf16
+   weights and decode caches (B=8, 8,192 slots) leave ``MOE_HEADROOM_GIB``
+   of ``MOE_MAX_GIB`` (``moe_depth``); prefill and decode as in N; its
+   peak must stay below ``MOE_MAX_GIB``;
+Q. pixtral-12b at full width and depth, a prefill with 25 % of the 8,192
+   positions as ``embeds``, and decode; deepseek-v3-671b at full width
+   with its depth cut to first_dense + 1 = 4 layers (3 dense MLA layers, 1
+   MoE layer of 256 experts): f32 forward against decode at B=1, S=256
+   with the capacity factor at E / k (no prefill drops), a bf16 prefill
+   with FA 4 launches on the d = 192 body, and decode through the absorbed
+   MLA;
+R. seamless-m4t-large-v2 at full width and depth: a prefill of 8,192
+   source frames and 2,048 target tokens (FA 24 + 2 x 24 = 72 a call),
+   and decode at B=8 against the encoder's cross K/V; one
+   ``{"lm_zoo": ...}`` line with phases M-R's numbers and times;
 A. field cooling at the main path's size: ``Engine`` with K1/K2 under
    ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
    4 chunks x 20 steps, all six observables every 5 steps, a runlog with
@@ -256,7 +295,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
     launches) and ``max_rel_err_sharded_replicas``, and from phase L
     ``launches_legacy``, ``ms_legacy``, ``max_rel_err_legacy`` and the
     fitted spec's ``bound_ms_fitted``, ``bound_by_fitted`` and
-    ``ms_fitted``), then ``{"ok": true, "device": ...}``.  Every bound is
+    ``ms_fitted``; FA with ``launches_<arch>`` per prefill of each arch of
+    phases N-R and, for each case of phase M (``d120``, ``d192``,
+    ``noncausal``), ``ms_``, ``bound_ms_``, ``bound_by_``,
+    ``library_ms_``, ``plain_ms_``, ``max_rel_err_`` and ``ptxas_``
+    followed by the case's name), then ``{"ok": true, "device": ...}``.  Every bound is
     ``launch/roofline.py``'s.
 """
 from __future__ import annotations
@@ -421,8 +464,7 @@ def lm_counters():
 def reset_lm_counters():
     for fn in lm_counters():
         fn.launches = 0
-    ssd = lm_counters()[0]
-    ssd.body_launches = dict.fromkeys(ssd.body_launches, 0)
+        fn.body_launches = dict.fromkeys(fn.body_launches, 0)
 
 
 def read_lm_counters():
@@ -478,17 +520,19 @@ def lm_sweeps(torch, dev):
     return worst
 
 
-def lm_parity(torch, dev, cfg):
-    """Phase 6: full-width f32 forward logits against token-by-token decode
-    from empty caches (the forward path runs both kernels, decode none)."""
+def lm_parity(torch, dev, cfg, b=None):
+    """Phase 6: full-width f32 forward logits of ``b`` (PARITY_B) x PARITY_S tokens
+    against token-by-token decode from empty caches (the forward path runs
+    the kernels, decode none)."""
     import dataclasses
 
     from repro_torch.models import lm
     from repro_torch.models import transformer as tfm
+    b = PARITY_B if b is None else b
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(1)
     params = lm.init_params(cfg32, gen, device=dev)
-    tokens = torch.randint(0, cfg.vocab, (PARITY_B, PARITY_S), generator=gen,
+    tokens = torch.randint(0, cfg.vocab, (b, PARITY_S), generator=gen,
                            device=dev)
     t0 = time.perf_counter()
     h, logits_fn = tfm.forward(cfg32, params, tokens)
@@ -497,12 +541,12 @@ def lm_parity(torch, dev, cfg):
     fwd_s = time.perf_counter() - t0
     if not bool(torch.isfinite(full).all()):
         raise AssertionError("f32 forward logits are not finite")
-    caches = tfm.init_caches(cfg32, PARITY_B, PARITY_S, torch.float32, dev)
+    caches = tfm.init_caches(cfg32, b, PARITY_S, torch.float32, dev)
     decode = lm.make_decode_fn(cfg32)
     err = torch.zeros((), device=dev)
     t0 = time.perf_counter()
     for i in range(PARITY_S):
-        pos = torch.full((PARITY_B,), i, dtype=torch.int32, device=dev)
+        pos = torch.full((b,), i, dtype=torch.int32, device=dev)
         logits, caches = decode(params, caches,
                                 {"token": tokens[:, i:i + 1], "position": pos})
         err = torch.maximum(err, (logits - full[:, i]).abs().max())
@@ -558,13 +602,18 @@ def lm_prefill(torch, dev, cfg, params):
     return {"tokens_per_s": tps, "median_s": med, "launches": counts}
 
 
-def lm_decode(torch, dev, cfg, params):
-    """Phase 8: timed bf16 greedy decode against caches of DECODE_T slots;
-    decode runs no kernel, so the counters must not move."""
+def lm_decode(torch, dev, cfg, params, caches=None, steps=None):
+    """Phase 8: timed bf16 greedy decode at B=DECODE_B against caches of
+    DECODE_T slots (or the ``caches`` given, of that batch), ``steps``
+    (DECODE_STEPS) steps after 2 warm ones; decode runs no kernel, so the counters must
+    not move."""
     from repro_torch.models import lm
     from repro_torch.models import transformer as tfm
+    steps = DECODE_STEPS if steps is None else steps
     gen = torch.Generator(device=dev).manual_seed(3)
-    caches = tfm.init_caches(cfg, DECODE_B, DECODE_T, torch.bfloat16, dev)
+    if caches is None:
+        caches = tfm.init_caches(cfg, DECODE_B, DECODE_T, torch.bfloat16,
+                                 dev)
     decode = lm.make_decode_fn(cfg)
     tok = torch.randint(0, cfg.vocab, (DECODE_B, 1), generator=gen,
                         device=dev)
@@ -579,7 +628,7 @@ def lm_decode(torch, dev, cfg, params):
         logits, tok = step(i, tok)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(2, 2 + DECODE_STEPS):
+    for i in range(2, 2 + steps):
         logits, tok = step(i, tok)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -588,11 +637,12 @@ def lm_decode(torch, dev, cfg, params):
                              f"{read_lm_counters()}, expected none")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("decode logits are not finite")
-    tps = DECODE_B * DECODE_STEPS / secs
-    log(f"  decode B={DECODE_B} against {DECODE_T}-slot caches: "
-        f"{DECODE_STEPS} steps in {secs:.3f} s = {1e3 * secs / DECODE_STEPS:.2f}"
-        f" ms/step = {tps:.1f} decode tokens/s; no kernel launched")
-    return {"tokens_per_s": tps, "ms_per_step": 1e3 * secs / DECODE_STEPS}
+    tps = DECODE_B * steps / secs
+    slots = max(t.shape[-1] for t in _leaves(caches) if t.dim() == 3)
+    log(f"  decode B={DECODE_B} against {slots}-slot caches: {steps} "
+        f"steps in {secs:.3f} s = {1e3 * secs / steps:.2f} ms/step = "
+        f"{tps:.1f} decode tokens/s; no kernel launched")
+    return {"tokens_per_s": tps, "ms_per_step": 1e3 * secs / steps}
 
 
 def ssd_names(tag):
@@ -735,19 +785,21 @@ def fa_beyond_rounding(torch, got, want) -> float:
     return float((excess / want.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def fa_prefill_errors(torch, q, k, v) -> dict:
+def fa_prefill_errors(torch, q, k, v, **mask) -> dict:
     """FA on bf16 q, k, v at the prefill's shapes against its plain
     version: ``f32``, the f32 kernel on the same values, relative to max
     |ref|; ``bf16`` and ``bf16_abs``, the bf16 kernel against the bf16
     plain version; ``bf16_row``, :func:`fa_beyond_rounding` of the bf16
-    kernel against the f32 plain version."""
+    kernel against the f32 plain version.  ``mask``: causal (default
+    True) and window."""
     from repro_torch.kernels.attention import kernel as fa
+    mask = {"causal": True, **mask}
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    want32 = fa.flash_attention_plain(q32, k32, v32, causal=True)
-    got32 = fa.flash_attention_fwd(q32, k32, v32, causal=True)
+    want32 = fa.flash_attention_plain(q32, k32, v32, **mask)
+    got32 = fa.flash_attention_fwd(q32, k32, v32, **mask)
     del q32, k32, v32
-    got = fa.flash_attention_fwd(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True).float()
+    got = fa.flash_attention_fwd(q, k, v, **mask)
+    want = fa.flash_attention_plain(q, k, v, **mask).float()
     torch.cuda.synchronize()
     out = {"f32": rel_err(got32, want32),
            "bf16": rel_err(got.float(), want),
@@ -814,6 +866,383 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+# ---------------------------------------------------------------------------
+# the rest of the LM zoo: dense, MoE, vlm, MLA and encoder-decoder serving
+# (phases M-R), every prefill attention through FA's tensor-core body
+# ---------------------------------------------------------------------------
+
+# phase M: FA's new widths at the zoo's prefill shapes
+# (b, s, t, h, hkv, d, dv, causal, window, body)
+FA_ZOO_CASES = {
+    "d120": (2, 8192, 8192, 32, 8, 120, 120, True, 4096, "tc_k8"),
+    "d192": (2, 4096, 4096, 128, 128, 192, 128, True, 0, "tc_k12"),
+    "noncausal": (2, 2048, 8192, 16, 16, 64, 64, False, 0, "tc_k8"),
+}
+PTXAS_FA_K8 = ("flash_attention_fwd", "flash_fwd_tc_kernelILi8ELi8ELb0E")
+PTXAS_FA_K12 = ("flash_attention_fwd", "flash_fwd_tc_kernelILi12ELi8ELb0E")
+DENSE_MAIN = "qwen2-7b"
+DENSE_OTHERS = ("h2o-danube-3-4b", "minitron-4b", "starcoder2-3b")
+MOE_ARCH = "moonshot-v1-16b-a3b"
+VLM_ARCH = "pixtral-12b"
+MLA_ARCH = "deepseek-v3-671b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+MOE_MAX_GIB = 70.0       # phase P's peak must stay below: its depth is
+MOE_HEADROOM_GIB = 4.0   # cut until weights + caches leave this for the rest
+ZOO_DECODE_STEPS = 16    # phases O-R
+MLA_PARITY_B = 1         # phase Q's deepseek parity: B=1 x PARITY_S
+
+
+def fa_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs FA's masks keep: row i sees keys in [lo, hi)."""
+    total = 0
+    for i in range(s):
+        hi = min(t, i + 1) if causal else t
+        lo = max(0, i - window + 1) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def fa_hold(torch, name, q, k, v, mask, body) -> dict:
+    """FA on bf16 ``q``, ``k``, ``v`` against its plain version
+    (:func:`fa_prefill_errors`) in f32 (1e-4) and bf16 (2e-2, and row by
+    row beyond rounding 1e-4), the bf16 launch on ``body``.  Resets the LM
+    counters."""
+    from repro_torch.kernels.attention import kernel as fa
+    reset_lm_counters()
+    errs = fa_prefill_errors(torch, q, k, v, **mask)
+    got = dict(lm_counters()[1].body_launches)
+    if got != {**dict.fromkeys(fa.BODIES, 0), "cuda_core": 1, body: 1}:
+        raise AssertionError(f"FA {name}: launches by body {got}, expected "
+                             f"one f32 cuda_core and one bf16 {body}")
+    for label, key, bar in (("f32", "f32", FA_BAR["float32"]),
+                            ("bf16", "bf16", FA_BAR["bfloat16"]),
+                            ("bf16 by row", "bf16_row", FA_MAIN_ROW_BAR)):
+        log(f"  FA {name} {label:<12} rel err {errs[key]:.3e} (bar {bar:g})")
+        if not errs[key] < bar:
+            raise AssertionError(f"FA {name} {label}: relative error "
+                                 f"{errs[key]:.3e} >= {bar:g}")
+    return errs
+
+
+def fa_zoo_case(torch, dev, name, ptxas) -> dict:
+    """One of phase M's cases: :func:`fa_hold` on random inputs, timed in
+    bf16 beside the plain version, ``scaled_dot_product_attention`` (GQA,
+    the window as a boolean mask) and the bound."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.launch.roofline import bound as card_bound
+    from repro_torch.launch.roofline import nbytes
+    F = torch.nn.functional
+    b, s, t, h, hkv, d, dv, causal, win, body = FA_ZOO_CASES[name]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+    q = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=bf16)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=dev, dtype=bf16)
+    v = torch.randn((b, t, hkv, dv), generator=gen, device=dev, dtype=bf16)
+    mask = dict(causal=causal, window=win)
+    errs = fa_hold(torch, name, q, k, v, mask, body)
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **mask), 10)
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **mask),
+                    1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(scale=d ** -0.5, enable_gqa=h != hkv)
+    if win:
+        qp = torch.arange(s, device=dev)[:, None]
+        kp = torch.arange(t, device=dev)[None, :]
+        kw["attn_mask"] = (kp <= qp) & (kp > qp - win)
+    else:
+        kw["is_causal"] = causal
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, **kw), 10)
+    flops = 2.0 * b * h * fa_pairs(s, t, causal, win) * (d + dv)
+    bd = card_bound(nbytes(q, k, v) + b * s * h * dv * q.element_size(),
+                    flops, "bfloat16")
+    ptx = ptxas_of(ptxas, *(PTXAS_FA_K12 if body == "tc_k12" else
+                            PTXAS_FA_K8))
+    log(f"  FA {name} ({body}, ptxas {ptx}): {ms:.3f} ms, plain {plain:.1f}"
+        f" ms, SDPA {lib:.3f} ms; bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}) = {100 * bd['bound_ms'] / ms:.2f}% of the "
+        "kernel's time")
+    return {"body": body, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "max_rel_err": max(errs["f32"], errs["bf16"]),
+            "max_row_err_bf16": errs["bf16_row"], "ptxas": ptx}
+
+
+def fa_path_holds(torch, prefill, params, batch, body) -> list:
+    """One more prefill call, in which FA's first call at each distinct
+    shape and mask is held (:func:`fa_hold`) on the path's own q, k and v,
+    at their strides: the head widths, GQA ratios, windows and sequence
+    lengths the arch runs.  Its launches count in no phase."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.models import attention, encdec
+    held = []
+
+    def holding(q, k, v, *, causal=True, window=0):
+        sig = dict(q=tuple(q.shape), k=tuple(k.shape), v=tuple(v.shape),
+                   causal=bool(causal), window=int(window))
+        if all(h["sig"] != sig for h in held):
+            name = (f"path q{sig['q']} k{sig['k']} v{sig['v']} "
+                    f"causal={sig['causal']} window={sig['window']}")
+            held.append({"sig": sig, **fa_hold(
+                torch, name, q, k, v, dict(causal=causal, window=window),
+                body)})
+        return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    mods = (attention, encdec)
+    for m in mods:
+        m.flash_attention_fwd = holding
+    try:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        for m in mods:
+            m.flash_attention_fwd = fa.flash_attention_fwd
+    return held
+
+
+def zoo_prefill(torch, dev, cfg, params, batch, body, reps=3) -> dict:
+    """A bf16 ``make_prefill_fn`` call, warm once, then ``reps`` timed
+    calls (the median kept): each must launch FA once per attention, every
+    launch on ``body``, and no SSD; finite logits of (B, vocab).  Then
+    :func:`fa_path_holds`."""
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import padded_vocab
+    n_fa = (cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
+            else cfg.n_layers)
+    prefill = lm.make_prefill_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for i in range(1 + reps):
+        torch.cuda.synchronize()
+        reset_lm_counters()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        fa_bodies = lm_counters()[1].body_launches
+        if read_lm_counters() != (0, n_fa) or fa_bodies[body] != n_fa:
+            raise AssertionError(
+                f"{cfg.name} prefill call {i} launched (SSD, FA) = "
+                f"{read_lm_counters()}, FA by body {fa_bodies}; expected "
+                f"(0, {n_fa}), all {body}")
+    bsz = batch["tokens"].shape[0]
+    if tuple(logits.shape) != (bsz, padded_vocab(cfg.vocab)) or not \
+            bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} prefill logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             "wrong shape")
+    med = sorted(secs[1:])[len(secs[1:]) // 2]
+    positions = sum(x.shape[0] * x.shape[1] for key, x in batch.items())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"  {cfg.name} prefill {({k: tuple(x.shape[:2]) for k, x in batch.items()})}:"
+        f" warm {secs[0]:.3f} s, calls {[round(x, 4) for x in secs[1:]]} s, "
+        f"median {med:.4f} s = {positions / med:.1f} positions/s; FA "
+        f"{n_fa} a call, all {body}; peak {peak:.2f} GiB")
+    del logits
+    held = fa_path_holds(torch, prefill, params, batch, body)
+    return {"positions_per_s": positions / med, "median_s": med,
+            "fa_launches": n_fa, "fa_body": body, "peak_gib": peak,
+            "fa_path": held}
+
+
+def zoo_params(torch, dev, cfg, seed):
+    from repro_torch.launch.roofline import nbytes
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    leaves = list(_leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''},"
+        f" d_model {cfg.d_model}, {sum(x.numel() for x in leaves) / 1e9:.3f}"
+        f" B parameters, {sum(nbytes(x) for x in leaves) / 1e9:.2f} GB "
+        f"{cfg.dtype}")
+    return params
+
+
+def zoo_tokens(torch, dev, cfg, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+
+
+def zoo_dense(torch, dev, cfg, body, seed, reps=1, decode_steps=None
+              ) -> dict:
+    """A decoder-only arch at full width: bf16 prefill at B=PREFILL_B x
+    PREFILL_S, then ``decode_steps`` (ZOO_DECODE_STEPS) decode steps at
+    B=DECODE_B against DECODE_T-slot caches."""
+    from repro_torch.models import lm
+    params = zoo_params(torch, dev, cfg, seed)
+    batch = {"tokens": zoo_tokens(torch, dev, cfg, (PREFILL_B, PREFILL_S),
+                                  seed)}
+    if cfg.family == "vlm":
+        s_img, s_txt = lm._frontend_split(cfg, PREFILL_S)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        batch = {"embeds": torch.randn(
+            (PREFILL_B, s_img, cfg.d_model), generator=gen, device=dev,
+            dtype=getattr(torch, cfg.dtype)),
+            "tokens": batch["tokens"][:, :s_txt]}
+    out = {"prefill": zoo_prefill(torch, dev, cfg, params, batch, body,
+                                  reps)}
+    del batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["decode"] = lm_decode(torch, dev, cfg, params, steps=(
+        ZOO_DECODE_STEPS if decode_steps is None else decode_steps))
+    out["decode"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_depth(torch, cfg):
+    """``cfg`` at the largest depth whose bf16 weights and decode caches
+    (B=DECODE_B, DECODE_T slots) leave ``MOE_HEADROOM_GIB`` of
+    ``MOE_MAX_GIB`` for the run's transients (sizes from the meta device;
+    at full depth moonshot's 48 layers hold 52.9 GiB of weights and 24 GiB
+    of caches)."""
+    import dataclasses
+
+    from repro_torch.launch.roofline import nbytes
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    meta = torch.device("meta")
+    for n in range(cfg.n_layers, cfg.moe.first_dense, -1):
+        cut = dataclasses.replace(cfg, n_layers=n)
+        gib = sum(nbytes(x) for tree in (
+            lm.init_params(cut, None, device=meta),
+            tfm.init_caches(cut, DECODE_B, DECODE_T, torch.bfloat16, meta))
+            for x in _leaves(tree)) / 2 ** 30
+        if gib <= MOE_MAX_GIB - MOE_HEADROOM_GIB:
+            log(f"  depth {n}: {gib:.2f} GiB of weights and caches")
+            return cut
+    raise AssertionError(f"{cfg.name}: no depth fits {MOE_MAX_GIB} GiB")
+
+
+def zoo_encdec(torch, dev, cfg, seed) -> dict:
+    """Phase R: seamless at full width: a prefill of PREFILL_S source
+    frames and PREFILL_S / TGT_RATIO target tokens (FA enc + 2 dec a
+    call), then decode at B=DECODE_B against the encoder's cross K/V."""
+    from repro_torch.models import encdec
+    params = zoo_params(torch, dev, cfg, seed)
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    s_tgt = PREFILL_S // encdec.TGT_RATIO
+    batch = {"src_embeds": torch.randn((PREFILL_B, PREFILL_S, cfg.d_model),
+                                       generator=gen, device=dev, dtype=dt),
+             "tokens": zoo_tokens(torch, dev, cfg, (PREFILL_B, s_tgt), seed)}
+    out = {"prefill": zoo_prefill(torch, dev, cfg, params, batch, "tc_k8")}
+    del batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    src = torch.randn((DECODE_B, PREFILL_S, cfg.d_model), generator=gen,
+                      device=dev, dtype=dt)
+    caches = encdec.init_caches(cfg, DECODE_B, s_tgt, PREFILL_S, dt, dev)
+    encdec.fill_cross_kv(cfg, params, caches, src)
+    del src
+    out["decode"] = lm_decode(torch, dev, cfg, params, caches,
+                              ZOO_DECODE_STEPS)
+    out["decode"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_zoo_phases(torch, dev, ptxas, fa_row) -> dict:
+    """Phases M-R; adds each arch's FA launches per prefill and the new
+    instantiations' numbers to ``fa_row``."""
+    import dataclasses
+
+    from repro_torch import configs
+    t_start = time.perf_counter()
+    out, times = {}, {}
+    log("phase M: FA's d = 120, d = 192 / dv = 128 and non-causal S != T "
+        "instantiations against the plain version")
+    t0 = time.perf_counter()
+    out["fa"] = {name: fa_zoo_case(torch, dev, name, ptxas)
+                 for name in FA_ZOO_CASES}
+    times["M"] = time.perf_counter() - t0
+    for name, r in out["fa"].items():
+        for key in ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                    "max_rel_err", "ptxas"):
+            fa_row[f"{key}_{name}"] = r[key]
+
+    t0 = time.perf_counter()
+    cfg = configs.get(DENSE_MAIN)
+    log(f"phase N: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}) in f32: decode vs prefill, B={PARITY_B}, "
+        f"S={PARITY_S}")
+    out[DENSE_MAIN] = {"parity_rel_err": lm_parity(torch, dev, cfg)}
+    torch.cuda.empty_cache()
+    log(f"phase N: {cfg.name} bf16 prefill and decode")
+    out[DENSE_MAIN].update(zoo_dense(torch, dev, cfg, "tc_k8", 10, reps=3,
+                                     decode_steps=DECODE_STEPS))
+    times["N"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for arch in DENSE_OTHERS:
+        cfg = configs.get(arch)
+        log(f"phase O: {cfg.name} full width, bf16 prefill and decode")
+        out[arch] = zoo_dense(torch, dev, cfg, "tc_k8", 11)
+    times["O"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    full = configs.get(MOE_ARCH)
+    cfg = moe_depth(torch, full)
+    log(f"phase P: {cfg.name} full width (MoE {cfg.moe.n_experts} experts, "
+        f"top {cfg.moe.top_k}, dense dispatch), depth {cfg.n_layers} of "
+        f"{full.n_layers}, bf16")
+    out[MOE_ARCH] = zoo_dense(torch, dev, cfg, "tc_k8", 12, reps=3,
+                              decode_steps=DECODE_STEPS)
+    out[MOE_ARCH]["n_layers"] = cfg.n_layers
+    peak = max(out[MOE_ARCH][k]["peak_gib"] for k in ("prefill", "decode"))
+    if not peak < MOE_MAX_GIB:
+        raise AssertionError(f"{cfg.name} at depth {cfg.n_layers} peaked "
+                             f"at {peak:.2f} GiB (limit {MOE_MAX_GIB})")
+    times["P"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = configs.get(VLM_ARCH)
+    log(f"phase Q: {cfg.name} full width and depth, "
+        f"{int(100 * cfg.frontend_frac)} % of the positions as embeds")
+    out[VLM_ARCH] = zoo_dense(torch, dev, cfg, "tc_k8", 13)
+    full = configs.get(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.moe.first_dense + 1)
+    log(f"phase Q: {cfg.name} full width, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} ({full.moe.first_dense} dense + 1 MoE layer)")
+    # no prefill drops (capacity T, as the reference's decode test): a
+    # per-token decode never drops
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(-(-cfg.moe.n_experts //
+                                         cfg.moe.top_k))))
+    log(f"  f32 decode vs prefill, B={MLA_PARITY_B}, S={PARITY_S}, capacity"
+        f" factor {nodrop.moe.capacity_factor:g}")
+    out[MLA_ARCH] = {"parity_rel_err": lm_parity(torch, dev, nodrop,
+                                                 MLA_PARITY_B),
+                     "n_layers": cfg.n_layers}
+    torch.cuda.empty_cache()
+    out[MLA_ARCH].update(zoo_dense(torch, dev, cfg, "tc_k12", 14))
+    times["Q"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = configs.get(ENCDEC_ARCH)
+    log(f"phase R: {cfg.name} full width and depth, encoder-decoder")
+    out[ENCDEC_ARCH] = zoo_encdec(torch, dev, cfg, 15)
+    times["R"] = time.perf_counter() - t0
+
+    for arch, r in out.items():
+        if arch != "fa":
+            fa_row[f"launches_{arch}"] = r["prefill"]["fa_launches"]
+            held = r["prefill"]["fa_path"]
+            fa_row[f"path_max_rel_err_{arch}"] = max(
+                max(h["f32"], h["bf16"]) for h in held)
+            fa_row[f"path_max_row_err_{arch}"] = max(
+                h["bf16_row"] for h in held)
+    out["phase_s"] = times
+    out["total_s"] = time.perf_counter() - t_start
+    log(f"phases M-R: {({k: round(v, 1) for k, v in times.items()})} s, "
+        f"{out['total_s']:.1f} s together")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3530,9 +3959,9 @@ def _legacy_roofline(reports) -> dict:
 
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"],
-                    ["--legacy-only"]):
+                    ["--legacy-only"], ["--lm-only"]):
         print("usage: chip_smoke.py [--serve-only | --sharded-only | "
-              "--legacy-only]", file=sys.stderr)
+              "--legacy-only | --lm-only]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3605,6 +4034,13 @@ def main(argv) -> int:
             torch, dev, spec, lat, moments, kern, ref,
             {"main path": None, "fitted spec": None})}), flush=True)
         print(card, flush=True)
+        return 0
+    if argv == ["--lm-only"]:
+        rows = lm_phases(torch, dev, ptxas)
+        zoo = lm_zoo_phases(torch, dev, ptxas, rows[-1])
+        print(json.dumps({"lm_zoo": zoo}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
 
     # ---- phase 2: kernels vs plain versions, 4,096 atoms --------------------
@@ -3816,6 +4252,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     rows += lm_phases(torch, dev, ptxas)
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm_zoo": lm_zoo_phases(torch, dev, ptxas, rows[-1])}),
+          flush=True)
     torch.cuda.empty_cache()
     surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
                                                     moments, kern)}

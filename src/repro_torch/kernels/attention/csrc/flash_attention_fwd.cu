@@ -48,12 +48,20 @@
 //   adds the f32 p.  O accumulates in f32 registers and is scaled by 1/l
 //   and rounded once at the end.  The causal grid runs the last
 //   (heaviest) query blocks of every head first.
-//   Needs d % 16 == 0, dv % 8 == 0 (both <= 128), 16-byte aligned base
-//   pointers and strides, and sequence strides below 2^23 elements (the
-//   offsets within a tile of at most 256 rows are 32-bit;
-//   kernel.py:check_bf16_layout says so before launch).  The tile copies
-//   unroll at compile time, each thread's chunk offsets computed with
-//   constant divisions.  wgmma, TMA and warp specialisation
+//   Needs d % 8 == 0 up to 192 and dv % 8 == 0 up to 128, 16-byte
+//   aligned base pointers and strides, and sequence strides below 2^23
+//   elements (the offsets within a tile of at most 256 rows are 32-bit;
+//   kernel.py:check_bf16_layout says so before launch).  A d with
+//   d % 16 == 8 (h2o-danube's 120 = 7 * 16 + 8) copies its 15 chunks of
+//   a Q or K row and leaves columns d..d+7 at the zeros written once at
+//   the start, so the padded k-step adds exactly 0; the scale is the
+//   caller's, d^-1/2 of the true d.  Three instantiations: the exact
+//   d = dv = 80 one (Zamba2; two blocks an SM), a guarded one with 8
+//   k-steps (d <= 128) and one with 12 (d <= 192: deepseek-v3's MLA
+//   prefill, d = 192, dv = 128; 48 registers of Q fragments a thread,
+//   one block an SM).  The tile copies of the exact body unroll at
+//   compile time, each thread's chunk offsets computed with constant
+//   divisions.  wgmma, TMA and warp specialisation
 //   (FlashAttention-3's shape) are the next step: their 128-byte swizzle
 //   atoms do not tile a 160-byte row of d = 80 without padding d.
 //
@@ -394,7 +402,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nq = (a.S + BQ - 1) / BQ;
   const int qb = a.causal ? nq - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qb * BQ;
-  const int nk = EXACT ? NK : a.d / 16;
+  const int nk = EXACT ? NK : (a.d + 15) / 16;   // k-steps, the last padded
   constexpr int CK = EXACT ? 2 * NK : 0;       // 16-byte chunks of a K row
   constexpr int CV = EXACT ? 2 * NV : 0;       // and of a V row
   const int q_ss = (int)a.q_ss, k_ss = (int)a.k_ss, v_ss = (int)a.v_ss;
@@ -408,18 +416,26 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_lo = a.window ? max(0, q0 - a.window + 1) : 0;
   const int kt0 = k_lo / BK, kt1 = (k_hi + BK - 1) / BK;   // [kt0, kt1)
 
-  if (!EXACT && (a.dv & 15)) {   // V's pad columns feed O's unused columns
+  // Pad columns, written once (cp.async copies only the d or dv real
+  // ones): with d % 16 == 8, Q's and K's columns d..d+7 are zero, so the
+  // last k-step's extra products add exactly 0 to S; with dv % 16 == 8,
+  // V's feed O's unused columns.
+  if (!EXACT && (a.d & 15)) {    // Q rows, then the K ring (qs, ks adjoin)
+    for (int r = tid; r < BQ + STAGES * BK; r += THREADS)
+      *reinterpret_cast<uint4*>(qs + r * LDK + a.d) = make_uint4(0, 0, 0, 0);
+  }
+  if (!EXACT && (a.dv & 15)) {
     for (int r = tid; r < STAGES * BK; r += THREADS)
       *reinterpret_cast<uint4*>(vs + r * LDV + a.dv) = make_uint4(0, 0, 0, 0);
   }
   const uint32_t qs_a = smem_addr(qs), ks_a = smem_addr(ks),
                  vs_a = smem_addr(vs);
   load_rows<BQ, CK>(qs_a, LDK, qp + (long long)q0 * q_ss, q_ss, a.S - q0,
-                    2 * nk);
+                    a.d / 8);
   auto load_kv = [&](int t, int stage) {
     const int k0 = t * BK;
     load_rows<BK, CK>(ks_a + 2u * stage * BK * LDK, LDK,
-                      kp + (long long)k0 * k_ss, k_ss, a.T - k0, 2 * nk);
+                      kp + (long long)k0 * k_ss, k_ss, a.T - k0, a.d / 8);
     load_rows<BK, CV>(vs_a + 2u * stage * BK * LDV, LDV,
                       vp + (long long)k0 * v_ss, v_ss, a.T - k0, a.dv / 8);
   };
@@ -603,16 +619,21 @@ int launch_body(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-// Zamba2's d = dv = 80 runs the exact body; any other d % 16 == 0,
-// dv % 8 == 0 up to 128 runs the guarded one.
+// The body is the caller's choice (kernel.py:fa_body, the one rule; its
+// index in kernel.py:BODIES): 1, the exact one, d = dv = 80 only; 2,
+// guarded, 8 k-steps; 3, guarded, 12 k-steps.  Each checks only the
+// widths it can hold: d and dv multiples of 8, dv <= 128, d <= 16 * NK.
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           const Args& a, void* stream) {
-  if (a.d % 16 || a.dv % 8 || a.d > 128 || a.dv > 128 || a.d <= 0 ||
-      a.dv <= 0)
+           const Args& a, int body, void* stream) {
+  if (a.d % 8 || a.dv % 8 || a.dv > 128 || a.d <= 0 || a.dv <= 0)
     return (int)cudaErrorInvalidValue;
-  if (a.d == 80 && a.dv == 80) return launch_body<5, 5, true>(q, k, v, o, B,
-                                                              a, stream);
-  return launch_body<8, 8, false>(q, k, v, o, B, a, stream);
+  if (body == 1 && a.d == 80 && a.dv == 80)
+    return launch_body<5, 5, true>(q, k, v, o, B, a, stream);
+  if (body == 2 && a.d <= 128)
+    return launch_body<8, 8, false>(q, k, v, o, B, a, stream);
+  if (body == 3 && a.d <= 192)
+    return launch_body<12, 8, false>(q, k, v, o, B, a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fa_tc
@@ -622,9 +643,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       int H, int Hkv, int d, int dv, int causal, int window, float scale,     \
       long long q_sb, long long q_ss, long long q_sh, long long k_sb,         \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,         \
-      long long v_sh, void *stream
+      long long v_sh, void *stream, int body
 
+// body: the index in kernel.py:BODIES; 0, the CUDA-core body, is f32's one.
 extern "C" int flash_attention_fwd_f32(FLASH_FWD_ARGS) {
+  if (body != 0) return (int)cudaErrorInvalidValue;
   fa::Args a{S,    T_,   H,    Hkv,  d,    dv,   0,    causal, window,
              scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss, v_sh};
   return fa::launch(q, k, v, o, B, a, stream);
@@ -633,5 +656,5 @@ extern "C" int flash_attention_fwd_f32(FLASH_FWD_ARGS) {
 extern "C" int flash_attention_fwd_bf16(FLASH_FWD_ARGS) {
   fa_tc::Args a{S,    T_,   H,    Hkv,  d,    dv,   causal, window, scale,
                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss,   v_sh};
-  return fa_tc::launch(q, k, v, o, B, a, stream);
+  return fa_tc::launch(q, k, v, o, B, a, body, stream);
 }

@@ -6,9 +6,13 @@ contract of ``repro.kernels.attention.ops.flash_attention``).
 ``flash_attention_fwd`` dispatches on the device of its tensors: a CPU
 tensor goes to ``flash_attention_plain``; a CUDA tensor launches
 ``csrc/flash_attention_fwd.cu`` on the current stream, or raises.  bf16
-runs the tensor-core body (``mma.sync``, ``ldmatrix``, ``cp.async``), whose
+runs a tensor-core body (``mma.sync``, ``ldmatrix``, ``cp.async``), whose
 shape and alignment limits :func:`check_bf16_layout` states; f32 runs the
-CUDA-core body.  It counts its launches in ``flash_attention_fwd.launches``.
+CUDA-core body.  :func:`fa_body` names the body a call takes (the
+tensor-core body has three instantiations: ``tc_exact`` for d = dv = 80,
+``tc_k8`` for d <= 128 in 8 k-steps of 16, d % 16 == 8 zero-padded, and
+``tc_k12`` for 128 < d <= 192).  It counts its launches in
+``flash_attention_fwd.launches`` and, by body, in ``.body_launches``.
 
 Both read the model's layout, q (B,S,H,d) and k/v (B,T,Hkv,d/dv) ->
 (B,S,H,dv), where the reference kernel takes (B*H, S, d) after a transpose,
@@ -27,12 +31,13 @@ from repro_torch import _build
 NEG_INF = -1e30
 PLAIN_ROWS = 256        # query rows per step of the plain version
 MAX_DV = 128
-MAX_D_BF16 = 128
+MAX_D_BF16 = 192
 MAX_SEQ_STRIDE = 2 ** 23    # a tile's <= 256 rows stay in 32-bit offsets
 SMEM_MAX = 232448
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_P, _I]
+BODIES = ("cuda_core", "tc_exact", "tc_k8", "tc_k12")   # the C body index
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0):
@@ -63,6 +68,19 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0):
     return out
 
 
+def fa_body(dtype, d: int, dv: int) -> str:
+    """The body a CUDA call of this dtype and width takes: f32 the
+    CUDA-core one; bf16 the exact d = dv = 80 instantiation, else the
+    guarded one of 8 k-steps up to d = 128 or of 12 above.  The one rule:
+    the C launcher takes the body's index in ``BODIES`` and checks only
+    that the instantiation holds the widths."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    if d == 80 and dv == 80:
+        return "tc_exact"
+    return "tc_k8" if d <= 128 else "tc_k12"
+
+
 def _entry(dtype):
     fn = getattr(_build.load("flash_attention_fwd"),
                  f"flash_attention_fwd_{_DTYPES[dtype]}")
@@ -79,14 +97,15 @@ def _smem_bytes(d: int, dv: int) -> int:
 
 def check_bf16_layout(d: int, dv: int, data_ptrs, strides) -> None:
     """Raise ValueError unless the bf16 tensor-core body takes this layout:
-    d a multiple of 16 (the mma k-step) and dv of 8 (an n-tile), both at
-    most 128; every base pointer and every stride of the leading three
+    d and dv multiples of 8 (16 bytes, one ``cp.async`` chunk; a d of
+    16k + 8 runs its last mma k-step on 8 zero columns), d at most 192 and
+    dv at most 128; every base pointer and every stride of the leading three
     dimensions 16-byte aligned (``cp.async`` copies 16 bytes at a time;
     strides are in bf16 elements, 8 to 16 bytes); and each sequence stride
     (``strides[i][1]`` of each tensor's (batch, seq, head) strides) below
     ``MAX_SEQ_STRIDE`` elements, since offsets within a tile are 32-bit."""
-    if d % 16 or not 0 < d <= MAX_D_BF16:
-        raise ValueError(f"the bf16 flash kernel takes d a multiple of 16 "
+    if d % 8 or not 0 < d <= MAX_D_BF16:
+        raise ValueError(f"the bf16 flash kernel takes d a multiple of 8 "
                          f"up to {MAX_D_BF16}, got d {d}")
     if dv % 8 or not 0 < dv <= MAX_DV:
         raise ValueError(f"the bf16 flash kernel takes dv a multiple of 8 "
@@ -152,17 +171,21 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    body = fa_body(q.dtype, d, dv)
     with torch.cuda.device(q.device):
         rc = _entry(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, h, hkv, d, dv, int(bool(causal)), int(window),
             d ** -0.5, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            BODIES.index(body))
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed with "
                            f"CUDA error {rc}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.body_launches[body] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.body_launches = dict.fromkeys(BODIES, 0)

@@ -26,7 +26,10 @@ Usage:
 
 ``--all`` runs every MD cell on the 16x16 and 2x16x16 worlds, each world
 in a child process of its own (the two at once), so no process group
-outlives its cells.  The LM cells are ROADMAP item 15.7.
+outlives its cells.  The LM cells are ROADMAP item 15.7: the port serves
+every LM arch on one card, but lowering one on the production mesh needs
+``input_specs``, ``cache_specs``, ``abstract_params`` and the sharding
+rules, which come with it.
 """
 from __future__ import annotations
 

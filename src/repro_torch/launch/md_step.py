@@ -3,7 +3,7 @@ ranks (port of ``repro.launch.md_step``'s engine half).
 
     PYTHONPATH=src python -m repro_torch.launch.md_step [--cells 8 6 6]
         [--steps 40] [--chunk 20] [--kernel] [--nproc 2] [--backend gloo]
-        [--halo-mode auto] [--check-flat] [--device cuda]
+        [--halo-mode auto] [--check-flat] [--device cuda] [--out res.json]
 
 Simple cubic ``--cells`` under ``protocol.field_cooling`` (160 K -> 40 K,
 0.1 T) through ``Engine(plan=Sharded())``: Heisenberg-DMI, or with
@@ -17,6 +17,8 @@ steps/s, rebuilds, migrations, the halo ledger and the charge trace, then
 one JSON line.  ``--check-flat`` runs f64 NVE instead (no thermostat, no schedule)
 and rank 0 then runs the flat Engine from the same state for as many
 steps: ``vs_flat`` is the largest |difference| of pos, vel and spin.
+``--out`` also writes rank 0's result to a JSON file, which a caller reads
+instead of the ranks' shared standard output.
 
 The dry-run half (:func:`build_md_dryrun`, which ``launch/dryrun.py``
 drives) counts one integrator step of the fege-spinlattice cell on one
@@ -244,13 +246,16 @@ def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,
     }
 
 
-def _rank_main(rank: int, kw: dict) -> None:
+def _rank_main(rank: int, kw: dict, out: str | None = None) -> None:
     res = run_engine_chunk(**kw)
     if rank == 0:
-        _report(res)
+        _report(res, out)
 
 
-def _report(res: dict) -> None:
+def _report(res: dict, out: str | None = None) -> None:
+    if out is not None:
+        with open(out, "w") as f:
+            json.dump(res, f)
     print(f"engine chunk on {res['ranks']} rank(s): {res['atoms']} atoms, "
           f"grid {res['cells']} x {res['cell_capacity']}, "
           f"{res['steps_per_s']:.1f} steps/s, {res['rebuilds']} rebuilds "
@@ -276,15 +281,17 @@ def main(argv=None) -> int:
                     help="f64 NVE, checked on rank 0 against the flat "
                          "Engine")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=None,
+                    help="write rank 0's result JSON to this file too")
     args = ap.parse_args(argv)
     kw = dict(cells=tuple(args.cells), steps=args.steps, chunk=args.chunk,
               kernel=args.kernel, device=args.device,
               halo_mode=args.halo_mode, check_flat=args.check_flat)
     if args.nproc == 1:
-        _report(run_engine_chunk(**kw))
+        _report(run_engine_chunk(**kw), args.out)
         return 0
     from repro_torch.parallel.ranks import spawn
-    spawn(_rank_main, args.nproc, kw, backend=args.backend)
+    spawn(_rank_main, args.nproc, kw, args.out, backend=args.backend)
     return 0
 
 

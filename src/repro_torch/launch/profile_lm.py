@@ -2,10 +2,14 @@
 """Where the time goes in the port's LM serving path, on the card.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_lm [--trace DIR]
+        [--arch zamba2-2.7b] [--layers N]
 
-Builds the random-weight bf16 Zamba2-2.7B (seed 0), then profiles with
-``torch.profiler`` one prefill call at B=2, S=8,192 (after a warm call) and
-8 decode steps at B=8 against 8,192-slot caches (after 2 warm steps).  Each
+Builds the random-weight bf16 ``--arch`` (seed 0; ``--layers`` cuts its
+depth, for an arch whose weights and caches do not fit one card), then
+profiles with ``torch.profiler`` one prefill call at B=2, S=8,192 (after a
+warm call; the encoder-decoder takes 8,192 source frames and 2,048 target
+tokens) and 8 decode steps at B=8 against 8,192-slot caches (after 2 warm
+steps; the encoder-decoder's cross K/V from an encoded batch).  Each
 window runs twice, bare and under the profiler.  It prints the host wall
 time of both (ending in a synchronize), the summed device time of every
 kernel, the device's busy share (device time over the bare wall time), the
@@ -17,6 +21,7 @@ window there.  Needs one CUDA card; imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -80,13 +85,16 @@ def profile(torch, label, fn, trace_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many (decoder) layers")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch import _build, configs
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.models import transformer as tfm
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,19 +103,34 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     _build.build(["ssd_chunks", "flash_attention_fwd"])
     dev = torch.device("cuda")
-    cfg = configs.get(ARCH)
+    cfg = configs.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    print(f"{cfg.name}: {cfg.n_layers} layers", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen, device=dev)
 
     tokens = torch.randint(0, cfg.vocab, (2, 8192), generator=gen,
                            device=dev)
+    audio = cfg.family == "audio"
+    dtype = getattr(torch, cfg.dtype)
+    src = torch.randn((8, 8192, cfg.d_model), generator=gen, device=dev,
+                      dtype=dtype) if audio else None
+    batch = ({"src_embeds": src[:2], "tokens": tokens[:, :8192 // 4]}
+             if audio else {"tokens": tokens})
     prefill = lm.make_prefill_fn(cfg)
-    prefill(params, {"tokens": tokens})
-    profile(torch, "prefill_B2_S8192",
-            lambda: prefill(params, {"tokens": tokens}), args.trace)
+    prefill(params, batch)
+    profile(torch, "prefill_B2_S8192", lambda: prefill(params, batch),
+            args.trace)
+    del batch
 
     bsz = 8
-    caches = tfm.init_caches(cfg, bsz, 8192, torch.bfloat16, dev)
+    if audio:
+        caches = encdec.fill_cross_kv(cfg, params, encdec.init_caches(
+            cfg, bsz, 8192 // encdec.TGT_RATIO, 8192, dtype, dev), src)
+        del src
+    else:
+        caches = tfm.init_caches(cfg, bsz, 8192, torch.bfloat16, dev)
     decode = lm.make_decode_fn(cfg)
     tok = torch.randint(0, cfg.vocab, (bsz, 1), generator=gen, device=dev)
     state = {"tok": tok, "pos": 0}

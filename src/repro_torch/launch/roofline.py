@@ -57,8 +57,8 @@ def link(n_cards: int) -> tuple[str, float]:
 
 
 def model_flops(arch: str, kind: str, tokens: int) -> float:
-    """Analytic useful FLOPs of the whole step (global).  An LM arch the
-    port does not run raises (``configs.get``: ROADMAP item 15)."""
+    """Analytic useful FLOPs of the whole step (global), for every arch of
+    the registry; an unknown one raises (``configs.get``)."""
     if arch == "fege-spinlattice":
         return 0.0  # per-atom descriptor cost: see nep_analytic()
     from repro_torch import configs

@@ -1,21 +1,25 @@
-"""Grouped-query attention (port of the GQA half of
-``repro.models.attention``; MLA waits for its slice).
+"""Attention variants: GQA (+QKV bias, sliding window) and MLA (DeepSeek)
+(port of ``repro.models.attention``).
 
 Prefill runs the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.attention.kernel.flash_attention_fwd`) where the
 reference calls ``chunked_attention``; at positions 0..S-1 with no KV mask
 the two compute the same function, and ``chunked_attention`` is kept as a
-plain function that the tests hold the kernel path against.  Decode attends
-one query against a KV cache that is updated in place.  Head dimensions are
-padded up to a multiple of the tensor-parallel degree as in the reference,
-so parameter shapes match it.
+plain function that the tests hold the kernel path against.  MLA's prefill
+expands the latent and runs the same kernel at d = qk_nope + qk_rope (192
+for deepseek-v3) and dv = v_head (128).  Decode attends one query against
+a cache that is updated in place (MLA's holds the compressed latent and
+scores in it through the absorbed matmuls, in plain torch as in the
+reference).  Head dimensions are padded up to a multiple of the
+tensor-parallel degree as in the reference, so parameter shapes match it;
+q head i reads kv head i // (H / Hkv), the reference's ``jnp.repeat``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.attention.kernel import flash_attention_fwd
-from repro_torch.models.common import apply_rope, normal
+from repro_torch.models.common import apply_rope, normal, rmsnorm
 
 NEG_INF = -1e30
 
@@ -24,22 +28,24 @@ def pad_heads(h: int, tp: int) -> int:
     return -(-h // tp) * tp
 
 
-def init_gqa(cfg, generator, tp: int, dtype, device):
+def init_gqa(cfg, generator, tp: int, dtype, device, *, lead=()):
+    """``lead`` prepends stacked-layer dimensions."""
     d, hd = cfg.d_model, cfg.hd
     hp = pad_heads(cfg.n_heads, tp)
     # kv heads below the TP degree stay logical; above it they are padded
     kvp = cfg.kv_heads if cfg.kv_heads <= tp else pad_heads(cfg.kv_heads, tp)
     s = (1.0 / d) ** 0.5
     p = {
-        "wq": normal(generator, (d, hp, hd), s, dtype, device),
-        "wk": normal(generator, (d, kvp, hd), s, dtype, device),
-        "wv": normal(generator, (d, kvp, hd), s, dtype, device),
-        "wo": normal(generator, (hp, hd, d), s, dtype, device),
+        "wq": normal(generator, (*lead, d, hp, hd), s, dtype, device),
+        "wk": normal(generator, (*lead, d, kvp, hd), s, dtype, device),
+        "wv": normal(generator, (*lead, d, kvp, hd), s, dtype, device),
+        "wo": normal(generator, (*lead, hp, hd, d), s, dtype, device),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((hp, hd), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((kvp, hd), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((kvp, hd), dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        p["bq"] = torch.zeros((*lead, hp, hd), **kw)
+        p["bk"] = torch.zeros((*lead, kvp, hd), **kw)
+        p["bv"] = torch.zeros((*lead, kvp, hd), **kw)
     return p
 
 
@@ -159,4 +165,109 @@ def apply_gqa_decode(cfg, p, x, position, cache):
     prob = torch.softmax(sco, dim=-1).view(b, hkv, h // hkv, -1)
     out = torch.einsum("bgrt,btgk->bgrk", prob, cv.float()).reshape(b, h, hd)
     y = _out(out.to(x.dtype), p["wo"])[:, None, :]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg, generator, dtype, device, *, lead=()):
+    """``lead`` prepends stacked-layer dimensions."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = (1.0 / d) ** 0.5
+
+    def w(shape, scale):
+        return normal(generator, (*lead, *shape), scale, dtype, device)
+
+    def ones(n):
+        return torch.ones((*lead, n), dtype=dtype, device=device)
+    return {
+        "wq_a": w((d, m.q_lora), s),
+        "q_norm": ones(m.q_lora),
+        "wq_b": w((m.q_lora, h, m.qk_nope + m.qk_rope),
+                  (1.0 / m.q_lora) ** 0.5),
+        "wkv_a": w((d, m.kv_lora + m.qk_rope), s),
+        "kv_norm": ones(m.kv_lora),
+        "wk_b": w((m.kv_lora, h, m.qk_nope), (1.0 / m.kv_lora) ** 0.5),
+        "wv_b": w((m.kv_lora, h, m.v_head), (1.0 / m.kv_lora) ** 0.5),
+        "wo": w((h, m.v_head, d), (1.0 / (h * m.v_head)) ** 0.5),
+    }
+
+
+def apply_mla(cfg, p, x, positions):
+    """Prefill MLA: expand the latent, then the flash kernel, causal, at
+    d = qk_nope + qk_rope and dv = v_head (the scale is that d's).
+    ``positions`` must be 0..S-1 in every row.  Returns (out, (ckv, k_rope))."""
+    m = cfg.mla
+    cq = rmsnorm(x @ p["wq_a"], p["q_norm"])
+    q = _proj(cq, p["wq_b"])
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = x @ p["wkv_a"]
+    ckv = rmsnorm(kv[..., :m.kv_lora], p["kv_norm"])
+    k_rope = apply_rope(kv[..., None, m.kv_lora:], positions,
+                        cfg.rope_theta)                     # (B,S,1,rope)
+    k_nope = _proj(ckv, p["wk_b"])
+    v = _proj(ckv, p["wv_b"])
+
+    qc = torch.cat([q_nope, q_rope], dim=-1)
+    kc = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], m.qk_rope)],
+                   dim=-1)
+    out = flash_attention_fwd(qc, kc, v, causal=True)
+    return _out(out, p["wo"]), (ckv, k_rope)
+
+
+def init_mla_cache(cfg, b: int, seq_len: int, dtype=torch.bfloat16,
+                   device="cuda", *, lead=()):
+    """Compressed-latent cache: (kv_lora + qk_rope) per token.  ``lead``
+    prepends stacked-layer dimensions."""
+    m = cfg.mla
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ckv": torch.zeros((*lead, b, seq_len, m.kv_lora), **kw),
+        "kr": torch.zeros((*lead, b, seq_len, m.qk_rope), **kw),
+        "pos": torch.full((*lead, b, seq_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def apply_mla_decode(cfg, p, x, position, cache):
+    """Absorbed-matmul MLA decode against the latent cache, which is
+    written in place: scores and values in the latent space (W_uk folded
+    into q, W_uv into the output projection)."""
+    m = cfg.mla
+    b = x.shape[0]
+    cq = rmsnorm(x @ p["wq_a"], p["q_norm"])
+    q = _proj(cq, p["wq_b"])[:, 0]                       # (B,H,nope+rope)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    pos = position[:, None]
+    q_rope = apply_rope(q_rope[:, None], pos, cfg.rope_theta)[:, 0]
+
+    kv = (x @ p["wkv_a"])[:, 0]
+    ckv_new = rmsnorm(kv[..., :m.kv_lora], p["kv_norm"])
+    kr_new = apply_rope(kv[:, None, None, m.kv_lora:], pos,
+                        cfg.rope_theta)[:, 0, 0]
+
+    ckv, kr, cpos = cache["ckv"], cache["kr"], cache["pos"]
+    slot = (position % ckv.shape[1]).long()
+    bidx = torch.arange(b, device=x.device)
+    ckv[bidx, slot] = ckv_new.to(ckv.dtype)
+    kr[bidx, slot] = kr_new.to(kr.dtype)
+    cpos[bidx, slot] = position.to(cpos.dtype)
+
+    # absorb: q_eff[h] = q_nope[h] @ wk_b[:, h, :]^T (latent-space query)
+    q_eff = torch.einsum("bhk,lhk->bhl", q_nope, p["wk_b"])
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    ckv32 = ckv.float()
+    sco = (torch.einsum("bhl,btl->bht", q_eff.float(), ckv32)
+           + torch.einsum("bhk,btk->bht", q_rope.float(), kr.float())) * scale
+    ok = (cpos >= 0) & (cpos <= position[:, None])
+    sco = torch.where(ok[:, None, :], sco, NEG_INF)
+    prob = torch.softmax(sco, dim=-1)
+    out_l = torch.einsum("bht,btl->bhl", prob, ckv32)
+    out = torch.einsum("bhl,lhk->bhk", out_l.to(x.dtype), p["wv_b"])
+    y = _out(out, p["wo"])[:, None, :]
     return y, cache

@@ -5,19 +5,40 @@ Parameters are plain tensors; random ones are drawn from an explicit
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+DRAW_CHUNK = 2 ** 28    # elements of f32 drawn at once for a cast leaf
+
+
 def normal(generator, shape, scale, dtype, device) -> torch.Tensor:
     """``scale * N(0, 1)`` of ``shape``, drawn in f32 from ``generator`` and
-    cast to ``dtype``.  On the meta device only the shape is made."""
+    cast to ``dtype``.  A leaf cast from more than ``DRAW_CHUNK`` f32
+    values is drawn in blocks of leading indices of at most that many
+    values (a stacked MoE leaf of moonshot's is 8.7 G values: 35 GB in
+    f32), or an index at a time where one index holds more.  On the meta
+    device only the shape is made."""
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (scale * x).to(dtype)
+    if dtype == torch.float32 or math.prod(shape) <= DRAW_CHUNK:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+    rows = DRAW_CHUNK // math.prod(shape[1:])
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if rows == 0:
+        for i in range(shape[0]):
+            out[i] = normal(generator, shape[1:], scale, dtype, device)
+        return out
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        out[i:i + n] = normal(generator, (n, *shape[1:]), scale, dtype,
+                              device)
+    return out
 
 
 def rmsnorm(x, w, eps=1e-6):
@@ -78,7 +99,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) int.  Rotates interleaved pairs
     (x[..., ::2], x[..., 1::2]), not the halves of HF's ``rotate_half``.
-    (The reference's partial ``rot_dim`` serves MLA, which waits.)"""
+    (The reference's partial ``rot_dim`` has no caller: MLA passes its
+    rope slice whole.)"""
     freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
     ang = positions[..., None].float() * freqs              # (B,S,hd/2)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
@@ -92,12 +114,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg, generator, d: int, dff: int, dtype, device):
+def init_mlp(cfg, generator, d: int, dff: int, dtype, device, *, lead=()):
+    """``lead`` prepends stacked-layer dimensions."""
     s_in, s_out = (2.0 / d) ** 0.5, (2.0 / dff) ** 0.5
-    p = {"wi": normal(generator, (d, dff), s_in, dtype, device),
-         "wo": normal(generator, (dff, d), s_out, dtype, device)}
+    p = {"wi": normal(generator, (*lead, d, dff), s_in, dtype, device),
+         "wo": normal(generator, (*lead, dff, d), s_out, dtype, device)}
     if cfg.act == "swiglu":
-        p["wg"] = normal(generator, (d, dff), s_in, dtype, device)
+        p["wg"] = normal(generator, (*lead, d, dff), s_in, dtype, device)
     return p
 
 

@@ -1,10 +1,12 @@
 """Top-level LM serving API (port of ``repro.models.lm``): prefill and decode
 builders, parameter init and the key map from the reference's pytree.
 
-Parameters are a plain nested dict of tensors whose keys are the
-reference's pytree paths, so a JAX parameter tree converts key for key.
-The dry-run helpers (``input_specs``, ``cache_specs``, ``abstract_params``)
-and ``make_loss_fn`` wait for the training slice.
+Family dispatch (decoder-only vs encoder-decoder) is resolved here, as in
+the reference.  Parameters are a plain nested dict of tensors whose keys
+are the reference's pytree paths, so a JAX parameter tree of any family
+converts key for key.  The dry-run helpers (``input_specs``,
+``cache_specs``, ``abstract_params``) and ``make_loss_fn`` are ROADMAP §1
+items 15.6-15.7.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig
 from repro_torch.utils.device import resolve_device
@@ -42,10 +45,27 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
+def _frontend_split(cfg: ArchConfig, seq: int) -> tuple[int, int]:
+    """(n_frontend_positions, n_text_positions) for vlm archs."""
+    s_img = int(seq * cfg.frontend_frac)
+    return s_img, seq - s_img
+
+
 def make_prefill_fn(cfg: ArchConfig):
-    """Prefill: full forward, returns last-position logits (f32)."""
+    """Prefill: full forward, returns last-position logits (f32).  The
+    batch holds ``tokens``, and ``embeds`` (vlm: prepended patch
+    embeddings) or ``src_embeds`` (audio: the encoder's frames; ``tokens``
+    are then the decoder's)."""
+    if cfg.family == "audio":
+        def prefill(params, batch):
+            h, logits_fn = encdec_mod.forward(cfg, params, batch["tokens"],
+                                              batch["src_embeds"])
+            return logits_fn(h[:, -1]).float()
+        return prefill
+
     def prefill(params, batch):
-        h, logits_fn = tfm.forward(cfg, params, batch["tokens"])
+        h, logits_fn = tfm.forward(cfg, params, batch["tokens"],
+                                   batch.get("embeds"))
         return logits_fn(h[:, -1]).float()
     return prefill
 
@@ -53,9 +73,11 @@ def make_prefill_fn(cfg: ArchConfig):
 def make_decode_fn(cfg: ArchConfig):
     """One decode step: ``decode(params, caches, {"token", "position"})``
     -> (logits, caches), the caches updated in place."""
+    step = (encdec_mod.decode_step if cfg.family == "audio" else
+            tfm.decode_step)
+
     def decode(params, caches, batch):
-        return tfm.decode_step(cfg, params, caches, batch["token"],
-                               batch["position"])
+        return step(cfg, params, caches, batch["token"], batch["position"])
     return decode
 
 
@@ -68,6 +90,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None, *,
     dtype = dtype or getattr(torch, cfg.dtype)
     if generator is None and dev.type != "meta":
         raise ValueError("init_params needs a generator off the meta device")
+    if cfg.family == "audio":
+        return encdec_mod.init_encdec(cfg, generator, tp, dtype, dev)
     return tfm.init_lm(cfg, generator, tp, dtype, dev)
 
 
@@ -91,8 +115,10 @@ def _keys(tree, prefix=""):
 def params_from_jax(cfg: ArchConfig, tree: dict, *, device="cuda") -> dict:
     """The reference's parameter pytree (nested dicts of numpy arrays) as the
     port's parameters, key for key, each leaf keeping its dtype (``a_log``,
-    ``dt_bias`` and ``d_skip`` stay f32 under a bf16 config).  Raises if the
-    keys differ from the port's layout for ``cfg``."""
+    ``dt_bias``, ``d_skip`` and the MoE router stay f32 under a bf16
+    config): stacked layers, stacked experts, MLA's leaves and the
+    encoder-decoder's ``enc``/``dec`` trees alike.  Raises if the keys
+    differ from the port's layout for ``cfg``."""
     dev = resolve_device(device)
     want = _keys(init_params(cfg, None, device="meta"))
     got = _keys(tree)

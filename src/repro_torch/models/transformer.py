@@ -1,14 +1,16 @@
-"""Decoder-only LM for the ``ssm`` and ``hybrid`` families (port of
-``repro.models.transformer``).
+"""Decoder-only LM covering the dense / moe / vlm / ssm / hybrid families
+(port of ``repro.models.transformer``).
 
-Layers of a group are stacked along a leading dimension as in the reference;
-where it runs ``lax.scan`` over them the port loops over the layer index.
-Sharding annotations, ``checkpoint_name`` and remat have no counterpart in
-single-card serving and are dropped.  Decode updates its caches in place
-and returns the same dictionary.
-
-The dense, moe, mla, vlm and audio families raise ``NotImplementedError``:
-ROADMAP §1 item 15 ports them.
+Layers of a group are stacked along a leading dimension as in the reference
+(a heterogeneous stack, e.g. deepseek's 3 leading dense layers, is a list
+of homogeneous groups); where it runs ``lax.scan`` over them the port loops
+over the layer index.  Attention layers are GQA (``models/attention.py``,
+with QKV bias and the sliding-window ring buffer) or MLA; the feed-forward
+is an MLP or an MoE (``models/moe.py``).  Every prefill attention runs the
+flash kernel.  Sharding annotations, ``checkpoint_name`` and remat have no
+counterpart in single-card serving and are dropped, as is the auxiliary
+loss (``lm_loss`` and the training step are ROADMAP §1 item 15.6).  Decode
+updates its caches in place and returns the same dictionary.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal)
@@ -32,22 +35,25 @@ def padded_vocab(v: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
-    kind: str          # 'ssm' (the port's families)
+    kind: str          # 'dense' | 'moe' | 'ssm'
     count: int
+    d_ff: int = 0
     shared_attn: bool = False   # hybrid: shared attn+mlp every shared_every
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("ssm", "hybrid") or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP "
-            "§1 item 15 ports the dense, moe, mla, vlm and audio families")
-
-
 def layer_groups(cfg: ArchConfig) -> list[LayerGroup]:
-    _check_family(cfg)
-    return [LayerGroup("ssm", cfg.n_layers,
-                       shared_attn=cfg.family == "hybrid")]
+    if cfg.family == "ssm":
+        return [LayerGroup("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [LayerGroup("ssm", cfg.n_layers, shared_attn=True)]
+    if cfg.moe is not None:
+        groups = []
+        if cfg.moe.first_dense:
+            groups.append(LayerGroup("dense", cfg.moe.first_dense,
+                                     d_ff=cfg.moe.d_ff_dense or cfg.d_ff))
+        groups.append(LayerGroup("moe", cfg.n_layers - cfg.moe.first_dense))
+        return groups
+    return [LayerGroup("dense", cfg.n_layers, d_ff=cfg.d_ff)]
 
 
 def _stack(tree, n: int):
@@ -66,6 +72,30 @@ def index_layer(tree, i: int):
 # init
 # ---------------------------------------------------------------------------
 
+def _init_layers(cfg: ArchConfig, grp: LayerGroup, generator, tp: int,
+                 dtype, device) -> dict:
+    """One group's stacked layers (leading dimension ``grp.count``)."""
+    d, n = cfg.d_model, grp.count
+    if grp.kind == "ssm":
+        return {"norm_ssm": _stack(init_norm(cfg, d, dtype, device), n),
+                "ssm": ssm_mod.init_mamba2(cfg, generator, dtype, device,
+                                           lead=(n,))}
+    p = {"norm_attn": _stack(init_norm(cfg, d, dtype, device), n)}
+    if cfg.mla is not None:
+        p["attn"] = attn.init_mla(cfg, generator, dtype, device, lead=(n,))
+    else:
+        p["attn"] = attn.init_gqa(cfg, generator, tp, dtype, device,
+                                  lead=(n,))
+    p["norm_mlp"] = _stack(init_norm(cfg, d, dtype, device), n)
+    if grp.kind == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, generator, dtype, device,
+                                    lead=(n,))
+    else:
+        p["mlp"] = init_mlp(cfg, generator, d, grp.d_ff or cfg.d_ff, dtype,
+                            device, lead=(n,))
+    return p
+
+
 def init_lm(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
     vp = padded_vocab(cfg.vocab)
     d = cfg.d_model
@@ -77,11 +107,8 @@ def init_lm(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
         params["lm_head"] = normal(generator, (d, vp), d ** -0.5, dtype,
                                    device)
     for gi, grp in enumerate(layer_groups(cfg)):
-        params[f"g{gi}"] = {
-            "norm_ssm": _stack(init_norm(cfg, d, dtype, device), grp.count),
-            "ssm": ssm_mod.init_mamba2(cfg, generator, dtype, device,
-                                       lead=(grp.count,)),
-        }
+        params[f"g{gi}"] = _init_layers(cfg, grp, generator, tp, dtype,
+                                        device)
     if cfg.family == "hybrid":
         params["shared"] = {
             "norm_attn": init_norm(cfg, d, dtype, device),
@@ -96,9 +123,22 @@ def init_lm(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg, p, h):
-    hn = apply_norm(cfg, p["norm_ssm"], h)
-    return h + ssm_mod.apply_mamba2(cfg, p["ssm"], hn)
+def _apply_block(cfg, kind, p, h, positions):
+    if kind == "ssm":
+        hn = apply_norm(cfg, p["norm_ssm"], h)
+        return h + ssm_mod.apply_mamba2(cfg, p["ssm"], hn)
+    hn = apply_norm(cfg, p["norm_attn"], h)
+    if cfg.mla is not None:
+        a, _ = attn.apply_mla(cfg, p["attn"], hn, positions)
+    else:
+        a, _ = attn.apply_gqa(cfg, p["attn"], hn, positions)
+    h = h + a
+    hn = apply_norm(cfg, p["norm_mlp"], h)
+    if kind == "moe":
+        y, _ = moe_mod.apply_moe(cfg, p["moe"], hn)
+    else:
+        y = apply_mlp(cfg, p["mlp"], hn)
+    return h + y
 
 
 def _shared_block(cfg, p, h, resid, positions):
@@ -113,19 +153,29 @@ def _shared_block(cfg, p, h, resid, positions):
     return x + apply_mlp(cfg, p["mlp"], hn)
 
 
-def embed_inputs(cfg, params, tokens):
-    """Token embedding (the vlm / audio frontends wait for their slice)."""
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+def embed_inputs(cfg, params, tokens, embeds=None):
+    """Token embedding (+ modality-frontend stub embeddings for vlm).
+
+    vlm: ``embeds`` (B, S_img, d) patch embeddings are prepended to the
+    token embeddings (pixtral-style early fusion).
+    """
+    dtype = getattr(torch, cfg.dtype)
+    h = params["embed"][tokens.long()].to(dtype)
+    if embeds is not None:
+        h = torch.cat([embeds.to(dtype), h], dim=1)
+    return h
 
 
 def _lm_head(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
-    """Full forward pass. Returns (hidden (B,S,d), logits_fn)."""
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            embeds: torch.Tensor | None = None):
+    """Full forward pass. Returns (hidden (B,S,d), logits_fn); with
+    ``embeds`` (vlm) the hidden states cover the embeds' positions too."""
     groups = layer_groups(cfg)
-    h = embed_inputs(cfg, params, tokens)
+    h = embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
@@ -133,7 +183,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
     for gi, grp in enumerate(groups):
         gp = params[f"g{gi}"]
         for li in range(grp.count):
-            h = _apply_block(cfg, index_layer(gp, li), h)
+            h = _apply_block(cfg, grp.kind, index_layer(gp, li), h,
+                             positions)
             if grp.shared_attn and (li + 1) % cfg.shared_every == 0:
                 h = _shared_block(cfg, params["shared"], h, resid0,
                                   positions)
@@ -152,18 +203,48 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
 
 def init_caches(cfg: ArchConfig, b: int, seq_len: int,
                 dtype=torch.bfloat16, device="cuda"):
-    """SSM states (f32, as in the reference) per layer and, for hybrid
-    archs, one KV cache per shared-block invocation."""
+    """Per group: SSM states (f32, as in the reference), MLA latent caches
+    or KV caches (a ring buffer of the window for SWA archs), stacked per
+    layer; for hybrid archs one KV cache per shared-block invocation."""
     device = resolve_device(device)
     caches = {}
     for gi, grp in enumerate(layer_groups(cfg)):
-        caches[f"g{gi}"] = ssm_mod.init_mamba2_cache(
-            cfg, b, torch.float32, device, lead=(grp.count,))
+        lead = (grp.count,)
+        if grp.kind == "ssm":
+            caches[f"g{gi}"] = ssm_mod.init_mamba2_cache(
+                cfg, b, torch.float32, device, lead=lead)
+        elif cfg.mla is not None:
+            caches[f"g{gi}"] = attn.init_mla_cache(cfg, b, seq_len, dtype,
+                                                   device, lead=lead)
+        else:
+            caches[f"g{gi}"] = attn.init_gqa_cache(cfg, b, seq_len, dtype,
+                                                   device, lead=lead)
         if grp.shared_attn:
             caches["shared"] = attn.init_gqa_cache(
                 cfg, b, seq_len, dtype, device,
                 lead=(grp.count // cfg.shared_every,))
     return caches
+
+
+def _decode_block(cfg, kind, p, h, position, cache):
+    """One layer's decode step; attention caches are written in place, an
+    SSM layer returns fresh ``state`` and ``conv`` tensors."""
+    if kind == "ssm":
+        hn = apply_norm(cfg, p["norm_ssm"], h)
+        y, cache = ssm_mod.apply_mamba2_decode(cfg, p["ssm"], hn, cache)
+        return h + y, cache
+    hn = apply_norm(cfg, p["norm_attn"], h)
+    if cfg.mla is not None:
+        a, cache = attn.apply_mla_decode(cfg, p["attn"], hn, position, cache)
+    else:
+        a, cache = attn.apply_gqa_decode(cfg, p["attn"], hn, position, cache)
+    h = h + a
+    hn = apply_norm(cfg, p["norm_mlp"], h)
+    if kind == "moe":
+        y, _ = moe_mod.apply_moe(cfg, p["moe"], hn)
+    else:
+        y = apply_mlp(cfg, p["mlp"], hn)
+    return h + y, cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, caches: dict,
@@ -176,13 +257,11 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict,
     for gi, grp in enumerate(layer_groups(cfg)):
         gp, cache = params[f"g{gi}"], caches[f"g{gi}"]
         for li in range(grp.count):
-            lp = index_layer(gp, li)
-            hn = apply_norm(cfg, lp["norm_ssm"], h)
-            y, nc = ssm_mod.apply_mamba2_decode(cfg, lp["ssm"], hn,
-                                                index_layer(cache, li))
-            h = h + y
-            cache["state"][li] = nc["state"]
-            cache["conv"][li] = nc["conv"]
+            h, nc = _decode_block(cfg, grp.kind, index_layer(gp, li), h,
+                                  position, index_layer(cache, li))
+            if grp.kind == "ssm":
+                cache["state"][li] = nc["state"]
+                cache["conv"][li] = nc["conv"]
             if grp.shared_attn and (li + 1) % cfg.shared_every == 0:
                 sc = index_layer(caches["shared"], li // cfg.shared_every)
                 x = h + resid0

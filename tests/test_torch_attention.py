@@ -203,7 +203,9 @@ def test_tensor_core_numerics_masks_match_plain(case):
 
 
 @pytest.mark.parametrize("shape", [c[:7] for c in SWEEP] +
-                         [(2, 64, 64, 32, 32, 80, 80)])
+                         [(2, 64, 64, 32, 32, 80, 80),
+                          (2, 64, 64, 32, 8, 120, 120),
+                          (1, 64, 64, 128, 128, 192, 128)])
 def test_bf16_layout_takes_sweep_and_zamba2_shapes(shape):
     b, s, t, h, hkv, d, dv = shape
     xs = [torch.empty(sh, dtype=torch.bfloat16) for sh in
@@ -212,13 +214,15 @@ def test_bf16_layout_takes_sweep_and_zamba2_shapes(shape):
                             [x.stride()[:3] for x in xs])
 
 
-@pytest.mark.parametrize("bad", ["d72", "dv12", "stride", "pointer",
-                                 "seq_stride"])
+@pytest.mark.parametrize("bad", ["d68", "d200", "dv12", "stride",
+                                 "pointer", "seq_stride"])
 def test_bf16_layout_raises(bad):
     q = torch.empty((1, 8, 2, 96), dtype=torch.bfloat16)
     d, dv, x = 80, 80, q[..., :80]
-    if bad == "d72":
-        d, x = 72, q[..., :72]
+    if bad == "d68":
+        d, x = 68, q[..., :68]
+    elif bad == "d200":
+        d, x = 200, torch.empty((1, 8, 2, 200), dtype=torch.bfloat16)
     elif bad == "dv12":
         dv = 12
     elif bad == "stride":
@@ -230,6 +234,21 @@ def test_bf16_layout_raises(bad):
         strides = [(2 ** 26, tkern.MAX_SEQ_STRIDE, 96)]
     with pytest.raises(ValueError, match="bf16 flash kernel"):
         tkern.check_bf16_layout(d, dv, [x.data_ptr()], strides)
+
+
+def test_bf16_body_by_width():
+    """The instantiation each call takes: the exact d = dv = 80 one, the
+    8-k-step one up to d = 128 (h2o-danube's 120 on a zeroed pad chunk),
+    the 12-k-step one above (deepseek-v3's MLA, 192 / 128); f32 the CUDA
+    cores."""
+    bf16 = torch.bfloat16
+    assert tkern.fa_body(bf16, 80, 80) == "tc_exact"
+    assert tkern.fa_body(bf16, 80, 24) == "tc_k8"
+    assert tkern.fa_body(bf16, 120, 120) == "tc_k8"
+    assert tkern.fa_body(bf16, 128, 128) == "tc_k8"
+    assert tkern.fa_body(bf16, 192, 128) == "tc_k12"
+    assert tkern.fa_body(torch.float32, 192, 128) == "cuda_core"
+    assert set(tkern.flash_attention_fwd.body_launches) == set(tkern.BODIES)
 
 
 def test_split_p_halves_the_rounding_error():

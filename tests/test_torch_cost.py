@@ -277,12 +277,15 @@ def test_terms_use_the_hopper_constants():
 
 def test_model_flops_match_reference_and_name_missing_archs():
     from repro.launch import roofline as jroof
+    from repro_torch import configs
     from repro_torch.launch import roofline
     assert roofline.model_flops("fege-spinlattice", "md", 10) == 0.0
-    assert roofline.model_flops("zamba2-2.7b", "prefill", 64) == \
-        jroof.model_flops("zamba2-2.7b", "prefill", 64)
-    with pytest.raises(KeyError, match="item 15"):
-        roofline.model_flops("qwen2-7b", "train", 64)
+    for arch in configs.ARCHS:
+        for kind in ("prefill", "train"):
+            assert roofline.model_flops(arch, kind, 64) == \
+                jroof.model_flops(arch, kind, 64)
+    with pytest.raises(KeyError, match="unknown"):
+        roofline.model_flops("no-such-arch", "train", 64)
 
 
 def test_nep_measured_refuses_host_tensors():

@@ -9,8 +9,9 @@ own decode holds against its forward within 5e-3, the bar of
 ``tests/test_decode_consistency.py``.  The reference's forward runs its plain
 ``ssd_chunked`` and ``chunked_attention``; the port's runs the kernel
 wrappers, which on CPU tensors call their plain versions.  The full configs
-are built on the meta device and their shapes held against
-``jax.eval_shape`` of the reference's ``init_params(tp=16)``.
+of every arch of the registry are built on the meta device and their
+shapes held against ``jax.eval_shape`` of the reference's
+``init_params(tp=16)``.
 """
 import dataclasses
 from functools import partial
@@ -133,7 +134,7 @@ def _shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_full_config_shapes_match_jax(arch):
     cfg = configs.get(arch)
     want = jax.eval_shape(lambda: jlm.init_params(
@@ -178,14 +179,16 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get("qwen2-7b")
+    """What still raises: an arch outside the registry, and the MoE
+    expert-parallel dispatch (a mesh's, ROADMAP items 15.6/15.7)."""
     with pytest.raises(KeyError, match="unknown"):
         configs.get("no-such-arch")
-    dense = dataclasses.replace(configs.get_smoke("zamba2-2.7b"),
-                                family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.layer_groups(dense)
+    moe = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"),
+                              moe_impl="ep")
+    params = lm.init_params(moe, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="15.6/15.7"):
+        lm.make_prefill_fn(moe)(params, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.long)})
 
 
 def test_init_params_draws_from_the_generator():

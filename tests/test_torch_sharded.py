@@ -378,18 +378,21 @@ def test_halo_exchange_and_fold_against_numpy(runs, ranks):
             (ranks, name, err)
 
 
-def test_md_step_ppermute_engine_matches_flat(capfd, monkeypatch):
+def test_md_step_ppermute_engine_matches_flat(tmp_path, monkeypatch):
     """``launch/md_step.py --nproc 2 --backend gloo --halo-mode ppermute
     --check-flat``: the Engine's Sharded plan with its exchanges and
     adjoint folds as ``batch_isend_irecv`` pairs, f64 NVE from the
     launcher's state, within 1e-9 of the flat Engine over a rebuild with
-    migrations, one drift-pos exchange a step."""
+    migrations, one drift-pos exchange a step.  Rank 0's result comes
+    through ``--out``, not the standard output the ranks share."""
     from repro_torch.launch import md_step
     monkeypatch.setenv("OMP_NUM_THREADS", "1")    # the spawned ranks
+    out = tmp_path / "res.json"
     assert md_step.main(["--nproc", "2", "--backend", "gloo", "--device",
                          "cpu", "--check-flat", "--halo-mode", "ppermute",
-                         "--steps", "20", "--chunk", "10"]) == 0
-    res = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+                         "--steps", "20", "--chunk", "10",
+                         "--out", str(out)]) == 0
+    res = json.loads(out.read_text())
     assert res["ranks"] == 2 and res["allgather"] is False
     assert res["vs_flat"] < 1e-9
     assert res["rebuilds"] >= 1 and res["migrated"] > 0

@@ -7,7 +7,8 @@ f32 draws to bf16 in both.  Tolerances, relative to each output's max |ref|:
 2e-5 where both sides compute in f32 from the same inputs; 1e-2 for an
 output rounded to bf16 (one bf16 ulp is 2^-8).  The CUDA kernel itself runs
 only on the card, where ``chip_smoke.py`` holds it against
-``ssd_chunks_plain``.
+``ssd_chunks_plain``.  The module runs on one torch thread, as the other
+port modules do: the sums of a GEMM may split by thread count.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from repro.models import ssm as jssm
 from repro_torch.kernels.ssd import kernel as tkern
 from repro_torch.kernels.ssd.ops import ssd_chunked_kernel
 from repro_torch.models import ssm as tssm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SWEEP = [
     # bs, s, h, p, g, n, chunk, dtype
