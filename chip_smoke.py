@@ -2,12 +2,13 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only |
-                           --lm-only]
+                           --lm-only | --train-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
 and L (without L (c)'s readings, which come from phases 4 and G),
-``--lm-only`` phases 1, 5-9 and M-R (the LM serving path); none prints the
+``--lm-only`` phases 1, 5-9 and M-R (the LM serving path),
+``--train-only`` phases 1, S and T (LM training); none prints the
 result line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
@@ -102,6 +103,47 @@ R. seamless-m4t-large-v2 at full width and depth: a prefill of 8,192
    source frames and 2,048 target tokens (FA 24 + 2 x 24 = 72 a call),
    and decode at B=8 against the encoder's cross K/V; one
    ``{"lm_zoo": ...}`` line with phases M-R's numbers and times;
+S. the FA backward kernel (``flash_attention_bwd.cu``, two passes, f32
+   math on the CUDA cores) on the kernel forward's o and lse against
+   ``flash_attention_bwd_plain`` on the same q, k, v, dO and the plain
+   forward's own o and lse: the FA sweep's
+   cases and every training shape of phase T (qwen2's d = 128 at 28 / 4
+   heads, S = T = 4,096; h2o's d = 120 with window 4,096 at S = T =
+   8,192; deepseek's d = 192 / dv = 128 at 128 heads; seamless's
+   non-causal cross attention, S 1,024 x T 4,096), f32 within 1e-4 and
+   bf16 within 5e-3 of each output's max |ref|, each kernel call
+   ``torch.equal`` to a second; the forward's lse, f32 and bf16 (every
+   body), against the plain version's (1e-5); at the training shapes,
+   bf16 timed beside the plain
+   version, the SDPA backward (``torch.autograd.grad`` through
+   ``scaled_dot_product_attention``, a retained graph; the library's time,
+   which the port never calls) and the bound (``launch/roofline.py:
+   fa_bwd_work``: q, k, v, o, dO, lse read once, dq, dk, dv written once;
+   2 (3d + 2dv) flops a kept pair at 989 TFLOP/s), with ptxas's report of
+   both passes;
+T. LM training through ``launch/train.py:train_lm`` on random weights and
+   ``data/tokens.py``'s synthetic stream: (a) qwen2-7b at full width, its
+   depth cut by ``train_depth`` to the most layers whose bf16 weights and
+   gradients, f32 accumulation buffers and f32 AdamW moments (16 bytes a
+   parameter) fit ``TRAIN_BUDGET_GIB``, B = 2 x S = 4,096 a microbatch,
+   accumulation 2, remat, 10 steps: the mean loss of the last 3 steps
+   below the first 3's, every loss and gradient norm finite, FA launches
+   a step exactly 2 forwards (all on the d = 128 tensor-core body) and 1
+   backward (both passes) per layer and microbatch; step time, tokens/s,
+   peak memory; (b) 2 layers, B = 1 x S = 1,024, of qwen2 in f32 and in
+   bf16 (the d = 128 tensor-core body) and of deepseek-v3 in bf16 (its
+   dense MLA layers, the d = 192 body): the loss and every leaf's
+   gradient through the kernels against the same with
+   ``flash_attention_plain`` / ``flash_attention_bwd_plain`` on the card,
+   f32 within 1e-4; bf16 both paths against the plain path in f32 on the
+   same weights, the kernels' error per leaf at most 1.5 times the plain
+   path's and the loss within 1e-3 of the plain bf16 path's; (c) one step
+   each at full width, depth cut the same way:
+   h2o-danube-3-4b (B = 1 x 8,192, the window binding), moonshot (the MoE
+   dense dispatch), deepseek-v3 (its leading dense MLA layers, d = 192)
+   and seamless (4,096 source frames, 1,024 target tokens; FA enc + 2 dec
+   a microbatch), finite loss and gradient norm, FA launches as in (a);
+   one ``{"lm_train": ...}`` line with phases S-T's numbers and times;
 A. field cooling at the main path's size: ``Engine`` with K1/K2 under
    ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
    4 chunks x 20 steps, all six observables every 5 steps, a runlog with
@@ -279,8 +321,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
    only, started at the phase's beginning in the background) and
    ``report.dryrun_main``'s tables; one ``{"legacy": ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
-    all four kernels (K1, K2 and SSD with ``body`` and ``previous_ms``, the
-    earlier body's time in this run; FA's ``previous_ms`` null, as its
+    all five kernels (FA's backward with phase T(a)'s launches a step,
+    phase S's errors, times, bound and ptxas at qwen2's shape and, with
+    the case's name appended, at the other training shapes; FA's forward
+    with ``launches_train`` and ``body_train``; K1, K2 and SSD with
+    ``body`` and ``previous_ms``, the earlier body's time in this run; FA's ``previous_ms`` null, as its
     earlier body is gone; all with ptxas's report of the body timed; K1
     and K2 with ``launches_field_cooling`` from phase A, from phase E
     ``launches_replica``, ``replica_ms`` and ``replica_flat_ms`` (one
@@ -329,6 +374,12 @@ KERNELS = {
     "flash_attention_fwd": dict(
         source="src/repro_torch/kernels/attention/csrc/flash_attention_fwd.cu",
         replaces="src/repro/kernels/attention/kernel.py:68"),
+    # no Pallas kernel: the reference differentiates its XLA
+    # chunked_attention under jax.grad
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
+        replaces="none: src/repro/models/attention.py:60 (chunked_attention,"
+                 " differentiated by jax.grad)"),
 }
 # the sweeps of tests/test_kernels_ssd.py:10 and tests/test_kernels_attention.py:9
 SSD_SWEEP = [   # bs, s, h, p, g, n, chunk, dtype
@@ -535,7 +586,7 @@ def lm_parity(torch, dev, cfg, b=None):
     tokens = torch.randint(0, cfg.vocab, (b, PARITY_S), generator=gen,
                            device=dev)
     t0 = time.perf_counter()
-    h, logits_fn = tfm.forward(cfg32, params, tokens)
+    h, _, logits_fn = tfm.forward(cfg32, params, tokens)
     full = logits_fn(h).float()
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
@@ -894,16 +945,6 @@ ZOO_DECODE_STEPS = 16    # phases O-R
 MLA_PARITY_B = 1         # phase Q's deepseek parity: B=1 x PARITY_S
 
 
-def fa_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs FA's masks keep: row i sees keys in [lo, hi)."""
-    total = 0
-    for i in range(s):
-        hi = min(t, i + 1) if causal else t
-        lo = max(0, i - window + 1) if window else 0
-        total += max(hi - lo, 0)
-    return total
-
-
 def fa_hold(torch, name, q, k, v, mask, body) -> dict:
     """FA on bf16 ``q``, ``k``, ``v`` against its plain version
     (:func:`fa_prefill_errors`) in f32 (1e-4) and bf16 (2e-2, and row by
@@ -932,7 +973,7 @@ def fa_zoo_case(torch, dev, name, ptxas) -> dict:
     the window as a boolean mask) and the bound."""
     from repro_torch.kernels.attention import kernel as fa
     from repro_torch.launch.roofline import bound as card_bound
-    from repro_torch.launch.roofline import nbytes
+    from repro_torch.launch.roofline import fa_fwd_work
     F = torch.nn.functional
     b, s, t, h, hkv, d, dv, causal, win, body = FA_ZOO_CASES[name]
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -956,9 +997,7 @@ def fa_zoo_case(torch, dev, name, ptxas) -> dict:
         kw["is_causal"] = causal
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **kw), 10)
-    flops = 2.0 * b * h * fa_pairs(s, t, causal, win) * (d + dv)
-    bd = card_bound(nbytes(q, k, v) + b * s * h * dv * q.element_size(),
-                    flops, "bfloat16")
+    bd = card_bound(*fa_fwd_work(q, k, v, **mask), "bfloat16")
     ptx = ptxas_of(ptxas, *(PTXAS_FA_K12 if body == "tc_k12" else
                             PTXAS_FA_K8))
     log(f"  FA {name} ({body}, ptxas {ptx}): {ms:.3f} ms, plain {plain:.1f}"
@@ -992,13 +1031,13 @@ def fa_path_holds(torch, prefill, params, batch, body) -> list:
         return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     mods = (attention, encdec)
     for m in mods:
-        m.flash_attention_fwd = holding
+        m.flash_attention = holding
     try:
         prefill(params, batch)
         torch.cuda.synchronize()
     finally:
         for m in mods:
-            m.flash_attention_fwd = fa.flash_attention_fwd
+            m.flash_attention = fa.flash_attention
     return held
 
 
@@ -1097,27 +1136,29 @@ def zoo_dense(torch, dev, cfg, body, seed, reps=1, decode_steps=None
 
 
 def moe_depth(torch, cfg):
-    """``cfg`` at the largest depth whose bf16 weights and decode caches
-    (B=DECODE_B, DECODE_T slots) leave ``MOE_HEADROOM_GIB`` of
-    ``MOE_MAX_GIB`` for the run's transients (sizes from the meta device;
-    at full depth moonshot's 48 layers hold 52.9 GiB of weights and 24 GiB
-    of caches)."""
-    import dataclasses
-
+    """``cfg`` at the largest depth, past its dense layers, whose bf16
+    weights and decode caches (B=DECODE_B, DECODE_T slots) leave
+    ``MOE_HEADROOM_GIB`` of ``MOE_MAX_GIB`` for the run's transients
+    (``launch/train.py:fit_depth``, sizes from the meta device; at full
+    depth moonshot's 48 layers hold 52.9 GiB of weights and 24 GiB of
+    caches)."""
     from repro_torch.launch.roofline import nbytes
+    from repro_torch.launch.train import fit_depth
     from repro_torch.models import lm
     from repro_torch.models import transformer as tfm
     meta = torch.device("meta")
-    for n in range(cfg.n_layers, cfg.moe.first_dense, -1):
-        cut = dataclasses.replace(cfg, n_layers=n)
-        gib = sum(nbytes(x) for tree in (
+
+    def weights_and_caches(cut):
+        return sum(nbytes(x) for tree in (
             lm.init_params(cut, None, device=meta),
             tfm.init_caches(cut, DECODE_B, DECODE_T, torch.bfloat16, meta))
-            for x in _leaves(tree)) / 2 ** 30
-        if gib <= MOE_MAX_GIB - MOE_HEADROOM_GIB:
-            log(f"  depth {n}: {gib:.2f} GiB of weights and caches")
-            return cut
-    raise AssertionError(f"{cfg.name}: no depth fits {MOE_MAX_GIB} GiB")
+            for x in _leaves(tree))
+
+    cut, gib = fit_depth(cfg, MOE_MAX_GIB - MOE_HEADROOM_GIB,
+                         weights_and_caches,
+                         min_layers=cfg.moe.first_dense + 1)
+    log(f"  depth {cut.n_layers}: {gib:.2f} GiB of weights and caches")
+    return cut
 
 
 def zoo_encdec(torch, dev, cfg, seed) -> dict:
@@ -1243,6 +1284,450 @@ def lm_zoo_phases(torch, dev, ptxas, fa_row) -> dict:
     log(f"phases M-R: {({k: round(v, 1) for k, v in times.items()})} s, "
         f"{out['total_s']:.1f} s together")
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM training (phases S-T): the FA backward kernel, and the zoo's attention
+# families trained through FA's forward and backward kernels
+# ---------------------------------------------------------------------------
+
+# phase S: the backward kernel at phase T's shapes (b, s, t, h, hkv, d, dv,
+# causal, window); qwen2's 28 heads over 4 kv heads are the launcher's
+# (tp = 1: no head padding)
+FA_BWD_TRAIN_CASES = {
+    "qwen2_d128": (2, 4096, 4096, 28, 4, 128, 128, True, 0),
+    "h2o_d120_window": (1, 8192, 8192, 32, 8, 120, 120, True, 4096),
+    "deepseek_d192": (1, 4096, 4096, 128, 128, 192, 128, True, 0),
+    "seamless_cross": (2, 1024, 4096, 16, 16, 64, 64, False, 0),
+}
+FA_BWD_MAIN = "qwen2_d128"
+FA_BWD_BAR = {"float32": 1e-4, "bfloat16": 5e-3}
+FA_LSE_BAR = 1e-5     # the forward's lse, either body, of max |ref|
+PTXAS_FA_BWD = {"dkdv": ("flash_attention_bwd", "dkdv_kernelI13__nv_bf"),
+                "dq": ("flash_attention_bwd", "dq_kernelI13__nv_bf")}
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_BUDGET_GIB = 60.0   # bf16 weights + gradients, f32 buffer and moments
+TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_STEPS = 2, 4096, 2, 10
+TRAIN_LR = 3e-4
+# T(b): (arch, dtype) at 2 layers, B=1 x S=1024: the f32 CUDA-core body,
+# and the bf16 tensor-core bodies tc_k8 (d 128) and tc_k12 (d 192/128)
+TRAIN_PARITY = (("qwen2-7b", "float32"), ("qwen2-7b", "bfloat16"),
+                ("deepseek-v3-671b", "bfloat16"))
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_S = 2, 1024
+# f32: the loss and each leaf's gradient, kernels against plain, within
+# 1e-4 (of max |ref|).  bf16: a bf16 gradient sits up to ~9 % of max |ref|
+# from the same computed in f32 (the embedding's most), so two bf16 paths
+# differ by rounding alone by a few %; each bf16 path is held against the
+# plain path in f32 on the same bf16-valued weights, the kernels' error at
+# most TRAIN_BF16_RATIO times the plain bf16 path's, the loss within
+# TRAIN_BF16_LOSS_BAR of the plain bf16 path's
+TRAIN_PARITY_BAR = 1e-4
+TRAIN_BF16_RATIO = 1.5
+TRAIN_BF16_LOSS_BAR = 1e-3
+# T(c): (arch, batch, positions a row); one step each, accumulation 1
+TRAIN_ONE_STEP = (("h2o-danube-3-4b", 1, 8192),
+                  ("moonshot-v1-16b-a3b", 2, 4096),
+                  ("deepseek-v3-671b", 1, 4096),
+                  ("seamless-m4t-large-v2", 2, 4096))
+
+
+def fa_bwd_counters():
+    from repro_torch.kernels.attention import kernel as fa
+    return fa.flash_attention_fwd, fa.flash_attention_bwd
+
+
+def reset_fa_train_counters():
+    fwd, bwd = fa_bwd_counters()
+    fwd.launches = bwd.launches = 0
+    fwd.body_launches = dict.fromkeys(fwd.body_launches, 0)
+    bwd.pass_launches = dict.fromkeys(bwd.pass_launches, 0)
+
+
+def read_fa_train_counters() -> dict:
+    fwd, bwd = fa_bwd_counters()
+    return {"fwd": fwd.launches, "fwd_bodies": dict(fwd.body_launches),
+            "bwd": bwd.launches, "bwd_passes": dict(bwd.pass_launches)}
+
+
+def fa_bwd_hold(torch, dev, name, case, gen) -> dict:
+    """The forward kernel's lse and the backward kernel on its o and lse
+    against the plain versions' chain, in f32 and bf16: the forward's lse
+    against ``flash_attention_plain``'s (``FA_LSE_BAR`` of max |ref|), and
+    the kernel's (dq, dk, dv) against ``flash_attention_bwd_plain`` on the
+    plain forward's own o and lse (``FA_BWD_BAR`` of each output's max
+    |ref|), each kernel call bitwise equal to a second one.  Returns the
+    errors and the bf16 tensors (with the kernel forward's o and lse)."""
+    from repro_torch.kernels.attention import kernel as fa
+    b, s, t, h, hkv, d, dv, causal, win = case
+    mask = dict(causal=causal, window=win)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt_)
+        k = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dt_)
+        v = torch.randn((b, t, hkv, dv), generator=gen, device=dev).to(dt_)
+        do = torch.randn((b, s, h, dv), generator=gen, device=dev).to(dt_)
+        o, lse = fa.flash_attention_fwd(q, k, v, **mask, return_lse=True)
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, **mask,
+                                                    return_lse=True)
+        out[f"lse_{dtype}"] = check(f"FA bwd {name} lse {dtype}", lse,
+                                    want_lse, FA_LSE_BAR)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+        want = fa.flash_attention_bwd_plain(q, k, v, want_o, want_lse, do,
+                                            **mask)
+        del want_o, want_lse
+        torch.cuda.synchronize()
+        errs, abs_errs = [], []
+        for oname, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(g, a):
+                raise AssertionError(f"FA bwd {name} {oname} {dtype}: two "
+                                     "calls differ")
+            errs.append(check(f"FA bwd {name} {oname} {dtype}", g.float(),
+                              w.float(), FA_BWD_BAR[dtype]))
+            abs_errs.append(float((g.float() - w.float()).abs().max()))
+        out[dtype] = max(errs)
+        out[f"abs_{dtype}"] = max(abs_errs)
+        del got, again, want
+        if dtype == "bfloat16":
+            out["tensors"] = (q, k, v, o, lse, do)
+        else:
+            del q, k, v, o, lse, do
+    return out
+
+
+def fa_bwd_timed(torch, dev, name, case, tensors, ptxas) -> dict:
+    """The bf16 backward kernel timed beside its plain version, the
+    library's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` with a retained graph; GQA, the window
+    as a boolean mask) and the bound (``launch/roofline.py``)."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.launch import roofline
+    F = torch.nn.functional
+    b, s, t, h, hkv, d, dv, causal, win = case
+    mask = dict(causal=causal, window=win)
+    q, k, v, o, lse, do = tensors
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       **mask), 3)
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **mask), 1)
+    leaves = [x.detach().transpose(1, 2).requires_grad_(True)
+              for x in (q, k, v)]
+    kw = dict(scale=d ** -0.5, enable_gqa=h != hkv)
+    if win:
+        qp = torch.arange(s, device=dev)[:, None]
+        kp = torch.arange(t, device=dev)[None, :]
+        kw["attn_mask"] = (kp <= qp) & (kp > qp - win)
+    else:
+        kw["is_causal"] = causal
+    lib_out = F.scaled_dot_product_attention(*leaves, **kw)
+    g_out = do.transpose(1, 2)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, g_out, retain_graph=True), 3)
+    del lib_out, leaves, kw
+    nb, flops = roofline.fa_bwd_work(q, k, v, o, lse, do, **mask)
+    bd = roofline.bound(nb, flops, "bfloat16")
+    ptx = {p: ptxas_of(ptxas, *PTXAS_FA_BWD[p]) for p in PTXAS_FA_BWD}
+    log(f"  FA bwd {name}: {ms:.3f} ms, plain {plain:.1f} ms, SDPA backward "
+        f"{lib:.3f} ms; {nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
+        f"{100 * bd['bound_ms'] / ms:.2f}% of the kernel's time; ptxas {ptx}")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "bytes": nb, "flops": flops, "ptxas": ptx}
+
+
+def phase_fa_bwd(torch, dev, ptxas) -> dict:
+    """Phase S: the FA backward kernel against its plain version on the
+    sweeps' cases (f32 and bf16) and at every training shape of phase T,
+    timed at the latter."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {"sweep": {}, "train": {}}
+    cases = [(f"sweep{i}", c[:9]) for i, c in enumerate(FA_SWEEP)] + [
+        (f"tc_sweep{i}", c[:9]) for i, c in enumerate(FA_TC_SWEEP[5:])]
+    for name, case in cases:
+        r = fa_bwd_hold(torch, dev, name, case, gen)
+        r.pop("tensors")
+        out["sweep"][name] = r
+    for name, case in FA_BWD_TRAIN_CASES.items():
+        r = fa_bwd_hold(torch, dev, name, case, gen)
+        r.update(fa_bwd_timed(torch, dev, name, case, r.pop("tensors"),
+                              ptxas))
+        out["train"][name] = r
+        torch.cuda.empty_cache()
+    held = [r for grp in ("sweep", "train") for r in out[grp].values()]
+    out["max_rel_err"] = {dt: max(r[dt] for r in held) for dt in FA_BWD_BAR}
+    out["max_rel_err"]["lse"] = max(r[f"lse_{dt}"] for r in held
+                                    for dt in FA_BWD_BAR)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase S: worst {out['max_rel_err']} in {out['seconds']:.1f} s")
+    return out
+
+
+def train_args(arch, batch, seq, steps, accum, seed):
+    from repro_torch.launch.train import parse_args
+    return parse_args(["--arch", arch, "--batch", str(batch), "--seq",
+                       str(seq), "--steps", str(steps), "--accum",
+                       str(accum), "--lr", str(TRAIN_LR), "--seed",
+                       str(seed), "--log-every", "1", "--device", "cuda"])
+
+
+def n_attention(cfg) -> int:
+    return (cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
+            else cfg.n_layers)
+
+
+def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
+    """``launch/train.py:train_lm`` on ``cfg`` (its depth already cut) on
+    the card: FA's launches must be, a step, 2 forwards (the forward and
+    remat's recomputation) and one backward (both passes) per attention and
+    microbatch, every forward on the tensor-core body of the arch's head
+    width; every loss and gradient norm finite.  Returns the rows, the
+    launches a step and the peak memory."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.launch.train import train_lm
+    n = n_attention(cfg)
+    d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
+    dv = cfg.mla.v_head if cfg.mla else cfg.hd
+    body = fa.fa_body(getattr(torch, cfg.dtype), d, dv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_fa_train_counters()
+    run = train_lm(train_args(cfg.name, batch, seq, steps, accum, seed),
+                   cfg_override=cfg)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    got = read_fa_train_counters()
+    per = steps * accum * n
+    want = {"fwd": 2 * per,
+            "fwd_bodies": {**dict.fromkeys(fa.BODIES, 0), body: 2 * per},
+            "bwd": per, "bwd_passes": dict.fromkeys(fa.BWD_PASSES, per)}
+    if got != want:
+        raise AssertionError(f"{cfg.name} training: FA launches {got}, "
+                             f"expected {want}")
+    rows = run["rows"]
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"{cfg.name} training: non-finite {bad}")
+    del run
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "batch": batch, "seq": seq, "accum": accum, "rows": rows,
+            "fa_fwd_a_step": got["fwd"] // steps,
+            "fa_bwd_a_step": got["bwd"] // steps,
+            "fa_bwd_passes_a_step": {p: c // steps for p, c in
+                                     got["bwd_passes"].items()},
+            "fa_body": body, "peak_gib": peak}
+
+
+def train_parity(torch, dev, full, dtype) -> dict:
+    """T(b): ``full`` cut to TRAIN_PARITY_LAYERS layers
+    (``launch/train.py:depth_cut``) in ``dtype``: the loss and every
+    leaf's gradient through the kernels against the same computed with
+    ``flash_attention_plain`` and ``flash_attention_bwd_plain`` on the card
+    (the plain chain from the plain forward's own o and lse): in f32
+    within ``TRAIN_PARITY_BAR`` of each leaf's max |ref|; in bf16 both
+    against the plain path in f32 on the same bf16-valued weights, the
+    kernels' error at most ``TRAIN_BF16_RATIO`` times the plain bf16
+    path's.  Holds the autograd Function's wiring and the forward body's
+    lse."""
+    import dataclasses
+
+    from repro_torch.data.tokens import synthetic_batches, to_tensors
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.launch.train import depth_cut
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_cast, tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(depth_cut(full, TRAIN_PARITY_LAYERS),
+                              dtype=dtype)
+    d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
+    body = fa.fa_body(getattr(torch, dtype), d,
+                      cfg.mla.v_head if cfg.mla else cfg.hd)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        17), tp=1, device=dev)
+    batch = to_tensors(next(synthetic_batches(cfg, 1, TRAIN_PARITY_S, 17)),
+                       dev)
+
+    def loss_and_grads(c, tree, plain=False):
+        # a gradient is None for a leaf no layer reads (an empty MoE stack)
+        real = fa.flash_attention_fwd, fa.flash_attention_bwd
+        if plain:
+            fa.flash_attention_fwd = fa.flash_attention_plain
+            fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+        try:
+            ps = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+            loss = lm.make_loss_fn(c, remat=True)(tree_unflatten(tree, ps),
+                                                  batch)
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        finally:
+            fa.flash_attention_fwd, fa.flash_attention_bwd = real
+        return float(loss.detach()), grads
+
+    def leaf_errs(got, want):
+        if [g is None for g in got] != [g is None for g in want]:
+            raise AssertionError(f"T(b) {cfg.name} {dtype}: the paths "
+                                 "differentiate different leaves")
+        return [rel_err(a.float(), b.float()) for a, b in zip(got, want)
+                if a is not None]
+
+    reset_fa_train_counters()
+    loss_k, grads_k = loss_and_grads(cfg, params)
+    torch.cuda.synchronize()
+    launches = read_fa_train_counters()
+    want = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
+    if {k: launches[k] for k in want} != want or \
+            launches["fwd_bodies"][body] != want["fwd"]:
+        raise AssertionError(f"T(b) {cfg.name} {dtype}: FA launches "
+                             f"{launches}, expected {want}, forwards on "
+                             f"{body}")
+    loss_p, grads_p = loss_and_grads(cfg, params, plain=True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = leaf_errs(grads_k, grads_p)
+    worst = [tuple(g.shape) for g in grads_k if g is not None][
+        errs.index(max(errs))]
+    out = {"arch": cfg.name, "dtype": dtype, "body": body,
+           "loss_rel_err": loss_err, "grad_max_rel_err": max(errs),
+           "worst_leaf_shape": worst, "leaves": len(errs),
+           "launches": launches}
+    head = (f"  T(b) {cfg.name} {cfg.n_layers} layers {dtype} ({body}), "
+            f"B=1 x S={TRAIN_PARITY_S}: loss {loss_k:.6f} vs plain "
+            f"{loss_p:.6f} (rel {loss_err:.3e}); worst leaf gradient rel "
+            f"err {max(errs):.3e} (a {worst} leaf) over {len(errs)} "
+            "leaves")
+    if dtype == "float32":
+        log(f"{head} (bar {TRAIN_PARITY_BAR:g})")
+        if not (loss_err < TRAIN_PARITY_BAR and max(errs) < TRAIN_PARITY_BAR):
+            raise AssertionError(f"T(b) {cfg.name}: loss {loss_err:.3e}, "
+                                 f"gradients {max(errs):.3e} >= "
+                                 f"{TRAIN_PARITY_BAR:g}")
+        return out
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss_32, grads_32 = loss_and_grads(cfg32, tree_cast(params,
+                                                        torch.float32),
+                                       plain=True)
+    errs_k, errs_p = leaf_errs(grads_k, grads_32), leaf_errs(grads_p,
+                                                             grads_32)
+    ratio = max(k / max(p, 1e-30) for k, p in zip(errs_k, errs_p))
+    del grads_k, grads_p, grads_32, params
+    torch.cuda.empty_cache()
+    log(f"{head}; against f32 (loss {loss_32:.6f}): kernels "
+        f"{max(errs_k):.3e}, plain {max(errs_p):.3e}, worst leaf ratio "
+        f"{ratio:.3f} (bar {TRAIN_BF16_RATIO:g}; loss bar "
+        f"{TRAIN_BF16_LOSS_BAR:g})")
+    if not (loss_err < TRAIN_BF16_LOSS_BAR and ratio <= TRAIN_BF16_RATIO):
+        raise AssertionError(f"T(b) {cfg.name} {dtype}: loss {loss_err:.3e}"
+                             f", kernel / plain error against f32 {ratio:.3f}"
+                             f" > {TRAIN_BF16_RATIO:g}")
+    out.update(loss_f32=loss_32, grad_max_rel_err_f32_kernel=max(errs_k),
+               grad_max_rel_err_f32_plain=max(errs_p), f32_ratio=ratio)
+    return out
+
+
+def phase_lm_train(torch, dev) -> dict:
+    """Phase T: (a) qwen2-7b at full width, its depth cut to fit
+    TRAIN_BUDGET_GIB (``launch/train.py:train_depth``), TRAIN_STEPS steps
+    through the launcher; (b) the gradient parity at 2 layers, f32 and
+    the bf16 tensor-core bodies (``TRAIN_PARITY``); (c) one
+    step each of h2o, moonshot, deepseek (its first dense MLA layers) and
+    seamless, each cut the same way."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train_depth
+    t_start = time.perf_counter()
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    full = configs.get(TRAIN_ARCH)
+    cfg, gib = train_depth(full, TRAIN_BUDGET_GIB)
+    log(f"phase T(a): {cfg.name} full width, depth {cfg.n_layers} of "
+        f"{full.n_layers} ({gib:.2f} GiB of training state by the meta "
+        f"estimate), B={TRAIN_B} x S={TRAIN_S} a microbatch, accum "
+        f"{TRAIN_ACCUM}, remat, {TRAIN_STEPS} steps")
+    run = train_run(torch, dev, cfg, TRAIN_B * TRAIN_ACCUM, TRAIN_S,
+                    TRAIN_STEPS, TRAIN_ACCUM, 18)
+    losses = [r["loss"] for r in run["rows"]]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        raise AssertionError(f"T(a): loss did not fall: {losses}")
+    steady = sorted(r["s"] for r in run["rows"][1:])
+    med = steady[len(steady) // 2]
+    run.update(estimate_gib=gib, full_layers=full.n_layers,
+               step_s_median=med,
+               tokens_per_s=TRAIN_B * TRAIN_ACCUM * TRAIN_S / med,
+               loss_first3=first, loss_last3=last)
+    log(f"  T(a): losses {[round(x, 4) for x in losses]}; step median "
+        f"{med:.3f} s = {run['tokens_per_s']:.1f} tokens/s; peak "
+        f"{run['peak_gib']:.2f} GiB; FA {run['fa_fwd_a_step']} forwards "
+        f"({run['fa_body']}) and {run['fa_bwd_a_step']} backwards a step")
+    out[TRAIN_ARCH] = run
+    times["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"phase T(b): {TRAIN_PARITY} at {TRAIN_PARITY_LAYERS} layers: "
+        "kernels against plain versions under autograd")
+    out["parity"] = [train_parity(torch, dev, configs.get(arch), dtype)
+                     for arch, dtype in TRAIN_PARITY]
+    times["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["one_step"] = {}
+    for arch, b, s in TRAIN_ONE_STEP:
+        full = configs.get(arch)
+        cfg, gib = train_depth(full, TRAIN_BUDGET_GIB)
+        enc = (f" (+{cfg.encoder_layers} encoder)" if cfg.encoder_layers
+               else "")
+        log(f"phase T(c): {cfg.name} full width, depth {cfg.n_layers} of "
+            f"{full.n_layers}{enc} ({gib:.2f} GiB estimate), B={b} x {s}, "
+            "one step")
+        r = train_run(torch, dev, cfg, b, s, 1, 1, 19)
+        r.update(estimate_gib=gib, full_layers=full.n_layers,
+                 tokens_per_s=r["rows"][0]["tokens_per_s"])
+        log(f"  {cfg.name}: loss {r['rows'][0]['loss']:.4f}, gnorm "
+            f"{r['rows'][0]['grad_norm']:.3f}, {r['rows'][0]['s']:.3f} s, "
+            f"peak {r['peak_gib']:.2f} GiB, FA {r['fa_fwd_a_step']} forwards "
+            f"({r['fa_body']}) and {r['fa_bwd_a_step']} backwards")
+        out["one_step"][arch] = r
+    times["c"] = time.perf_counter() - t0
+    out["phase_s"] = times
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def lm_train_phases(torch, dev, ptxas, fa_row) -> tuple:
+    """Phases S and T; returns ({"fa_bwd": S, "train": T}, the backward
+    kernel's row of the kernels line) and adds phase T's FA forward
+    launches and body to ``fa_row``."""
+    log("phase S: the FA backward kernel against its plain version")
+    s = phase_fa_bwd(torch, dev, ptxas)
+    t = phase_lm_train(torch, dev)
+    main = s["train"][FA_BWD_MAIN]
+    run = t[TRAIN_ARCH]
+    meta = KERNELS["flash_attention_bwd"]
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": meta["source"], "replaces": meta["replaces"],
+           "launches": run["fa_bwd_a_step"],
+           "launches_per": "a phase-T(a) training step (2 kernels each)",
+           "pass_launches": run["fa_bwd_passes_a_step"],
+           "max_abs_err": main["abs_bfloat16"],
+           "max_rel_err_f32": s["max_rel_err"]["float32"],
+           "max_rel_err_bf16": s["max_rel_err"]["bfloat16"],
+           "max_rel_err_lse": s["max_rel_err"]["lse"],
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
+           "library_ms": main["library_ms"],
+           "library": "SDPA backward (torch.autograd.grad)",
+           "ptxas": main["ptxas"]}
+    for name, r in s["train"].items():
+        if name != FA_BWD_MAIN:
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                row[f"{key}_{name}"] = r[key]
+    fa_row["launches_train"] = run["fa_fwd_a_step"]
+    fa_row["body_train"] = run["fa_body"]
+    s_total = s["seconds"] + t["seconds"]
+    log(f"phases S-T: S {s['seconds']:.1f} s, T {t['phase_s']} s, "
+        f"{s_total:.1f} s together")
+    return {"fa_bwd": s, "train": t, "seconds": s_total}, row
 
 
 # ---------------------------------------------------------------------------
@@ -3959,9 +4444,9 @@ def _legacy_roofline(reports) -> dict:
 
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"],
-                    ["--legacy-only"], ["--lm-only"]):
+                    ["--legacy-only"], ["--lm-only"], ["--train-only"]):
         print("usage: chip_smoke.py [--serve-only | --sharded-only | "
-              "--legacy-only | --lm-only]", file=sys.stderr)
+              "--legacy-only | --lm-only | --train-only]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -4041,6 +4526,13 @@ def main(argv) -> int:
         print(json.dumps({"lm_zoo": zoo}), flush=True)
         print(card, flush=True)
         print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if argv == ["--train-only"]:
+        fa_row = {"name": "flash_attention_fwd"}
+        lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, fa_row)
+        print(json.dumps({"lm_train": lm_train}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [fa_row, bwd_row]}), flush=True)
         return 0
 
     # ---- phase 2: kernels vs plain versions, 4,096 atoms --------------------
@@ -4255,6 +4747,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"lm_zoo": lm_zoo_phases(torch, dev, ptxas, rows[-1])}),
           flush=True)
+    torch.cuda.empty_cache()
+    lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, rows[-1])
+    rows.append(bwd_row)
+    print(json.dumps({"lm_train": lm_train}), flush=True)
     torch.cuda.empty_cache()
     surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
                                                     moments, kern)}

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ``ctypes``.
 
 Each ``.cu`` source under ``kernels/*/csrc/`` (NEP K1 and K2, the SSD
-chunk step, flash attention) becomes its own shared library
-with a plain C interface::
+chunk step, flash attention's forward and backward) becomes its own
+shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
@@ -32,6 +32,8 @@ SOURCES = {
     "ssd_chunks": PKG_DIR / "kernels" / "ssd" / "csrc" / "ssd_chunks.cu",
     "flash_attention_fwd": (PKG_DIR / "kernels" / "attention" / "csrc"
                             / "flash_attention_fwd.cu"),
+    "flash_attention_bwd": (PKG_DIR / "kernels" / "attention" / "csrc"
+                            / "flash_attention_bwd.cu"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

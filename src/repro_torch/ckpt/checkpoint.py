@@ -21,7 +21,8 @@ Layout: ``<dir>/step_<N>/``
 Trees are nested dicts, tuples, lists and NamedTuples of tensors, numpy
 arrays and Python scalars; ``None`` is structure, not a leaf.  A load
 rebuilds the structure of a template tree and puts every tensor back on
-its template leaf's device.
+its template leaf's device.  A bf16 tensor (numpy has no bf16) is stored
+as its int16 bits and viewed back as bf16 where the template leaf is.
 """
 from __future__ import annotations
 
@@ -77,6 +78,8 @@ def _to_host(x, copy: bool) -> np.ndarray:
     in-place writes cannot reach (a CPU tensor's ``numpy()`` shares its
     storage)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
         arr = x.detach().cpu().numpy()
         return arr.copy() if copy and x.device.type == "cpu" else arr
     return np.array(x, copy=True) if copy else np.asarray(x)
@@ -85,7 +88,10 @@ def _to_host(x, copy: bool) -> np.ndarray:
 def _like(arr: np.ndarray, ref):
     """``arr`` in the kind of the template leaf ``ref``."""
     if isinstance(ref, torch.Tensor):
-        return torch.from_numpy(arr).to(ref.device)
+        t = torch.from_numpy(arr)
+        if ref.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        return t.to(ref.device)
     if isinstance(ref, (bool, int, float)) and arr.ndim == 0:
         return type(ref)(arr.item())
     return arr

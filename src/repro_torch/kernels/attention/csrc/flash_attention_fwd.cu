@@ -76,6 +76,12 @@
 //   read as float4s; the 16 threads of a row reduce its max and sum with
 //   shuffles.
 //
+// Training asks for a second output, each row's log-sum-exp of its scaled,
+// masked scores (f32, (B, H, S), natural log), which both bodies write from
+// the running max and sum they already hold; the backward kernels
+// (flash_attention_bwd.cu) rebuild P from it.  Serving passes a null
+// pointer and writes nothing more.
+//
 // Both bodies skip KV blocks that the causal or window mask removes for
 // every row of the query block: exact, since in the reference such a block
 // either adds nothing (e^{-1e30 - m} = 0) or is wiped later by alpha = 0.
@@ -110,7 +116,8 @@ __host__ inline size_t smem_floats(int d, int dv16) {
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, Args a) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, Args a) {
   extern __shared__ __align__(16) float sm[];
   const int d = a.d, dv = a.dv, dv16 = a.dv16;
   float* qT = sm;                  // q[r][e] * scale at qT[e * LDQ + r]
@@ -238,6 +245,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + r0 + i;
     if (qp >= a.S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)   // natural log units: q was scaled
+      lse[((long long)bi * a.H + h) * a.S + qp] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     float* orow = o + (((long long)bi * a.S + qp) * a.H + h) * dv;
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) {
@@ -247,8 +257,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           Args a, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, Args a, void* stream) {
   a.dv16 = (a.dv + 15) / 16 * 16;
   if (a.dv16 > 16 * MAXC) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(a.d, a.dv16) * sizeof(float);
@@ -259,7 +269,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BQ - 1) / BQ, B * a.H);
   flash_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, a);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, a);
   return (int)cudaGetLastError();
 }
 
@@ -387,7 +398,7 @@ template <int NK, int NV, bool EXACT>
 __global__ void __launch_bounds__(THREADS, EXACT ? MIN_BLOCKS : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    Args a) {
+                    float* __restrict__ lse, Args a) {
   constexpr int LDK = 16 * NK + 8;    // row strides in elements: an odd
   constexpr int LDV = 16 * NV + 8;    // number of 16-byte chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -591,6 +602,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qpos = row0 + 8 * half;
     if (qpos >= a.S) continue;
     const float inv = half ? inv1 : inv0;
+    if (lse != nullptr && tq == 0)   // m is in log2 units of the scores
+      lse[((long long)bi * a.H + h) * a.S + qpos] =
+          ((half ? m1 : m0) + log2f(fmaxf(half ? l1 : l0, 1e-30f))) *
+          0.6931471805599453f;
     bf16* orow = o + (((long long)bi * a.S + qpos) * a.H + h) * a.dv;
 #pragma unroll
     for (int j = 0; j < 2 * NV; ++j) {
@@ -603,8 +618,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int NK, int NV, bool EXACT>
-int launch_body(const void* q, const void* k, const void* v, void* o, int B,
-                const Args& a, void* stream) {
+int launch_body(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, const Args& a, void* stream) {
   const size_t smem = 2 * ((size_t)BQ * (16 * NK + 8) +
                            (size_t)STAGES * BK * (16 * NK + 8) +
                            (size_t)STAGES * BK * (16 * NV + 8));
@@ -615,7 +630,8 @@ int launch_body(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * a.H, (a.S + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, a);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -623,16 +639,16 @@ int launch_body(const void* q, const void* k, const void* v, void* o, int B,
 // index in kernel.py:BODIES): 1, the exact one, d = dv = 80 only; 2,
 // guarded, 8 k-steps; 3, guarded, 12 k-steps.  Each checks only the
 // widths it can hold: d and dv multiples of 8, dv <= 128, d <= 16 * NK.
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           const Args& a, int body, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, const Args& a, int body, void* stream) {
   if (a.d % 8 || a.dv % 8 || a.dv > 128 || a.d <= 0 || a.dv <= 0)
     return (int)cudaErrorInvalidValue;
   if (body == 1 && a.d == 80 && a.dv == 80)
-    return launch_body<5, 5, true>(q, k, v, o, B, a, stream);
+    return launch_body<5, 5, true>(q, k, v, o, lse, B, a, stream);
   if (body == 2 && a.d <= 128)
-    return launch_body<8, 8, false>(q, k, v, o, B, a, stream);
+    return launch_body<8, 8, false>(q, k, v, o, lse, B, a, stream);
   if (body == 3 && a.d <= 192)
-    return launch_body<12, 8, false>(q, k, v, o, B, a, stream);
+    return launch_body<12, 8, false>(q, k, v, o, lse, B, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -643,18 +659,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       int H, int Hkv, int d, int dv, int causal, int window, float scale,     \
       long long q_sb, long long q_ss, long long q_sh, long long k_sb,         \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,         \
-      long long v_sh, void *stream, int body
+      long long v_sh, void *stream, int body, void *lse
 
 // body: the index in kernel.py:BODIES; 0, the CUDA-core body, is f32's one.
+// lse: null (serving), or an f32 (B, H, S) buffer for each row's
+// log-sum-exp of its scaled, masked scores (natural log), which the
+// backward kernels (flash_attention_bwd.cu) read.
 extern "C" int flash_attention_fwd_f32(FLASH_FWD_ARGS) {
   if (body != 0) return (int)cudaErrorInvalidValue;
   fa::Args a{S,    T_,   H,    Hkv,  d,    dv,   0,    causal, window,
              scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss, v_sh};
-  return fa::launch(q, k, v, o, B, a, stream);
+  return fa::launch(q, k, v, o, lse, B, a, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(FLASH_FWD_ARGS) {
   fa_tc::Args a{S,    T_,   H,    Hkv,  d,    dv,   causal, window, scale,
                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss,   v_sh};
-  return fa_tc::launch(q, k, v, o, B, a, body, stream);
+  return fa_tc::launch(q, k, v, o, lse, B, a, body, stream);
 }

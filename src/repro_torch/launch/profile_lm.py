@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's LM serving path, on the card.
+"""Where the time goes in the port's LM serving and training paths, on the
+card.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_lm [--trace DIR]
-        [--arch zamba2-2.7b] [--layers N]
+        [--arch zamba2-2.7b] [--layers N] [--train]
 
 Builds the random-weight bf16 ``--arch`` (seed 0; ``--layers`` cuts its
 depth, for an arch whose weights and caches do not fit one card), then
@@ -16,7 +17,18 @@ kernel, the device's busy share (device time over the bare wall time), the
 device time by kind (SSD kernel, flash-attention
 kernel, cuBLAS matrix products, everything else) and the ten kernels with
 the most device time.  ``--trace DIR`` also writes a Chrome trace of each
-window there.  Needs one CUDA card; imports torch and the port only.
+window there.
+
+``--train`` profiles one training step instead (chip_smoke.py's phase
+T(a) by default: qwen2-7b at full width, its depth cut by
+``launch/train.py:train_depth`` to fit ``TRAIN_BUDGET_GIB``, B = 2 x S =
+4,096 a microbatch, accumulation 2, remat, random bf16 weights at tp =
+1 as ``train_lm`` builds them, the synthetic token stream) after a warm
+step: device time by kind (FA forward, FA backward, cuBLAS, the rest),
+the busy share, and the device
+time of the loss chunks' forward and recomputation (their
+``record_function`` range, which the kinds also count).  Needs one CUDA
+card; imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -30,7 +42,12 @@ from pathlib import Path
 ARCH = "zamba2-2.7b"
 KINDS = (("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
          ("flash_attention_fwd", ("flash_fwd",)),
+         ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel")),
          ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")))
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_BUDGET_GIB = 60.0
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 2, 4096, 2
+XENT_RANGE = "chunked_xent"
 
 
 def _kind(name: str) -> str:
@@ -58,9 +75,14 @@ def profile(torch, label, fn, trace_dir):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         wall = _wall(torch, fn)
+    # the loss chunks' range also shows on the device's timeline: read it
+    # apart, so that no kernel counts twice
     rows = [(e.key, float(e.self_device_time_total), e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key != XENT_RANGE]
+    ranges = {e.key: float(e.self_device_time_total) / 1e3
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.key == XENT_RANGE}
     rows = [r for r in rows if r[1] > 0]
     dev_ms = sum(r[1] for r in rows) / 1e3
     print(f"{label}: wall {1e3 * bare:.2f} ms unprofiled, "
@@ -74,12 +96,48 @@ def profile(torch, label, fn, trace_dir):
         by_kind[_kind(key)] = by_kind.get(_kind(key), 0.0) + us / 1e3
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:<42} {ms:10.3f} ms  {100 * ms / dev_ms:5.1f} %")
+    for key, ms in ranges.items():
+        print(f"  range {key} (forward + recomputation) {ms:10.3f} ms  "
+              f"{100 * ms / dev_ms:5.1f} %")
     print("  top kernels by device time:")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"    {us / 1e3:10.3f} ms  x{n:<6} {key[:90]}")
     if trace_dir:
         Path(trace_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(trace_dir) / f"{label}.json"))
+    return {"wall_ms": 1e3 * bare, "device_ms": dev_ms,
+            "busy": dev_ms / (1e3 * bare), "by_kind_ms": by_kind,
+            "ranges_ms": ranges}
+
+
+def train_step_profile(torch, args, dev) -> dict:
+    """One phase-T(a) training step under the profiler, after a warm one."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_batches, to_tensors
+    from repro_torch.launch.train import depth_cut, train_depth
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = configs.get(args.arch)
+    if args.layers:
+        cfg = depth_cut(cfg, args.layers)
+    else:
+        cfg, _ = train_depth(cfg, TRAIN_BUDGET_GIB)
+    print(f"{cfg.name}: {cfg.n_layers} layers, training B={TRAIN_B} x "
+          f"S={TRAIN_S} a microbatch, accum {TRAIN_ACCUM}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_train_state(lm.init_params(cfg, gen, tp=1, device=dev))
+    step = make_train_step(lm.make_loss_fn(cfg, remat=True), lambda s:
+                           cosine_schedule(s, peak_lr=3e-4, warmup=20,
+                                           total=100), accum=TRAIN_ACCUM)
+    batches = synthetic_batches(cfg, TRAIN_B * TRAIN_ACCUM, TRAIN_S, 0)
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], to_tensors(next(batches), dev))
+    one()
+    return profile(torch, f"train_step_B{TRAIN_B * TRAIN_ACCUM}_S{TRAIN_S}",
+                   one, args.trace)
 
 
 def main() -> int:
@@ -88,7 +146,12 @@ def main() -> int:
     ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many (decoder) layers")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training step (default arch "
+                    f"{TRAIN_ARCH})")
     args = ap.parse_args()
+    if args.train and args.arch == ARCH:
+        args.arch = TRAIN_ARCH
     import torch
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device", file=sys.stderr)
@@ -101,8 +164,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    _build.build(["ssd_chunks", "flash_attention_fwd"])
+    _build.build(["ssd_chunks", "flash_attention_fwd",
+                  "flash_attention_bwd"])
     dev = torch.device("cuda")
+    if args.train:
+        train_step_profile(torch, args, dev)
+        return 0
     cfg = configs.get(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)

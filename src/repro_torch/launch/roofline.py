@@ -31,7 +31,10 @@ byte model with this card's peaks; :func:`atom_pass_work` /
 the cutoff and the bytes it must move (each input read once, each output
 written once), :func:`bound` turns them into the least time the card could
 take, and :func:`nep_measured` times the kernels with CUDA events at a
-geometry.  ``chip_smoke.py`` reads every kernel bound from here.
+geometry.  The flash-attention half: :func:`fa_pairs` counts the (query,
+key) pairs the masks keep, :func:`fa_fwd_work` / :func:`fa_bwd_work` one
+forward / backward call's bytes and product FLOPs.  ``chip_smoke.py``
+reads every kernel bound from here.
 """
 from __future__ import annotations
 
@@ -194,6 +197,39 @@ def flops_force_pass(spec, n_atoms, n_pairs) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fa_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs FA's masks keep for one head: row i sees keys in
+    [max(0, i - window + 1), min(t, i + 1)) (causal) or [.., t)."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(t, i + 1) if causal else np.full(s, t, np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def fa_fwd_work(q, k, v, *, causal: bool, window: int) -> tuple[int, float]:
+    """(bytes, FLOPs) of one FA forward call: q, k, v read once, o written
+    once; 2 (d + dv) flop of products a kept pair and head."""
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
+    pairs = b * h * fa_pairs(s, k.shape[1], causal, window)
+    return (nbytes(q, k, v) + b * s * h * dv * q.element_size(),
+            2.0 * pairs * (d + dv))
+
+
+def fa_bwd_work(q, k, v, o, lse, do, *, causal: bool,
+                window: int) -> tuple[int, float]:
+    """(bytes, FLOPs) of one FA backward call: q, k, v, o, lse and dO read
+    once, dq, dk and dv written once; the least products a kept pair and
+    head needs, 2 (3d + 2dv) flop (S = Q K^T and dQ, dK at 2d each; dP =
+    dO V^T and dV at 2dv each)."""
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
+    pairs = b * h * fa_pairs(s, k.shape[1], causal, window)
+    return (nbytes(q, k, v, o, lse, do) + nbytes(q, k, v),
+            2.0 * pairs * (3 * d + 2 * dv))
 
 
 def pairs_inside(dr, mask, cutoff: float) -> int:

@@ -1,19 +1,31 @@
-"""Training and simulation driver (port of the ``fege-spinlattice`` half of
-``repro.launch.train``).
+"""Training and simulation driver (port of ``repro.launch.train``).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+        --steps 200 --batch 8 --seq 512 [--smoke] [--ckpt-dir ckpts]
     PYTHONPATH=src python -m repro_torch.launch.train --arch fege-spinlattice \\
         --steps 500 --cells 6 --temperature 160
 
-Fits NEP-SPIN to synthetic constrained-DFT data (24 B20 2x2x2
-configurations labeled by the Heisenberg-DMI oracle, Adam for
-``--fit-steps``), then runs coupled spin-lattice MD with the fitted weights
-on a ``--cells``^3 B20 supercell, printing E, T and the topological charge
-every 50 steps and the helix pitch at the end.  ``--use-kernel`` (the
-default on a card) routes the MD through the hand-written K1/K2 kernels
-(``NEPSpinPotential(use_kernel=True)``); ``--device cpu`` runs on the host.
+LM (``--arch`` of the zoo's attention families): random weights from
+``--seed`` (tp = 1), the synthetic token stream of ``data/tokens.py``,
+``make_loss_fn`` (remat, 512-row loss chunks) through the flash kernels'
+forward and backward, ``make_train_step`` with ``--accum`` microbatches
+and AdamW under a cosine schedule (warmup 20).  It prints every
+``--log-every`` step's loss, learning rate, gradient norm and tokens/s.
+``--ckpt-dir`` saves the train state every ``--ckpt-every`` steps and at
+the end, and a relaunch resumes from the newest complete checkpoint, the
+data stream seeked to the resumed step (the reference restarts its stream
+at batch 0).  The ssm and hybrid families raise: their training waits for
+the SSD backward kernel (ROADMAP §1 item 15.6b).
 
-The LM half (``--arch`` of the LM zoo) is ROADMAP queue 1 item 15.6 and
-raises ``NotImplementedError``.
+MD (``--arch fege-spinlattice``): fits NEP-SPIN to synthetic
+constrained-DFT data (24 B20 2x2x2 configurations labeled by the
+Heisenberg-DMI oracle, Adam for ``--fit-steps``), then runs coupled
+spin-lattice MD with the fitted weights on a ``--cells``^3 B20 supercell,
+printing E, T and the topological charge every 50 steps and the helix
+pitch at the end.  ``--use-kernel`` (the default on a card) routes the MD
+through the hand-written K1/K2 kernels
+(``NEPSpinPotential(use_kernel=True)``); ``--device cpu`` runs on the
+host, for either half.
 """
 from __future__ import annotations
 
@@ -25,13 +37,117 @@ import torch
 from repro_torch.utils.device import resolve_device
 
 MD_ARCH = "fege-spinlattice"
+# the training state a parameter holds on the card: bf16 weight, its bf16
+# gradient from the backward, the f32 accumulation buffer and the two f32
+# AdamW moments
+TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 8
 
 
-def train_lm(args):
-    raise NotImplementedError(
-        f"LM training (--arch {args.arch}) is ROADMAP queue 1 item 15.6: "
-        "chunked_xent, make_loss_fn, train/train_step.py; only "
-        f"--arch {MD_ARCH} runs in the port")
+def depth_cut(cfg, n: int):
+    """``cfg`` at ``n`` layers.  An MoE arch keeps its leading dense layers
+    first (cut to its first ``n`` dense layers when ``n`` does not reach
+    past them); an encoder-decoder cuts its encoder and decoder alike."""
+    import dataclasses
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, n_layers=n,
+                                   encoder_layers=min(n, cfg.encoder_layers))
+    if cfg.moe is not None and n <= cfg.moe.first_dense:
+        return dataclasses.replace(cfg, n_layers=n, moe=dataclasses.replace(
+            cfg.moe, first_dense=n))
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def fit_depth(cfg, budget_gib: float, nbytes_of, min_layers: int = 1):
+    """``cfg`` cut (``depth_cut``) to the most layers, at least
+    ``min_layers``, whose ``nbytes_of(cut)`` fits ``budget_gib``.  Returns
+    (cut, GiB); raises ValueError when not even ``min_layers`` fit."""
+    for n in range(cfg.n_layers, min_layers - 1, -1):
+        c = depth_cut(cfg, n)
+        gib = nbytes_of(c) / 2 ** 30
+        if gib <= budget_gib:
+            return c, gib
+    raise ValueError(f"{cfg.name}: not {min_layers} layers fit "
+                     f"{budget_gib} GiB")
+
+
+def train_depth(cfg, budget_gib: float):
+    """``cfg`` at the most layers whose training state,
+    ``TRAIN_BYTES_PER_PARAM`` a parameter of the model :func:`train_lm`
+    builds (tp = 1, from the meta device), fits ``budget_gib``.  Returns
+    (cfg, GiB of its training state)."""
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_count
+    return fit_depth(cfg, budget_gib, lambda c: tree_count(
+        lm.abstract_params(c, tp=1)) * TRAIN_BYTES_PER_PARAM)
+
+
+def train_lm(args, cfg_override=None) -> dict:
+    """The LM training loop; returns the config, the final state and each
+    step's metrics (floats) with its wall time and tokens/s."""
+    from repro_torch import configs
+    from repro_torch.ckpt.checkpoint import (latest_step, load_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.data.tokens import synthetic_batches, to_tensors
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_count
+
+    dev = resolve_device(args.device)
+    cfg = cfg_override or (configs.get_smoke(args.arch) if args.smoke
+                           else configs.get(args.arch))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = lm.init_params(cfg, gen, tp=1, device=dev)
+    print(f"arch={cfg.name} params={tree_count(params) / 1e6:.1f}M "
+          f"device={dev}", flush=True)
+    state = init_train_state(params)
+    loss_fn = lm.make_loss_fn(cfg, remat=True, xent_chunk=512)
+    step_fn = make_train_step(
+        loss_fn, lambda s: cosine_schedule(s, peak_lr=args.lr, warmup=20,
+                                           total=args.steps),
+        accum=args.accum)
+
+    start = 0
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state, start = load_checkpoint(args.ckpt_dir, state)
+        start += 1
+        print(f"resumed from step {start}", flush=True)
+
+    batches = synthetic_batches(cfg, args.batch, args.seq, args.seed,
+                                start=start)
+    tokens = args.batch * args.seq
+    rows, t_all, pending = [], 0.0, None
+    for i in range(start, args.steps):
+        batch = to_tensors(next(batches), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        row = {"step": i, "loss": float(metrics["loss"]),
+               "lr": float(metrics["lr"]),
+               "grad_norm": float(metrics["grad_norm"])}
+        _sync(dev)
+        row["s"] = time.perf_counter() - t0
+        row["tokens_per_s"] = tokens / row["s"]
+        rows.append(row)
+        t_all += row["s"]
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:5d} loss {row['loss']:.4f} lr {row['lr']:.2e} "
+                  f"gnorm {row['grad_norm']:.3f} tok/s "
+                  f"{tokens * len(rows) / t_all:.0f}", flush=True)
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            if pending is not None:
+                pending.join()
+            pending = save_checkpoint(args.ckpt_dir, i, state, async_=True)
+    if pending is not None:
+        pending.join()
+    if args.ckpt_dir and latest_step(args.ckpt_dir) != args.steps - 1:
+        save_checkpoint(args.ckpt_dir, args.steps - 1, state)
+    return {"cfg": cfg, "state": state, "rows": rows, "start": start}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def fit_potential(args, generator, device, dtype):
@@ -134,6 +250,15 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    # LM options (the reference's defaults)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
     # MD options (the reference's defaults)
     ap.add_argument("--cells", type=int, default=6)
     ap.add_argument("--temperature", type=float, default=160.0)

@@ -1,9 +1,11 @@
 """Attention variants: GQA (+QKV bias, sliding window) and MLA (DeepSeek)
 (port of ``repro.models.attention``).
 
-Prefill runs the hand-written flash-attention kernel
-(:func:`repro_torch.kernels.attention.kernel.flash_attention_fwd`) where the
-reference calls ``chunked_attention``; at positions 0..S-1 with no KV mask
+Prefill and training run the hand-written flash-attention kernels
+(:func:`repro_torch.kernels.attention.kernel.flash_attention`: the forward
+kernel alone when nothing needs a gradient, else the autograd Function
+with the backward kernel) where the reference calls
+``chunked_attention``; at positions 0..S-1 with no KV mask
 the two compute the same function, and ``chunked_attention`` is kept as a
 plain function that the tests hold the kernel path against.  MLA's prefill
 expands the latent and runs the same kernel at d = qk_nope + qk_rope (192
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attention.kernel import flash_attention_fwd
+from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models.common import apply_rope, normal, rmsnorm
 
 NEG_INF = -1e30
@@ -114,8 +116,7 @@ def apply_gqa(cfg, p, x, positions):
     be 0..S-1 in every row (the kernel's causal and window masks use row
     indices).  Returns (out, (k, v))."""
     q, k, v = _qkv(cfg, p, x, positions)
-    out = flash_attention_fwd(q, k, v, causal=True,
-                              window=cfg.sliding_window)
+    out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     return _out(out, p["wo"]), (k, v)
 
 
@@ -216,7 +217,7 @@ def apply_mla(cfg, p, x, positions):
     qc = torch.cat([q_nope, q_rope], dim=-1)
     kc = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], m.qk_rope)],
                    dim=-1)
-    out = flash_attention_fwd(qc, kc, v, causal=True)
+    out = flash_attention(qc, kc, v, causal=True)
     return _out(out, p["wo"]), (ckv, k_rope)
 
 

@@ -1,7 +1,8 @@
 """Shared neural building blocks (port of ``repro.models.common``).
 
 Parameters are plain tensors; random ones are drawn from an explicit
-``torch.Generator``.  ``chunked_xent`` waits for the training slice.
+``torch.Generator``.  ``chunked_xent`` is the training loss over a large
+vocabulary.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 DRAW_CHUNK = 2 ** 28    # elements of f32 drawn at once for a cast leaf
@@ -130,3 +132,35 @@ def apply_mlp(cfg, p, x):
     else:
         h = act_fn(cfg.act)(x @ p["wi"])
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _xent_sum(logits_fn, hb, tb, mb):
+    """Summed masked nll of one chunk: logits in f32, logsumexp - gold (a
+    ``record_function`` range, which ``launch/profile_lm.py --train``
+    reads)."""
+    with torch.profiler.record_function("chunked_xent"):
+        logits = logits_fn(hb).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, tb.long()[:, None])[:, 0]
+        return torch.sum((lse - gold) * mb.float())
+
+
+def chunked_xent(logits_fn, h: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy over huge vocabularies without materialising the full
+    (tokens, V) logits: ``chunk`` rows at a time, each chunk's logits ->
+    logsumexp -> nll under ``torch.utils.checkpoint`` (non-reentrant), so
+    the backward keeps only the chunk's hidden rows and recomputes its
+    logits (qwen2's V = 152,064 makes one 2,048-row chunk of f32 logits
+    1.25 GB).  h: (T, d), targets: (T,), mask: (T,); logits_fn: (n, d) ->
+    (n, V).  The mean is over max(sum(mask), 1), as in the reference."""
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(_xent_sum, logits_fn, h[sl], targets[sl],
+                                   mask[sl], use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask.float()), min=1.0)

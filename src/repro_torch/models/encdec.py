@@ -7,7 +7,11 @@ bidirectional: its attention is the flash kernel with ``causal=False``
 (the reference sets every key position to 0).  The text decoder runs
 causal self-attention through :func:`attention.apply_gqa` and
 cross-attention through the flash kernel, non-causal, over the encoder's
-S_src keys (S != T), with no RoPE on its query.  Decode runs the decoder
+S_src keys (S != T), with no RoPE on its query.  Training differentiates
+all three through the flash kernels' autograd Function; ``remat``
+recomputes each encoder and decoder layer (the decoder layer's cross K/V
+projection included) in the backward, as the reference's
+``jax.checkpoint`` of each scanned layer.  Decode runs the decoder
 with a self KV cache, updated in place, and cross K/V precomputed from the
 encoder output (:func:`fill_cross_kv`).  Decoder target length = S_src //
 4 (``TGT_RATIO``).
@@ -16,12 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attention.kernel import flash_attention_fwd
+from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, normal)
+from repro_torch.models.common import (apply_mlp, apply_norm, chunked_xent,
+                                       init_mlp, init_norm, normal)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import _stack, index_layer, padded_vocab
+from repro_torch.models.transformer import (_stack, check_remat, index_layer,
+                                            padded_vocab, remat_call,
+                                            unstack_layers)
 from repro_torch.utils.device import resolve_device
 
 TGT_RATIO = 4  # source frames per target token
@@ -60,7 +66,7 @@ def init_encdec(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
 def _enc_block(cfg, p, h, positions):
     hn = apply_norm(cfg, p["norm_attn"], h)
     q, k, v = attn._qkv(cfg, p["attn"], hn, positions)
-    out = flash_attention_fwd(q, k, v, causal=False)     # bidirectional
+    out = flash_attention(q, k, v, causal=False)         # bidirectional
     h = h + attn._out(out, p["attn"]["wo"])
     hn = apply_norm(cfg, p["norm_mlp"], h)
     return h + apply_mlp(cfg, p["mlp"], hn)
@@ -79,7 +85,7 @@ def _dec_block(cfg, p, h, enc_kv, positions):
     h = h + a
     hn = apply_norm(cfg, p["norm_xattn"], h)
     q = attn._proj(hn, p["xattn"]["wq"])
-    out = flash_attention_fwd(q, *enc_kv, causal=False)  # S_tgt x S_src
+    out = flash_attention(q, *enc_kv, causal=False)      # S_tgt x S_src
     h = h + attn._out(out, p["xattn"]["wo"])
     hn = apply_norm(cfg, p["norm_mlp"], h)
     return h + apply_mlp(cfg, p["mlp"], hn)
@@ -89,31 +95,48 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def encode(cfg: ArchConfig, params: dict, src_embeds: torch.Tensor):
+def encode(cfg: ArchConfig, params: dict, src_embeds: torch.Tensor,
+           remat=False):
     """Encoder output (B, S_src, d), after ``enc_norm``."""
+    check_remat(remat)
     h = src_embeds.to(getattr(torch, cfg.dtype))
     positions = _positions(h.shape[0], h.shape[1], h.device)
-    for li in range(cfg.encoder_layers):
-        h = _enc_block(cfg, index_layer(params["enc"], li), h, positions)
+    for lp in unstack_layers(params["enc"], cfg.encoder_layers):
+        h = remat_call(remat, _enc_block, cfg, lp, h, positions)
     return apply_norm(cfg, params["enc_norm"], h)
 
 
+def _dec_layer(cfg, lp, h, enc_out, positions):
+    """A decoder layer with its cross K/V projection (one remat unit)."""
+    return _dec_block(cfg, lp, h, _enc_kv(lp, enc_out), positions)
+
+
 def forward(cfg: ArchConfig, params: dict, tgt_tokens: torch.Tensor,
-            src_embeds: torch.Tensor):
-    """Returns (hidden (B, S_tgt, d), logits_fn)."""
-    enc_out = encode(cfg, params, src_embeds)
+            src_embeds: torch.Tensor, remat=False):
+    """Returns (hidden (B, S_tgt, d), aux = 0, logits_fn)."""
+    enc_out = encode(cfg, params, src_embeds, remat)
     h = params["embed"][tgt_tokens.long()].to(getattr(torch, cfg.dtype))
     positions = _positions(h.shape[0], h.shape[1], h.device)
-    for li in range(cfg.n_layers):
-        lp = index_layer(params["dec"], li)
-        h = _dec_block(cfg, lp, h, _enc_kv(lp, enc_out), positions)
+    for lp in unstack_layers(params["dec"], cfg.n_layers):
+        h = remat_call(remat, _dec_layer, cfg, lp, h, enc_out, positions)
     h = apply_norm(cfg, params["final_norm"], h)
     w = params["lm_head"]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def logits_fn(hb):
         return hb @ w.to(hb.dtype)
 
-    return h, logits_fn
+    return h, aux, logits_fn
+
+
+def lm_loss(cfg, params, tgt_tokens, targets, loss_mask, src_embeds,
+            remat=True, xent_chunk=2048):
+    """Mean next-token cross-entropy of the decoder (no aux loss, as in
+    the reference)."""
+    h, _, logits_fn = forward(cfg, params, tgt_tokens, src_embeds, remat)
+    t = h.shape[0] * h.shape[1]
+    return chunked_xent(logits_fn, h.reshape(t, -1), targets.reshape(t),
+                        loss_mask.reshape(t), chunk=xent_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Top-level LM serving API (port of ``repro.models.lm``): prefill and decode
-builders, parameter init and the key map from the reference's pytree.
+"""Top-level LM API (port of ``repro.models.lm``): input specs, loss,
+prefill and decode builders, parameter init and the key map from the
+reference's pytree.
 
-Family dispatch (decoder-only vs encoder-decoder) is resolved here, as in
-the reference.  Parameters are a plain nested dict of tensors whose keys
-are the reference's pytree paths, so a JAX parameter tree of any family
-converts key for key.  The dry-run helpers (``input_specs``,
-``cache_specs``, ``abstract_params``) and ``make_loss_fn`` are ROADMAP §1
-items 15.6-15.7.
+Family dispatch (decoder-only vs encoder-decoder vs ssm/hybrid) is resolved
+here, as in the reference.  Parameters are a plain nested dict of tensors
+whose keys are the reference's pytree paths, so a JAX parameter tree of any
+family converts key for key.  The dry-run helpers (``input_specs``,
+``cache_specs``, ``abstract_params``) give meta-device tensors, the port's
+``ShapeDtypeStruct``.  ``make_loss_fn`` trains the attention families
+through the flash kernels' forward and backward; the ssm and hybrid
+families wait for the SSD backward kernel (ROADMAP §1 item 15.6b).
 """
 from __future__ import annotations
 
@@ -51,6 +54,67 @@ def _frontend_split(cfg: ArchConfig, seq: int) -> tuple[int, int]:
     return s_img, seq - s_img
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta-device stand-ins for every model input (no allocation), in
+    the layouts ``data.tokens.synthetic_batches`` yields."""
+    b, s = shape.global_batch, shape.seq_len
+    f, i32 = getattr(torch, cfg.dtype), torch.int32
+
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            st = s // encdec_mod.TGT_RATIO
+            return {"src_embeds": spec((b, s, cfg.d_model), f),
+                    "tokens": spec((b, st), i32),
+                    "targets": spec((b, st), i32),
+                    "mask": spec((b, st), torch.float32)}
+        if cfg.family == "vlm":
+            si, stxt = _frontend_split(cfg, s)
+            return {"embeds": spec((b, si, cfg.d_model), f),
+                    "tokens": spec((b, stxt), i32),
+                    "targets": spec((b, stxt), i32),
+                    "mask": spec((b, stxt), torch.float32)}
+        return {"tokens": spec((b, s), i32), "targets": spec((b, s), i32),
+                "mask": spec((b, s), torch.float32)}
+    # decode: one new token against a seq_len cache
+    return {"token": spec((b, 1), i32), "position": spec((b,), i32)}
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec, dtype=torch.bfloat16):
+    """Abstract KV/state caches for decode, on the meta device."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        return encdec_mod.init_caches(cfg, b, s // encdec_mod.TGT_RATIO, s,
+                                      dtype, "meta")
+    return tfm.init_caches(cfg, b, s, dtype, "meta")
+
+
+def make_loss_fn(cfg: ArchConfig, remat: bool = True,
+                 xent_chunk: int = 2048):
+    """``loss_fn(params, batch)`` -> scalar f32 loss (the batch holds
+    tensors in ``input_specs``' layout).  The reference's ``kv_chunk`` has
+    no counterpart: the flash kernels replace ``chunked_attention``.  The
+    ssm and hybrid families raise on every device, so nothing trains on the
+    CPU that cannot train on the card."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) needs the SSD backward "
+            "kernel: ROADMAP §1 item 15.6b")
+    if cfg.family == "audio":
+        def loss_fn(params, batch):
+            return encdec_mod.lm_loss(
+                cfg, params, batch["tokens"], batch["targets"],
+                batch["mask"], batch["src_embeds"], remat, xent_chunk)
+        return loss_fn
+
+    def loss_fn(params, batch):
+        return tfm.lm_loss(cfg, params, batch["tokens"], batch["targets"],
+                           batch["mask"], batch.get("embeds"), remat,
+                           xent_chunk)
+    return loss_fn
+
+
 def make_prefill_fn(cfg: ArchConfig):
     """Prefill: full forward, returns last-position logits (f32).  The
     batch holds ``tokens``, and ``embeds`` (vlm: prepended patch
@@ -58,14 +122,14 @@ def make_prefill_fn(cfg: ArchConfig):
     are then the decoder's)."""
     if cfg.family == "audio":
         def prefill(params, batch):
-            h, logits_fn = encdec_mod.forward(cfg, params, batch["tokens"],
-                                              batch["src_embeds"])
+            h, _, logits_fn = encdec_mod.forward(
+                cfg, params, batch["tokens"], batch["src_embeds"])
             return logits_fn(h[:, -1]).float()
         return prefill
 
     def prefill(params, batch):
-        h, logits_fn = tfm.forward(cfg, params, batch["tokens"],
-                                   batch.get("embeds"))
+        h, _, logits_fn = tfm.forward(cfg, params, batch["tokens"],
+                                      batch.get("embeds"))
         return logits_fn(h[:, -1]).float()
     return prefill
 
@@ -93,6 +157,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None, *,
     if cfg.family == "audio":
         return encdec_mod.init_encdec(cfg, generator, tp, dtype, dev)
     return tfm.init_lm(cfg, generator, tp, dtype, dev)
+
+
+def abstract_params(cfg: ArchConfig, tp: int = 16, dtype=None) -> dict:
+    """The parameter tree as meta-device tensors (no allocation)."""
+    return init_params(cfg, None, tp=tp, dtype=dtype, device="meta")
 
 
 def _leaf(a, dev) -> torch.Tensor:

@@ -16,8 +16,10 @@ normalised over the selected experts).
 
 The expert-parallel path (``apply_moe_ep``, shard_map with two
 all_to_alls) needs a device mesh; the reference takes it only under one,
-so a single card always takes the dense dispatch.  It is ROADMAP item
-15.6/15.7 with ``parallel/sharding.py``.
+so a single card always takes the dense dispatch, in serving and in
+training (the router's aux loss is differentiated through it).  The
+expert-parallel path is ROADMAP items 15.6c and 15.7, with
+``parallel/sharding.py``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import normal
 
-EP_ITEM = "ROADMAP §1 item 15.6/15.7 (with parallel/sharding.py)"
+EP_ITEM = "ROADMAP §1 items 15.6c and 15.7 (with parallel/sharding.py)"
 
 
 def init_moe(cfg, generator, dtype, device, *, lead=()):

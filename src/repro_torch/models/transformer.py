@@ -6,11 +6,15 @@ Layers of a group are stacked along a leading dimension as in the reference
 of homogeneous groups); where it runs ``lax.scan`` over them the port loops
 over the layer index.  Attention layers are GQA (``models/attention.py``,
 with QKV bias and the sliding-window ring buffer) or MLA; the feed-forward
-is an MLP or an MoE (``models/moe.py``).  Every prefill attention runs the
-flash kernel.  Sharding annotations, ``checkpoint_name`` and remat have no
-counterpart in single-card serving and are dropped, as is the auxiliary
-loss (``lm_loss`` and the training step are ROADMAP §1 item 15.6).  Decode
-updates its caches in place and returns the same dictionary.
+is an MLP or an MoE (``models/moe.py``).  Every attention of the forward
+runs the flash kernels (forward, and backward in training).  ``forward``
+returns the MoE auxiliary loss as the reference does; ``remat=True`` wraps
+each layer in ``torch.utils.checkpoint`` (non-reentrant), as the
+reference's ``_remat_wrap`` wraps each scanned layer.  Sharding
+annotations and ``checkpoint_name`` have no counterpart on one card, and
+the reference's ``"save_collectives"`` remat policy (which only matters
+under a mesh) raises.  Decode updates its caches in place and returns the
+same dictionary.
 """
 from __future__ import annotations
 
@@ -21,8 +25,10 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, normal)
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.common import (apply_mlp, apply_norm, chunked_xent,
+                                       init_mlp, init_norm, normal)
 from repro_torch.models.config import ArchConfig
 from repro_torch.utils.device import resolve_device
 
@@ -66,6 +72,39 @@ def index_layer(tree, i: int):
     """Layer ``i`` of a stacked parameter or cache tree (views)."""
     return {k: index_layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, one ``unbind`` per leaf (views):
+    in training each leaf's gradient is then stacked once from its layers'
+    gradients, where a slice per layer would add a full-size zero
+    gradient per layer."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (unstack_layers(v, n) if isinstance(v, dict) else
+                 torch.unbind(v))
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def check_remat(remat) -> None:
+    """``remat`` is False/None or True; the reference's
+    ``"save_collectives"`` policy pins TP all-reduce results and has no
+    meaning without a mesh."""
+    if remat not in (False, None, True):
+        raise NotImplementedError(
+            f"remat={remat!r}: the reference's 'save_collectives' policy "
+            "needs a device mesh (ROADMAP §1 item 15.6c); use True or "
+            "False")
+
+
+def remat_call(remat, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant: its
+    activations are recomputed in the backward) when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -120,13 +159,15 @@ def init_lm(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg, kind, p, h, positions):
+    """One layer: (h, aux), aux the MoE router's loss (0 elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "ssm":
         hn = apply_norm(cfg, p["norm_ssm"], h)
-        return h + ssm_mod.apply_mamba2(cfg, p["ssm"], hn)
+        return h + ssm_mod.apply_mamba2(cfg, p["ssm"], hn), aux
     hn = apply_norm(cfg, p["norm_attn"], h)
     if cfg.mla is not None:
         a, _ = attn.apply_mla(cfg, p["attn"], hn, positions)
@@ -135,10 +176,10 @@ def _apply_block(cfg, kind, p, h, positions):
     h = h + a
     hn = apply_norm(cfg, p["norm_mlp"], h)
     if kind == "moe":
-        y, _ = moe_mod.apply_moe(cfg, p["moe"], hn)
+        y, aux = moe_mod.apply_moe(cfg, p["moe"], hn)
     else:
         y = apply_mlp(cfg, p["mlp"], hn)
-    return h + y
+    return h + y, aux
 
 
 def _shared_block(cfg, p, h, resid, positions):
@@ -171,20 +212,26 @@ def _lm_head(cfg, params):
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            embeds: torch.Tensor | None = None):
-    """Full forward pass. Returns (hidden (B,S,d), logits_fn); with
-    ``embeds`` (vlm) the hidden states cover the embeds' positions too."""
+            embeds: torch.Tensor | None = None, remat=False):
+    """Full forward pass.  Returns (hidden (B,S,d), aux_loss (f32 scalar,
+    the MoE layers' summed router loss), logits_fn); with ``embeds`` (vlm)
+    the hidden states cover the embeds' positions too.  ``remat``
+    recomputes each layer (the hybrid's shared block excepted, as in the
+    reference) in the backward."""
+    check_remat(remat)
     groups = layer_groups(cfg)
     h = embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
     resid0 = h
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for gi, grp in enumerate(groups):
-        gp = params[f"g{gi}"]
-        for li in range(grp.count):
-            h = _apply_block(cfg, grp.kind, index_layer(gp, li), h,
-                             positions)
+        layers = unstack_layers(params[f"g{gi}"], grp.count)
+        for li, lp in enumerate(layers):
+            h, a = remat_call(remat, _apply_block, cfg, grp.kind, lp, h,
+                              positions)
+            aux = aux + a
             if grp.shared_attn and (li + 1) % cfg.shared_every == 0:
                 h = _shared_block(cfg, params["shared"], h, resid0,
                                   positions)
@@ -194,7 +241,25 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     def logits_fn(hb):
         return hb @ w.to(hb.dtype)
 
-    return h, logits_fn
+    return h, aux, logits_fn
+
+
+def lm_loss(cfg, params, tokens, targets, loss_mask, embeds=None,
+            remat=True, xent_chunk=2048):
+    """Mean next-token cross-entropy (``chunked_xent``) + 0.01 x the MoE
+    aux loss; a vlm's ``embeds`` positions are padded out of the loss."""
+    h, aux, logits_fn = forward(cfg, params, tokens, embeds, remat)
+    if embeds is not None:
+        # frontend positions produce no next-token loss
+        n = embeds.shape[1]
+        targets = torch.cat([targets.new_zeros((h.shape[0], n)), targets],
+                            dim=1)
+        loss_mask = torch.cat([loss_mask.new_zeros((h.shape[0], n)),
+                               loss_mask], dim=1)
+    t = h.shape[0] * h.shape[1]
+    loss = chunked_xent(logits_fn, h.reshape(t, -1), targets.reshape(t),
+                        loss_mask.reshape(t), chunk=xent_chunk)
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

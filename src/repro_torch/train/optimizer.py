@@ -10,7 +10,10 @@ kind.  The math is the reference's step for step, in the same dtypes: AdamW
 updates in f32 whatever the parameters' dtype and stores its moments in the
 state's; SNES updates in the parameters' dtype.  No ``torch.optim`` class is
 used, so a test can hold each step against the reference on the same
-numbers.
+numbers.  ``adamw_update(..., inplace=True)`` (the LM training step) writes
+the same values into the parameters and moments it is given, a chunk of
+``INPLACE_CHUNK`` elements at a time, so that a multi-billion-parameter
+update needs no second copy of the moments.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+
+
+INPLACE_CHUNK = 2 ** 24    # elements a step of the in-place update
 
 
 def _leaves(tree) -> list:
@@ -44,30 +50,54 @@ def adamw_init(params, dtype=torch.float32) -> OptState:
                     nu=_like(params, [t.clone() for t in z]), count=0)
 
 
+def _adamw_leaf(p, g, mu, nu, scale, bc1, bc2, lr, b1, b2, eps,
+                weight_decay):
+    """One leaf's (or chunk's) update in f32: (new p, mu32, nu32)."""
+    f32 = torch.float32
+    g = g.to(f32) * scale
+    mu32 = mu.to(f32) * b1 + (1 - b1) * g
+    nu32 = nu.to(f32) * b2 + (1 - b2) * g * g
+    mhat = mu32 / bc1.to(g.device)
+    vhat = nu32 / bc2.to(g.device)
+    step = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(f32)
+    return p.to(f32) - lr * step, mu32, nu32
+
+
 def adamw_update(params, grads, state: OptState, lr, *, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0, inplace=False):
     """Returns (new_params, new_state).  Math in f32, moments stored in the
-    state dtype."""
+    state dtype.  ``inplace`` writes the result into ``params`` and the
+    state's moments (contiguous tensors) chunk by chunk, and returns them:
+    the same values as out of place (the update is elementwise)."""
     count = state.count + 1
     f32 = torch.float32
-    flat_g = [g.detach().to(f32) for g in _leaves(grads)]
+    flat_g = [g.detach() for g in _leaves(grads)]
     # global-norm clip
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in flat_g))
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
+                           for g in flat_g))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     c = torch.tensor(float(count), dtype=f32)
     bc1 = 1 - torch.tensor(b1, dtype=f32) ** c
     bc2 = 1 - torch.tensor(b2, dtype=f32) ** c
+    hyper = (bc1, bc2, lr, b1, b2, eps, weight_decay)
+    leaves = list(zip(_leaves(params), flat_g, _leaves(state.mu),
+                      _leaves(state.nu)))
+    if inplace:
+        with torch.no_grad():
+            for p, g, mu, nu in leaves:
+                views = [p.view(-1), g.reshape(-1), mu.view(-1),
+                         nu.view(-1)]
+                for i in range(0, p.numel(), INPLACE_CHUNK):
+                    pc, gc, mc, nc = (x[i:i + INPLACE_CHUNK] for x in views)
+                    q, mu32, nu32 = _adamw_leaf(pc, gc, mc, nc, scale,
+                                                *hyper)
+                    pc.copy_(q)
+                    mc.copy_(mu32)
+                    nc.copy_(nu32)
+        return params, OptState(mu=state.mu, nu=state.nu, count=count)
     newp, newmu, newnu = [], [], []
-    for p, g, mu, nu in zip(_leaves(params), flat_g, _leaves(state.mu),
-                            _leaves(state.nu)):
-        g = g * scale
-        mu32 = mu.to(f32) * b1 + (1 - b1) * g
-        nu32 = nu.to(f32) * b2 + (1 - b2) * g * g
-        mhat = mu32 / bc1.to(g.device)
-        vhat = nu32 / bc2.to(g.device)
-        step = mhat / (torch.sqrt(vhat) + eps) + weight_decay * \
-            p.detach().to(f32)
-        q = p.detach().to(f32) - lr * step
+    for p, g, mu, nu in leaves:
+        q, mu32, nu32 = _adamw_leaf(p.detach(), g, mu, nu, scale, *hyper)
         newp.append(q.to(p.dtype))
         newmu.append(mu32.to(mu.dtype))
         newnu.append(nu32.to(nu.dtype))

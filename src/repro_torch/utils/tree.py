@@ -30,6 +30,28 @@ def tree_leaves(tree) -> list:
     return []
 
 
+def tree_unflatten(like, leaves):
+    """A container shaped like ``like`` whose tensors are ``leaves``, taken
+    in :func:`tree_leaves` order (dicts rebuilt with sorted keys)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: build(getattr(t, f.name))
+                for f in dataclasses.fields(t) if f.init})
+        if _is_namedtuple(t):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return t
+    return build(like)
+
+
 def tree_map(fn, tree):
     """``fn`` on every tensor of a container, keeping its structure (other
     leaves pass through)."""

@@ -64,7 +64,7 @@ def case(request):
         j_steps.append(np.asarray(logits))
 
     t_tokens = torch.from_numpy(tokens)
-    h, logits_fn = tfm.forward(cfg, params, t_tokens)
+    h, _, logits_fn = tfm.forward(cfg, params, t_tokens)
     t_full = logits_fn(h).numpy()
     decode = lm.make_decode_fn(cfg)
     t_caches = tfm.init_caches(cfg, B, S, torch.float32, device="cpu")
@@ -115,8 +115,8 @@ def test_forward_calls_each_kernel_wrapper(case, monkeypatch):
         return wrapped
     monkeypatch.setattr(ssd_ops, "ssd_chunks",
                         counting("ssd", ssd_ops.ssd_chunks))
-    monkeypatch.setattr(tattn, "flash_attention_fwd",
-                        counting("fa", tattn.flash_attention_fwd))
+    monkeypatch.setattr(tattn, "flash_attention",
+                        counting("fa", tattn.flash_attention))
     cfg = case["cfg"]
     tfm.forward(cfg, case["params"], case["tokens"])
     shared = cfg.n_layers // cfg.shared_every if cfg.shared_every else 0
@@ -180,13 +180,13 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
 
 def test_unported_archs_raise():
     """What still raises: an arch outside the registry, and the MoE
-    expert-parallel dispatch (a mesh's, ROADMAP items 15.6/15.7)."""
+    expert-parallel dispatch (a mesh's, ROADMAP items 15.6c and 15.7)."""
     with pytest.raises(KeyError, match="unknown"):
         configs.get("no-such-arch")
     moe = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"),
                               moe_impl="ep")
     params = lm.init_params(moe, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="15.6/15.7"):
+    with pytest.raises(NotImplementedError, match="15.6c and 15.7"):
         lm.make_prefill_fn(moe)(params, {"tokens": torch.zeros(
             (1, 4), dtype=torch.long)})
 

@@ -9,8 +9,9 @@ each token agree within 2e-5 of max |logit|, the bar of
 The port's own decode holds against its forward within 5e-3, the bar of
 ``tests/test_decode_consistency.py`` (whose MoE configs take a capacity
 factor of 8, so the prefill drops no token).  The reference's forward runs
-its plain ``chunked_attention``; the port's runs the flash wrapper, which
-on CPU tensors calls ``flash_attention_plain``: once per layer for the
+its plain ``chunked_attention``; the port's runs the flash wrapper
+(``flash_attention``), which on CPU tensors calls
+``flash_attention_plain``: once per layer for the
 decoder-only families, enc + 2 * dec times for the encoder-decoder.
 """
 import dataclasses
@@ -122,10 +123,11 @@ def _jax_run(jcfg, jparams, inp):
 def _torch_forward(cfg, params, inp):
     t = {k: torch.from_numpy(v) for k, v in inp.items()}
     if cfg.family == "audio":
-        h, logits_fn = encdec.forward(cfg, params, t["tokens"],
-                                      t["src_embeds"])
+        h, _, logits_fn = encdec.forward(cfg, params, t["tokens"],
+                                         t["src_embeds"])
     else:
-        h, logits_fn = tfm.forward(cfg, params, t["tokens"], t.get("embeds"))
+        h, _, logits_fn = tfm.forward(cfg, params, t["tokens"],
+                                      t.get("embeds"))
     return logits_fn(h).numpy()
 
 
@@ -200,13 +202,13 @@ def test_forward_calls_flash_once_per_attention(case, monkeypatch):
     """n_layers for the decoder-only families; for the encoder-decoder
     one call per encoder layer and two (self, cross) per decoder layer."""
     calls = []
-    real = tkern.flash_attention_fwd
+    real = tkern.flash_attention
 
     def counting(*args, **kwargs):
         calls.append(kwargs.get("causal", True))
         return real(*args, **kwargs)
-    monkeypatch.setattr(tattn, "flash_attention_fwd", counting)
-    monkeypatch.setattr(encdec, "flash_attention_fwd", counting)
+    monkeypatch.setattr(tattn, "flash_attention", counting)
+    monkeypatch.setattr(encdec, "flash_attention", counting)
     cfg = case["cfg"]
     _torch_forward(cfg, case["params"], case["inp"])
     if cfg.family == "audio":
@@ -270,7 +272,7 @@ def test_moe_ep_and_unknown_arch_raise():
     x = torch.zeros((1, 4, cfg.d_model))
     p = moe.init_moe(cfg, torch.Generator(), torch.float32,
                      torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="15.6/15.7"):
+    with pytest.raises(NotImplementedError, match="15.6c and 15.7"):
         moe.apply_moe(cfg, p, x)
     with pytest.raises(KeyError, match="unknown"):
         configs.get("no-such-arch")

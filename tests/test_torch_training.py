@@ -285,9 +285,11 @@ def test_train_md_fits_then_runs_md():
 
 
 def test_train_lm_names_its_item():
+    """The LM half trains the attention families (tests/test_torch_lm_
+    train.py); an ssm arch names the item its training waits for."""
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="15.6"):
-        main(["--arch", "qwen2-7b", "--device", "cpu"])
+        main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu"])
 
 
 def test_accuracy_table_rows(capsys):
