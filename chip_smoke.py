@@ -103,24 +103,29 @@ R. seamless-m4t-large-v2 at full width and depth: a prefill of 8,192
    source frames and 2,048 target tokens (FA 24 + 2 x 24 = 72 a call),
    and decode at B=8 against the encoder's cross K/V; one
    ``{"lm_zoo": ...}`` line with phases M-R's numbers and times;
-S. the FA backward kernel (``flash_attention_bwd.cu``, two passes, f32
-   math on the CUDA cores) on the kernel forward's o and lse against
-   ``flash_attention_bwd_plain`` on the same q, k, v, dO and the plain
-   forward's own o and lse: the FA sweep's
-   cases and every training shape of phase T (qwen2's d = 128 at 28 / 4
-   heads, S = T = 4,096; h2o's d = 120 with window 4,096 at S = T =
-   8,192; deepseek's d = 192 / dv = 128 at 128 heads; seamless's
-   non-causal cross attention, S 1,024 x T 4,096), f32 within 1e-4 and
-   bf16 within 5e-3 of each output's max |ref|, each kernel call
-   ``torch.equal`` to a second; the forward's lse, f32 and bf16 (every
-   body), against the plain version's (1e-5); at the training shapes,
-   bf16 timed beside the plain
+S. the FA backward kernel (``flash_attention_bwd.cu``, two passes; bf16
+   on the tensor-core bodies ``tc_k8`` / ``tc_k12``, f32 on the CUDA
+   cores, each call on the body ``fa_bwd_body`` names) on the kernel
+   forward's o and lse against ``flash_attention_bwd_plain`` on the same
+   q, k, v, dO and the plain forward's own o and lse: the FA sweep's
+   cases, the tensor-core bodies' edges in bf16 (``FA_BWD_TC_CASES``: d =
+   120's padded k-step at GQA 7 with a window and ragged tiles, d = 192 /
+   dv = 128 at ragged S, non-causal S < T) and every training shape of
+   phase T (qwen2's d = 128 at 28 / 4 heads, S = T = 4,096; h2o's d = 120
+   with window 4,096 at S = T = 8,192; deepseek's d = 192 / dv = 128 at
+   128 heads; seamless's non-causal cross attention, S 1,024 x T 4,096),
+   f32 within 1e-4 and bf16 within 5e-3 of each output's max |ref|, each
+   kernel call ``torch.equal`` to a second; the forward's lse, f32 and
+   bf16 (every body), against the plain version's (1e-5); ptxas must
+   report no spills in either pass of either tensor-core body; at the
+   training shapes, bf16 timed in turns with the earlier CUDA-core bf16
+   body (launched by its index), beside the plain
    version, the SDPA backward (``torch.autograd.grad`` through
    ``scaled_dot_product_attention``, a retained graph; the library's time,
    which the port never calls) and the bound (``launch/roofline.py:
    fa_bwd_work``: q, k, v, o, dO, lse read once, dq, dk, dv written once;
    2 (3d + 2dv) flops a kept pair at 989 TFLOP/s), with ptxas's report of
-   both passes;
+   both passes of both bodies;
 T. LM training through ``launch/train.py:train_lm`` on random weights and
    ``data/tokens.py``'s synthetic stream: (a) qwen2-7b at full width, its
    depth cut by ``train_depth`` to the most layers whose bf16 weights and
@@ -129,10 +134,12 @@ T. LM training through ``launch/train.py:train_lm`` on random weights and
    accumulation 2, remat, 10 steps: the mean loss of the last 3 steps
    below the first 3's, every loss and gradient norm finite, FA launches
    a step exactly 2 forwards (all on the d = 128 tensor-core body) and 1
-   backward (both passes) per layer and microbatch; step time, tokens/s,
+   backward (both passes, all on the backward's ``tc_k8`` body) per layer
+   and microbatch; step time, tokens/s,
    peak memory; (b) 2 layers, B = 1 x S = 1,024, of qwen2 in f32 and in
    bf16 (the d = 128 tensor-core body) and of deepseek-v3 in bf16 (its
-   dense MLA layers, the d = 192 body): the loss and every leaf's
+   dense MLA layers, the d = 192 bodies; every backward on the body
+   ``fa_bwd_body`` names, f32's on ``cuda_core``): the loss and every leaf's
    gradient through the kernels against the same with
    ``flash_attention_plain`` / ``flash_attention_bwd_plain`` on the card,
    f32 within 1e-4; bf16 both paths against the plain path in f32 on the
@@ -1300,11 +1307,27 @@ FA_BWD_TRAIN_CASES = {
     "deepseek_d192": (1, 4096, 4096, 128, 128, 192, 128, True, 0),
     "seamless_cross": (2, 1024, 4096, 16, 16, 64, 64, False, 0),
 }
+# phase S, bf16 only: the tensor-core bodies' edges - the padded k-step
+# (d = 120) at GQA 7 with a window and ragged tiles; d = 192 / dv = 128 at
+# ragged S = T; non-causal S < T at GQA 7 (with the sweep's dv = 24 case,
+# tc_sweep1, V's and dO's pad columns)
+FA_BWD_TC_CASES = {
+    "tc_d120_gqa7_window": (1, 200, 200, 14, 2, 120, 120, True, 96),
+    "tc_d192_dv128": (1, 130, 130, 8, 8, 192, 128, True, 0),
+    "tc_noncausal_s_lt_t": (2, 96, 160, 7, 1, 128, 128, False, 0),
+}
 FA_BWD_MAIN = "qwen2_d128"
 FA_BWD_BAR = {"float32": 1e-4, "bfloat16": 5e-3}
 FA_LSE_BAR = 1e-5     # the forward's lse, either body, of max |ref|
-PTXAS_FA_BWD = {"dkdv": ("flash_attention_bwd", "dkdv_kernelI13__nv_bf"),
-                "dq": ("flash_attention_bwd", "dq_kernelI13__nv_bf")}
+# each backward body's two passes in ptxas's report (mangled names); the
+# tensor-core bodies must not spill
+PTXAS_FA_BWD = {
+    "tc_k8": {"dkdv": ("flash_attention_bwd", "dkdv_tc_kernelILi8ELi8E"),
+              "dq": ("flash_attention_bwd", "dq_tc_kernelILi8ELi8E")},
+    "tc_k12": {"dkdv": ("flash_attention_bwd", "dkdv_tc_kernelILi12ELi8E"),
+               "dq": ("flash_attention_bwd", "dq_tc_kernelILi12ELi8E")},
+    "cuda_core": {"dkdv": ("flash_attention_bwd", "dkdv_kernelI13__nv_bf"),
+                  "dq": ("flash_attention_bwd", "dq_kernelI13__nv_bf")}}
 TRAIN_ARCH = "qwen2-7b"
 TRAIN_BUDGET_GIB = 60.0   # bf16 weights + gradients, f32 buffer and moments
 TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_STEPS = 2, 4096, 2, 10
@@ -1341,27 +1364,31 @@ def reset_fa_train_counters():
     fwd.launches = bwd.launches = 0
     fwd.body_launches = dict.fromkeys(fwd.body_launches, 0)
     bwd.pass_launches = dict.fromkeys(bwd.pass_launches, 0)
+    bwd.body_launches = dict.fromkeys(bwd.body_launches, 0)
 
 
 def read_fa_train_counters() -> dict:
     fwd, bwd = fa_bwd_counters()
     return {"fwd": fwd.launches, "fwd_bodies": dict(fwd.body_launches),
-            "bwd": bwd.launches, "bwd_passes": dict(bwd.pass_launches)}
+            "bwd": bwd.launches, "bwd_passes": dict(bwd.pass_launches),
+            "bwd_bodies": dict(bwd.body_launches)}
 
 
-def fa_bwd_hold(torch, dev, name, case, gen) -> dict:
+def fa_bwd_hold(torch, dev, name, case, gen,
+                dtypes=("float32", "bfloat16")) -> dict:
     """The forward kernel's lse and the backward kernel on its o and lse
-    against the plain versions' chain, in f32 and bf16: the forward's lse
-    against ``flash_attention_plain``'s (``FA_LSE_BAR`` of max |ref|), and
-    the kernel's (dq, dk, dv) against ``flash_attention_bwd_plain`` on the
-    plain forward's own o and lse (``FA_BWD_BAR`` of each output's max
-    |ref|), each kernel call bitwise equal to a second one.  Returns the
-    errors and the bf16 tensors (with the kernel forward's o and lse)."""
+    against the plain versions' chain, in each of ``dtypes``: the forward's
+    lse against ``flash_attention_plain``'s (``FA_LSE_BAR`` of max |ref|),
+    and the kernel's (dq, dk, dv) against ``flash_attention_bwd_plain`` on
+    the plain forward's own o and lse (``FA_BWD_BAR`` of each output's max
+    |ref|), each kernel call bitwise equal to a second one and both on the
+    body ``fa_bwd_body`` names.  Returns the errors and the bf16 tensors
+    (with the kernel forward's o and lse, and the plain chain's gradients)."""
     from repro_torch.kernels.attention import kernel as fa
     b, s, t, h, hkv, d, dv, causal, win = case
     mask = dict(causal=causal, window=win)
     out = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         dt_ = getattr(torch, dtype)
         q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt_)
         k = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dt_)
@@ -1372,8 +1399,15 @@ def fa_bwd_hold(torch, dev, name, case, gen) -> dict:
                                                     return_lse=True)
         out[f"lse_{dtype}"] = check(f"FA bwd {name} lse {dtype}", lse,
                                     want_lse, FA_LSE_BAR)
+        body = fa.fa_bwd_body(dt_, d, dv)
+        before = dict(fa.flash_attention_bwd.body_launches)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+        ran = {k_: n - before[k_] for k_, n in
+               fa.flash_attention_bwd.body_launches.items() if n != before[k_]}
+        if ran != {body: 2}:
+            raise AssertionError(f"FA bwd {name} {dtype}: bodies {ran}, "
+                                 f"expected {body} twice")
         want = fa.flash_attention_bwd_plain(q, k, v, want_o, want_lse, do,
                                             **mask)
         del want_o, want_lse
@@ -1383,32 +1417,64 @@ def fa_bwd_hold(torch, dev, name, case, gen) -> dict:
             if not torch.equal(g, a):
                 raise AssertionError(f"FA bwd {name} {oname} {dtype}: two "
                                      "calls differ")
-            errs.append(check(f"FA bwd {name} {oname} {dtype}", g.float(),
-                              w.float(), FA_BWD_BAR[dtype]))
+            errs.append(check(f"FA bwd {name} {oname} {dtype} ({body})",
+                              g.float(), w.float(), FA_BWD_BAR[dtype]))
             abs_errs.append(float((g.float() - w.float()).abs().max()))
         out[dtype] = max(errs)
         out[f"abs_{dtype}"] = max(abs_errs)
-        del got, again, want
+        out[f"body_{dtype}"] = body
+        del got, again
         if dtype == "bfloat16":
-            out["tensors"] = (q, k, v, o, lse, do)
+            out["tensors"] = (q, k, v, o, lse, do, want)
         else:
-            del q, k, v, o, lse, do
+            del q, k, v, o, lse, do, want
     return out
 
 
+def bf16_ulps(torch, a, b) -> float:
+    """The largest difference of two bf16 tensors in ulps of ``b``, over
+    the elements of ``b`` at or above a 16th of its max |b| (away from the
+    near-zero elements, whose ulps are tiny)."""
+    a, b = a.float(), b.float()
+    big = b.abs() >= b.abs().max() / 16
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs())) - 7)
+    return float(((a - b).abs() / ulp)[big].max())
+
+
+def fa_bwd_ptxas(ptxas, body) -> dict:
+    """ptxas's report of each pass of a backward body."""
+    return {p: ptxas_of(ptxas, *parts)
+            for p, parts in PTXAS_FA_BWD[body].items()}
+
+
 def fa_bwd_timed(torch, dev, name, case, tensors, ptxas) -> dict:
-    """The bf16 backward kernel timed beside its plain version, the
-    library's backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention`` with a retained graph; GQA, the window
-    as a boolean mask) and the bound (``launch/roofline.py``)."""
+    """The bf16 backward kernel timed in turns with the earlier bf16 body
+    (the CUDA-core one, launched by its index: new, earlier, earlier, new;
+    its error against the plain chain on the same inputs is recorded, with
+    no bar), beside its plain version, the library's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
+    a retained graph; GQA, the window as a boolean mask) and the bound
+    (``launch/roofline.py``)."""
     from repro_torch.kernels.attention import kernel as fa
     from repro_torch.launch import roofline
     F = torch.nn.functional
     b, s, t, h, hkv, d, dv, causal, win = case
     mask = dict(causal=causal, window=win)
-    q, k, v, o, lse, do = tensors
-    ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                       **mask), 3)
+    q, k, v, o, lse, do, want = tensors
+    body = fa.fa_bwd_body(q.dtype, d, dv)
+    prev = fa._bwd_launch(q, k, v, o, lse, do, causal, win, "cuda_core")
+    prev_err = max(rel_err(p.float(), w.float()) for p, w in zip(prev, want))
+    new = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    ulps = max(bf16_ulps(torch, a, b_) for a, b_ in zip(new, prev))
+    del prev, want, new
+    turns = {"new": (lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **mask), 3, []),
+             "earlier": (lambda: fa._bwd_launch(q, k, v, o, lse, do, causal,
+                                                win, "cuda_core"), 1, [])}
+    for which in ("new", "earlier", "earlier", "new"):
+        fn, reps, got = turns[which]
+        got.append(time_ms(torch, fn, reps))
+    ms, earlier = (sum(turns[w][2]) / 2 for w in ("new", "earlier"))
     plain = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, **mask), 1)
     leaves = [x.detach().transpose(1, 2).requires_grad_(True)
@@ -1427,27 +1493,47 @@ def fa_bwd_timed(torch, dev, name, case, tensors, ptxas) -> dict:
     del lib_out, leaves, kw
     nb, flops = roofline.fa_bwd_work(q, k, v, o, lse, do, **mask)
     bd = roofline.bound(nb, flops, "bfloat16")
-    ptx = {p: ptxas_of(ptxas, *PTXAS_FA_BWD[p]) for p in PTXAS_FA_BWD}
-    log(f"  FA bwd {name}: {ms:.3f} ms, plain {plain:.1f} ms, SDPA backward "
-        f"{lib:.3f} ms; {nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
-        f"{100 * bd['bound_ms'] / ms:.2f}% of the kernel's time; ptxas {ptx}")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-            "bytes": nb, "flops": flops, "ptxas": ptx}
+    ptx, ptx_cc = fa_bwd_ptxas(ptxas, body), fa_bwd_ptxas(ptxas, "cuda_core")
+    log(f"  FA bwd {name}: {ms:.3f} ms ({body}; turns "
+        f"{[round(x, 3) for x in turns['new'][2]]}), earlier body "
+        f"(cuda_core) {earlier:.3f} ms in the same call (its worst bf16 "
+        f"rel err on these inputs {prev_err:.3e}; the bodies differ by at "
+        f"most {ulps:g} bf16 ulp above a 16th of max |out|), plain "
+        f"{plain:.1f} ms, SDPA backward {lib:.3f} ms; {nb / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP -> bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}) = {100 * bd['bound_ms'] / ms:.2f}% of the "
+        f"kernel's time; ptxas {ptx} (earlier {ptx_cc})")
+    return {"ms": ms, "body": body, "previous_ms": earlier,
+            "previous_body": "cuda_core", "previous_rel_err_bf16": prev_err,
+            "ulps_vs_previous": ulps,
+            "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "bytes": nb, "flops": flops,
+            "ptxas": ptx, "ptxas_previous": ptx_cc}
 
 
 def phase_fa_bwd(torch, dev, ptxas) -> dict:
     """Phase S: the FA backward kernel against its plain version on the
-    sweeps' cases (f32 and bf16) and at every training shape of phase T,
-    timed at the latter."""
+    sweeps' cases (f32 and bf16), the tensor-core bodies' edge cases
+    (bf16) and every training shape of phase T, timed at the latter; the
+    tensor-core bodies' ptxas reports must show no spills."""
     t0 = time.perf_counter()
+    for body in ("tc_k8", "tc_k12"):
+        rep = fa_bwd_ptxas(ptxas, body)
+        log(f"  FA bwd {body} ptxas {rep}")
+        if any(r.get("spill_bytes", 0) for r in rep.values()):
+            raise AssertionError(f"FA bwd {body}: ptxas reports spills "
+                                 f"{rep}")
     gen = torch.Generator(device=dev).manual_seed(16)
     out = {"sweep": {}, "train": {}}
     cases = [(f"sweep{i}", c[:9]) for i, c in enumerate(FA_SWEEP)] + [
         (f"tc_sweep{i}", c[:9]) for i, c in enumerate(FA_TC_SWEEP[5:])]
     for name, case in cases:
         r = fa_bwd_hold(torch, dev, name, case, gen)
+        r.pop("tensors")
+        out["sweep"][name] = r
+    for name, case in FA_BWD_TC_CASES.items():
+        r = fa_bwd_hold(torch, dev, name, case, gen, ("bfloat16",))
         r.pop("tensors")
         out["sweep"][name] = r
     for name, case in FA_BWD_TRAIN_CASES.items():
@@ -1457,9 +1543,11 @@ def phase_fa_bwd(torch, dev, ptxas) -> dict:
         out["train"][name] = r
         torch.cuda.empty_cache()
     held = [r for grp in ("sweep", "train") for r in out[grp].values()]
-    out["max_rel_err"] = {dt: max(r[dt] for r in held) for dt in FA_BWD_BAR}
+    out["max_rel_err"] = {dt: max(r[dt] for r in held if dt in r)
+                          for dt in FA_BWD_BAR}
     out["max_rel_err"]["lse"] = max(r[f"lse_{dt}"] for r in held
-                                    for dt in FA_BWD_BAR)
+                                    for dt in FA_BWD_BAR
+                                    if f"lse_{dt}" in r)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase S: worst {out['max_rel_err']} in {out['seconds']:.1f} s")
     return out
@@ -1482,8 +1570,9 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
     """``launch/train.py:train_lm`` on ``cfg`` (its depth already cut) on
     the card: FA's launches must be, a step, 2 forwards (the forward and
     remat's recomputation) and one backward (both passes) per attention and
-    microbatch, every forward on the tensor-core body of the arch's head
-    width; every loss and gradient norm finite.  Returns the rows, the
+    microbatch, every forward and backward on the body ``fa_body`` /
+    ``fa_bwd_body`` names for the arch's dtype and head width (bf16: the
+    tensor-core bodies); every loss and gradient norm finite.  Returns the rows, the
     launches a step and the peak memory."""
     from repro_torch.kernels.attention import kernel as fa
     from repro_torch.launch.train import train_lm
@@ -1491,6 +1580,7 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
     d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
     dv = cfg.mla.v_head if cfg.mla else cfg.hd
     body = fa.fa_body(getattr(torch, cfg.dtype), d, dv)
+    bwd_body = fa.fa_bwd_body(getattr(torch, cfg.dtype), d, dv)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_fa_train_counters()
@@ -1501,7 +1591,8 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
     per = steps * accum * n
     want = {"fwd": 2 * per,
             "fwd_bodies": {**dict.fromkeys(fa.BODIES, 0), body: 2 * per},
-            "bwd": per, "bwd_passes": dict.fromkeys(fa.BWD_PASSES, per)}
+            "bwd": per, "bwd_passes": dict.fromkeys(fa.BWD_PASSES, per),
+            "bwd_bodies": {**dict.fromkeys(fa.BWD_BODIES, 0), bwd_body: per}}
     if got != want:
         raise AssertionError(f"{cfg.name} training: FA launches {got}, "
                              f"expected {want}")
@@ -1518,7 +1609,9 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
             "fa_bwd_a_step": got["bwd"] // steps,
             "fa_bwd_passes_a_step": {p: c // steps for p, c in
                                      got["bwd_passes"].items()},
-            "fa_body": body, "peak_gib": peak}
+            "fa_bwd_bodies_a_step": {b_: c // steps for b_, c in
+                                     got["bwd_bodies"].items()},
+            "fa_body": body, "fa_bwd_body": bwd_body, "peak_gib": peak}
 
 
 def train_parity(torch, dev, full, dtype) -> dict:
@@ -1542,8 +1635,9 @@ def train_parity(torch, dev, full, dtype) -> dict:
     cfg = dataclasses.replace(depth_cut(full, TRAIN_PARITY_LAYERS),
                               dtype=dtype)
     d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
-    body = fa.fa_body(getattr(torch, dtype), d,
-                      cfg.mla.v_head if cfg.mla else cfg.hd)
+    dv = cfg.mla.v_head if cfg.mla else cfg.hd
+    body = fa.fa_body(getattr(torch, dtype), d, dv)
+    bwd_body = fa.fa_bwd_body(getattr(torch, dtype), d, dv)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
         17), tp=1, device=dev)
     batch = to_tensors(next(synthetic_batches(cfg, 1, TRAIN_PARITY_S, 17)),
@@ -1577,20 +1671,23 @@ def train_parity(torch, dev, full, dtype) -> dict:
     launches = read_fa_train_counters()
     want = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
     if {k: launches[k] for k in want} != want or \
-            launches["fwd_bodies"][body] != want["fwd"]:
+            launches["fwd_bodies"][body] != want["fwd"] or \
+            launches["bwd_bodies"][bwd_body] != want["bwd"]:
         raise AssertionError(f"T(b) {cfg.name} {dtype}: FA launches "
                              f"{launches}, expected {want}, forwards on "
-                             f"{body}")
+                             f"{body}, backwards on {bwd_body}")
     loss_p, grads_p = loss_and_grads(cfg, params, plain=True)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     errs = leaf_errs(grads_k, grads_p)
     worst = [tuple(g.shape) for g in grads_k if g is not None][
         errs.index(max(errs))]
     out = {"arch": cfg.name, "dtype": dtype, "body": body,
+           "bwd_body": bwd_body,
            "loss_rel_err": loss_err, "grad_max_rel_err": max(errs),
            "worst_leaf_shape": worst, "leaves": len(errs),
            "launches": launches}
-    head = (f"  T(b) {cfg.name} {cfg.n_layers} layers {dtype} ({body}), "
+    head = (f"  T(b) {cfg.name} {cfg.n_layers} layers {dtype} ({body}, "
+            f"backward {bwd_body}), "
             f"B=1 x S={TRAIN_PARITY_S}: loss {loss_k:.6f} vs plain "
             f"{loss_p:.6f} (rel {loss_err:.3e}); worst leaf gradient rel "
             f"err {max(errs):.3e} (a {worst} leaf) over {len(errs)} "
@@ -1657,7 +1754,8 @@ def phase_lm_train(torch, dev) -> dict:
     log(f"  T(a): losses {[round(x, 4) for x in losses]}; step median "
         f"{med:.3f} s = {run['tokens_per_s']:.1f} tokens/s; peak "
         f"{run['peak_gib']:.2f} GiB; FA {run['fa_fwd_a_step']} forwards "
-        f"({run['fa_body']}) and {run['fa_bwd_a_step']} backwards a step")
+        f"({run['fa_body']}) and {run['fa_bwd_a_step']} backwards "
+        f"({run['fa_bwd_body']}) a step")
     out[TRAIN_ARCH] = run
     times["a"] = time.perf_counter() - t0
 
@@ -1684,7 +1782,8 @@ def phase_lm_train(torch, dev) -> dict:
         log(f"  {cfg.name}: loss {r['rows'][0]['loss']:.4f}, gnorm "
             f"{r['rows'][0]['grad_norm']:.3f}, {r['rows'][0]['s']:.3f} s, "
             f"peak {r['peak_gib']:.2f} GiB, FA {r['fa_fwd_a_step']} forwards "
-            f"({r['fa_body']}) and {r['fa_bwd_a_step']} backwards")
+            f"({r['fa_body']}) and {r['fa_bwd_a_step']} backwards "
+            f"({r['fa_bwd_body']})")
         out["one_step"][arch] = r
     times["c"] = time.perf_counter() - t0
     out["phase_s"] = times
@@ -1707,6 +1806,10 @@ def lm_train_phases(torch, dev, ptxas, fa_row) -> tuple:
            "launches": run["fa_bwd_a_step"],
            "launches_per": "a phase-T(a) training step (2 kernels each)",
            "pass_launches": run["fa_bwd_passes_a_step"],
+           "body_launches": run["fa_bwd_bodies_a_step"],
+           "body": main["body"], "previous_ms": main["previous_ms"],
+           "previous_body": main["previous_body"],
+           "previous_rel_err_bf16": main["previous_rel_err_bf16"],
            "max_abs_err": main["abs_bfloat16"],
            "max_rel_err_f32": s["max_rel_err"]["float32"],
            "max_rel_err_bf16": s["max_rel_err"]["bfloat16"],
@@ -1716,11 +1819,12 @@ def lm_train_phases(torch, dev, ptxas, fa_row) -> tuple:
            "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
            "library_ms": main["library_ms"],
            "library": "SDPA backward (torch.autograd.grad)",
-           "ptxas": main["ptxas"]}
+           "ptxas": main["ptxas"], "ptxas_previous": main["ptxas_previous"]}
     for name, r in s["train"].items():
         if name != FA_BWD_MAIN:
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by"):
+            for key in ("ms", "previous_ms", "previous_rel_err_bf16",
+                        "plain_ms", "library_ms", "bound_ms", "bound_by",
+                        "body", "ptxas"):
                 row[f"{key}_{name}"] = r[key]
     fa_row["launches_train"] = run["fa_fwd_a_step"]
     fa_row["body_train"] = run["fa_body"]

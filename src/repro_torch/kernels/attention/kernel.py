@@ -17,12 +17,14 @@ With ``return_lse=True`` it also returns each row's f32 log-sum-exp
 (B, H, S), which every body writes from its running max and sum.
 
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``:
-a dK/dV pass and a dQ pass, f32 math on the CUDA cores, no atomics); the
-reference has no backward kernel (it differentiates its XLA
-``chunked_attention``).  Its plain version is
-``flash_attention_bwd_plain`` and its width limits
-:func:`check_bwd_widths`.  It counts ``flash_attention_bwd.launches`` (calls
-that launched, two kernels each) and ``.pass_launches`` by pass.
+a dK/dV pass and a dQ pass, no atomics; bf16 on the tensor cores, f32 on
+the CUDA cores); the reference has no backward kernel (it differentiates
+its XLA ``chunked_attention``).  Its plain version is
+``flash_attention_bwd_plain``, its width limits :func:`check_bwd_widths`
+and, in bf16, :func:`check_bf16_layout` over q, k, v and dO.
+:func:`fa_bwd_body` names the body a call takes.  It counts
+``flash_attention_bwd.launches`` (calls that launched, two kernels each),
+``.pass_launches`` by pass and ``.body_launches`` by body.
 :func:`flash_attention` is what the models call: the kernel forward alone
 when no input needs a gradient (serving launches exactly that), else the
 ``torch.autograd.Function`` whose forward asks for ``lse`` and whose
@@ -53,8 +55,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9
              + [_P, _I, _P])
 _BWD_ARGTYPES = ([_P] * 9 + [_I] * 9 + [ctypes.c_float] + [_L] * 12
-                 + [_P])
+                 + [_P, _I])
 BODIES = ("cuda_core", "tc_exact", "tc_k8", "tc_k12")   # the C body index
+BWD_BODIES = ("cuda_core", "tc_k8", "tc_k12")           # the backward's
 BWD_PASSES = ("dkdv", "dq")
 MAX_D_BWD = 192
 
@@ -161,14 +164,16 @@ def _smem_bytes(d: int, dv: int) -> int:
 
 
 def check_bf16_layout(d: int, dv: int, data_ptrs, strides) -> None:
-    """Raise ValueError unless the bf16 tensor-core body takes this layout:
-    d and dv multiples of 8 (16 bytes, one ``cp.async`` chunk; a d of
-    16k + 8 runs its last mma k-step on 8 zero columns), d at most 192 and
-    dv at most 128; every base pointer and every stride of the leading three
-    dimensions 16-byte aligned (``cp.async`` copies 16 bytes at a time;
-    strides are in bf16 elements, 8 to 16 bytes); and each sequence stride
-    (``strides[i][1]`` of each tensor's (batch, seq, head) strides) below
-    ``MAX_SEQ_STRIDE`` elements, since offsets within a tile are 32-bit."""
+    """Raise ValueError unless the bf16 tensor-core bodies (forward and
+    backward) take this layout: d and dv multiples of 8 (16 bytes, one
+    ``cp.async`` chunk; a d of 16k + 8 runs its last mma k-step on 8 zero
+    columns), d at most 192 and dv at most 128; every base pointer and every
+    stride of the leading three dimensions 16-byte aligned (``cp.async``
+    copies 16 bytes at a time; strides are in bf16 elements, 8 to 16
+    bytes); and each sequence stride (``strides[i][1]`` of each tensor's
+    (batch, seq, head) strides) below ``MAX_SEQ_STRIDE`` elements, since
+    offsets within a tile are 32-bit.  The tensors are those the kernel
+    copies: q, k and v, and for the backward dO."""
     if d % 8 or not 0 < d <= MAX_D_BF16:
         raise ValueError(f"the bf16 flash kernel takes d a multiple of 8 "
                          f"up to {MAX_D_BF16}, got d {d}")
@@ -176,22 +181,30 @@ def check_bf16_layout(d: int, dv: int, data_ptrs, strides) -> None:
         raise ValueError(f"the bf16 flash kernel takes dv a multiple of 8 "
                          f"up to {MAX_DV}, got dv {dv}")
     if any(p % 16 for p in data_ptrs):
-        raise ValueError("the bf16 flash kernel needs q, k and v to start "
-                         "on 16-byte boundaries")
+        raise ValueError("the bf16 flash kernel needs q, k, v (and dO) to "
+                         "start on 16-byte boundaries")
     flat = [st for x in strides for st in x]
     if any(st % 8 for st in flat):
-        raise ValueError(f"the bf16 flash kernel needs the strides of q, k "
-                         f"and v to be multiples of 8 elements (16 bytes), "
-                         f"got {tuple(flat)}")
+        raise ValueError(f"the bf16 flash kernel needs the strides of q, k, "
+                         f"v (and dO) to be multiples of 8 elements (16 "
+                         f"bytes), got {tuple(flat)}")
     if any(x[1] >= MAX_SEQ_STRIDE for x in strides):
         raise ValueError(f"the bf16 flash kernel needs sequence strides "
                          f"below {MAX_SEQ_STRIDE} elements")
 
 
-def _check(q, k, v):
+def _check(q, k, v, do=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on CUDA or CPU tensors, "
                          f"got {q.device}")
+    check_inputs(q, k, v, do)
+
+
+def check_inputs(q, k, v, do=None) -> None:
+    """What the CUDA wrappers check before a launch, on any device: dtypes,
+    shapes, a contiguous last dimension and the kernel's limits; in bf16
+    the tensor-core layout (:func:`check_bf16_layout`) of q, k, v and, for
+    the backward, ``do``."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -215,8 +228,9 @@ def _check(q, k, v):
                          "contiguous")
     dv = v.shape[3]
     if q.dtype == torch.bfloat16:
-        check_bf16_layout(d, dv, [x.data_ptr() for x in (q, k, v)],
-                          [x.stride()[:3] for x in (q, k, v)])
+        xs = (q, k, v) if do is None else (q, k, v, do)
+        check_bf16_layout(d, dv, [x.data_ptr() for x in xs],
+                          [x.stride()[:3] for x in xs])
     elif dv > MAX_DV or _smem_bytes(d, dv) > SMEM_MAX:
         raise ValueError(f"d {d}, dv {dv} exceed the kernel's limits "
                          f"(dv <= {MAX_DV}, {SMEM_MAX} bytes of shared "
@@ -275,6 +289,17 @@ def check_bwd_widths(d: int, dv: int) -> None:
                          f"{MAX_DV}, got dv {dv}")
 
 
+def fa_bwd_body(dtype, d: int, dv: int) -> str:
+    """The backward body a CUDA call of this dtype and width takes: f32 the
+    CUDA-core one; bf16 the tensor-core one with 8 k-steps over d up to
+    d = 128 (h2o's 120 on a zeroed pad chunk), else the one with 12 (MLA's
+    d = 192 / dv = 128).  The one rule: the C launcher takes the body's
+    index in ``BWD_BODIES`` and checks only that it holds the widths."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "tc_k8" if d <= 128 else "tc_k12"
+
+
 def _bwd_entry(dtype):
     fn = getattr(_build.load("flash_attention_bwd"),
                  f"flash_attention_bwd_{_DTYPES[dtype]}")
@@ -288,14 +313,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """(dq, dk, dv) in q's dtype for :func:`flash_attention_fwd`'s output
     ``o`` and log-sum-exp ``lse`` at upstream gradient ``do`` (B,S,H,dv).
     A CPU tensor goes to :func:`flash_attention_bwd_plain`; a CUDA one
-    launches ``csrc/flash_attention_bwd.cu``'s two passes (D = rowsum(do *
-    o) is one torch reduction in f32 before them), or raises."""
+    launches ``csrc/flash_attention_bwd.cu``'s two passes on the body
+    :func:`fa_bwd_body` names (D = rowsum(do * o) is one torch reduction in
+    f32 before them), or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window)
-    _check(q, k, v)
+    _check(q, k, v, do)
     b, s, h, d = q.shape
-    t, hkv, dvw = k.shape[1], k.shape[2], v.shape[3]
+    dvw = v.shape[3]
     check_bwd_widths(d, dvw)
     want = (b, s, h, dvw)
     for name, x in (("o", o), ("do", do)):
@@ -306,6 +332,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     if (lse.shape != (b, h, s) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous f32 ({b}, {h}, {s})")
+    body = fa_bwd_body(q.dtype, d, dvw)
+    out = _bwd_launch(q, k, v, o, lse, do, causal, window, body)
+    if out[0].numel() and out[1].numel():
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.body_launches[body] += 1
+        for name in BWD_PASSES:
+            flash_attention_bwd.pass_launches[name] += 1
+    return out
+
+
+def _bwd_launch(q, k, v, o, lse, do, causal, window, body):
+    """The two passes of ``body`` on checked CUDA tensors, counting
+    nothing: :func:`flash_attention_bwd` takes the body
+    :func:`fa_bwd_body` names; ``chip_smoke.py`` also times the bf16
+    CUDA-core body through this."""
+    b, s, h, d = q.shape
+    t, hkv, dvw = k.shape[1], k.shape[2], v.shape[3]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, t, hkv, dvw), dtype=q.dtype, device=q.device)
@@ -319,18 +362,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
             dv.data_ptr(), b, s, t, h, hkv, d, dvw, int(bool(causal)),
             int(window), d ** -0.5, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *do.stride()[:3],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            BWD_BODIES.index(body))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed with "
                            f"CUDA error {rc}")
-    flash_attention_bwd.launches += 1
-    for name in BWD_PASSES:
-        flash_attention_bwd.pass_launches[name] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.pass_launches = dict.fromkeys(BWD_PASSES, 0)
+flash_attention_bwd.body_launches = dict.fromkeys(BWD_BODIES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

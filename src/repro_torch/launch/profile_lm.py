@@ -24,7 +24,8 @@ T(a) by default: qwen2-7b at full width, its depth cut by
 ``launch/train.py:train_depth`` to fit ``TRAIN_BUDGET_GIB``, B = 2 x S =
 4,096 a microbatch, accumulation 2, remat, random bf16 weights at tp =
 1 as ``train_lm`` builds them, the synthetic token stream) after a warm
-step: device time by kind (FA forward, FA backward, cuBLAS, the rest),
+step: device time by kind (FA forward, FA backward's dK/dV and dQ
+passes, cuBLAS, the rest),
 the busy share, and the device
 time of the loss chunks' forward and recomputation (their
 ``record_function`` range, which the kinds also count).  Needs one CUDA
@@ -42,7 +43,9 @@ from pathlib import Path
 ARCH = "zamba2-2.7b"
 KINDS = (("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
          ("flash_attention_fwd", ("flash_fwd",)),
-         ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel")),
+         # the backward's passes, either body (CUDA cores, tensor cores)
+         ("flash_attention_bwd dK/dV", ("dkdv_kernel", "dkdv_tc_kernel")),
+         ("flash_attention_bwd dQ", ("dq_kernel", "dq_tc_kernel")),
          ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")))
 TRAIN_ARCH = "qwen2-7b"
 TRAIN_BUDGET_GIB = 60.0

@@ -13,7 +13,11 @@ dv = 128, non-causal S != T).  The forward's ``lse`` is held against a
 direct log-sum-exp, and the autograd Function ``flash_attention`` on CPU
 tensors against ``torch.autograd`` through ``flash_attention_plain``.  The
 CUDA kernels run only on the card, where ``chip_smoke.py`` (phase S) holds
-them against these plain versions.
+them against these plain versions.  Here the bf16 tensor-core body's
+rounding is emulated in torch f32 (``_tc_bwd_numerics``) and held, as
+phase S holds the kernel, against the plain version in bf16 (5e-3 of each
+output's max |ref|), and once against ``jax.vjp`` of the reference's
+``chunked_attention``; its body rule and layout checks are checked too.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from repro.kernels.attention.ref import attention_ref
+from repro.models.attention import chunked_attention
 from repro_torch.kernels.attention import kernel as tkern
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -173,12 +178,14 @@ def test_bwd_wrapper_on_cpu_counts_no_launch():
     tx = [torch.from_numpy(x) for x in (q, k, v, do)]
     o, lse = tkern.flash_attention_fwd(*tx[:3], **mask, return_lse=True)
     before = (tkern.flash_attention_bwd.launches,
-              dict(tkern.flash_attention_bwd.pass_launches))
+              dict(tkern.flash_attention_bwd.pass_launches),
+              dict(tkern.flash_attention_bwd.body_launches))
     got = tkern.flash_attention_bwd(*tx[:3], o, lse, tx[3], **mask)
     want = tkern.flash_attention_bwd_plain(*tx[:3], o, lse, tx[3], **mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (tkern.flash_attention_bwd.launches,
-            tkern.flash_attention_bwd.pass_launches) == before
+            tkern.flash_attention_bwd.pass_launches,
+            tkern.flash_attention_bwd.body_launches) == before
     assert set(before[1]) == set(tkern.BWD_PASSES) == {"dkdv", "dq"}
 
 
@@ -194,3 +201,160 @@ def test_bwd_width_check(d, dv, ok):
     else:
         with pytest.raises(ValueError, match="flash backward kernel"):
             tkern.check_bwd_widths(d, dv)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core body: its rounding emulated, its body rule and layout
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+TC_CASES = {   # b, s, t, h, hkv, d, dv, causal, window
+    "d128_causal_gqa": (1, 256, 256, 4, 2, 128, 128, True, 0),
+    "d192_dv128": (1, 256, 256, 2, 2, 192, 128, True, 0),
+    "d120_window": (1, 320, 320, 4, 2, 120, 120, True, 96),
+    "noncausal_s_ne_t": (2, 96, 160, 4, 1, 64, 64, False, 0),
+}
+TC_BAR = 5e-3   # chip_smoke.py phase S's bf16 bar, of each output's max |ref|
+
+
+def _bf16(x):
+    """Round an f32 tensor to bf16 (nearest even), kept as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tc_bwd_numerics(q, k, v, o, lse, do, *, causal, window, split=True):
+    """The arithmetic of ``flash_attention_bwd.cu``'s bf16 body in torch
+    f32, one head at a time (rounding is per element; the kernel's tiles
+    only reorder f32 sums): f32 scores of bf16-valued operands; P =
+    exp2(S scale log2 e - lse log2 e) on the visible keys; D = rowsum(dO o)
+    in f32; dS = P (dP - D); P into dV and dS into dK and dQ as bf16 halves
+    hi = bf16(x) and lo = bf16(x - hi) (``split=False``: hi alone); f32
+    sums; dq, dk, dv rounded to bf16 once.  q, k, v, o, do: f32 tensors
+    holding bf16 values; lse f32 (B, H, S)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    sc = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    dsum = (do * o).sum(-1)
+    ok = tkern._visible(0, s, t, causal, window, "cpu")
+    dq, dk, dv = (torch.zeros(x.shape) for x in (q, k, v))
+
+    def halves(x):
+        hi = _bf16(x)
+        return hi, (_bf16(x - hi) if split else torch.zeros_like(x))
+
+    for bi in range(b):
+        for hh in range(h):
+            hk = hh // rep
+            qh, kh, vh, doh = (q[bi, :, hh], k[bi, :, hk], v[bi, :, hk],
+                               do[bi, :, hh])
+            p = torch.where(ok, torch.exp2(qh @ kh.T * sc
+                                           - lse[bi, hh, :, None] * LOG2E),
+                            0.0)
+            ds = p * (doh @ vh.T - dsum[bi, :, hh, None])
+            (p_hi, p_lo), (ds_hi, ds_lo) = halves(p), halves(ds)
+            dv[bi, :, hk] += p_hi.T @ doh + p_lo.T @ doh
+            dk[bi, :, hk] += ds_hi.T @ qh + ds_lo.T @ qh
+            dq[bi, :, hh] = (ds_hi @ kh + ds_lo @ kh) * scale
+    return _bf16(dq), _bf16(dk * scale), _bf16(dv)
+
+
+def _tc_inputs(name):
+    """bf16-valued q, k, v, dO (f32) and the plain bf16 forward's o, lse."""
+    b, s, t, h, hkv, d, dv, causal, win = TC_CASES[name]
+    g = torch.Generator().manual_seed(sorted(TC_CASES).index(name))
+    xs = [_bf16(torch.randn(sh, generator=g)) for sh in
+          ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, dv), (b, s, h, dv))]
+    mask = dict(causal=causal, window=win)
+    o, lse = tkern.flash_attention_plain(
+        *(x.to(torch.bfloat16) for x in xs[:3]), **mask, return_lse=True)
+    return xs, o, lse, mask
+
+
+def _plain_bf16(xs, o, lse, mask):
+    q, k, v, do = (x.to(torch.bfloat16) for x in xs)
+    return tkern.flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
+
+
+def _tc_errs(name, split=True):
+    xs, o, lse, mask = _tc_inputs(name)
+    got = _tc_bwd_numerics(*xs[:3], o.float(), lse, xs[3], **mask,
+                           split=split)
+    want = _plain_bf16(xs, o, lse, mask)
+    return {n: _rel(g.numpy(), w.float().numpy())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+@pytest.mark.parametrize("name", list(TC_CASES))
+def test_tc_bwd_numerics_hold_phase_s_bar(name):
+    """The emulated body against ``flash_attention_bwd_plain`` in bf16 on
+    the plain forward's o and lse (phase S's comparison): d = 128 causal
+    GQA, d = 192 / dv = 128, d = 120 with a window (the padded k-step),
+    non-causal S != T."""
+    errs = _tc_errs(name)
+    assert max(errs.values()) < TC_BAR, errs
+
+
+def test_tc_bwd_numerics_match_jax_chunked_attention():
+    """The emulated body against ``jax.vjp`` of the reference's
+    ``chunked_attention`` (causal, f32 on the same bf16-valued inputs) at
+    d = 128 with GQA."""
+    xs, o, lse, mask = _tc_inputs("d128_causal_gqa")
+    q, k, v, do = (x.numpy() for x in xs)
+    pos = jnp.asarray(np.broadcast_to(np.arange(q.shape[1], dtype=np.int32),
+                                      q.shape[:2]))
+    _, vjp = jax.vjp(lambda a, b_, c: chunked_attention(a, b_, c, pos, pos,
+                                                        kv_chunk=64),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = _tc_bwd_numerics(*xs[:3], o.float(), lse, xs[3], **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g.numpy(), np.asarray(w)) < TC_BAR, (name, _rel(
+            g.numpy(), np.asarray(w)))
+
+
+@pytest.mark.parametrize("name", ["d192_dv128", "d120_window"])
+def test_split_halves_lower_the_rounding_error(name):
+    """Why the body multiplies by the hi and lo bf16 halves of P and dS:
+    with hi alone every output's error against the plain version is 2-8
+    times as large (3.5e-3 to 4.8e-3 of max |ref| here; 5.7e-3, over phase
+    S's bar, for dv at d = 128); the halves at least divide it by 1.5."""
+    split, alone = _tc_errs(name), _tc_errs(name, split=False)
+    assert max(split.values()) < TC_BAR, split
+    assert all(split[n] < alone[n] / 1.5 for n in ("dq", "dk", "dv")), (
+        split, alone)
+
+
+def test_bwd_body_by_dtype_and_width():
+    """The backward's body rule: bf16 on the 8-k-step tensor-core body up
+    to d = 128 (h2o's 120 on a zeroed pad chunk), the 12-k-step one above
+    (MLA's 192 / 128); f32 on the CUDA cores."""
+    bf16 = torch.bfloat16
+    for d, dv in ((64, 64), (80, 80), (120, 120), (128, 128), (32, 24)):
+        assert tkern.fa_bwd_body(bf16, d, dv) == "tc_k8"
+    assert tkern.fa_bwd_body(bf16, 192, 128) == "tc_k12"
+    assert tkern.fa_bwd_body(torch.float32, 128, 128) == "cuda_core"
+    assert tkern.fa_bwd_body(torch.float32, 192, 128) == "cuda_core"
+    assert (set(tkern.flash_attention_bwd.body_launches)
+            == set(tkern.BWD_BODIES) == {"cuda_core", "tc_k8", "tc_k12"})
+
+
+@pytest.mark.parametrize("bad", [None, "pointer", "stride"])
+def test_bwd_layout_checks_do(bad):
+    """The backward's checks hold dO to the bf16 layout too: a dO that
+    starts off a 16-byte boundary, or whose strides are not multiples of 8
+    elements, raises (never a fallback)."""
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    k = v = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    do = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    if bad == "pointer":
+        do = torch.zeros((1, 8, 4, 72), dtype=torch.bfloat16)[..., 1:65]
+    elif bad == "stride":
+        do = torch.zeros((1, 8, 4, 68), dtype=torch.bfloat16)[..., :64]
+    if bad is None:
+        tkern.check_inputs(q, k, v, do)
+        return
+    tkern.check_inputs(q, k, v)
+    with pytest.raises(ValueError, match="bf16 flash kernel"):
+        tkern.check_inputs(q, k, v, do)
