@@ -8,7 +8,7 @@
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
 and L (without L (c)'s readings, which come from phases 4 and G),
 ``--lm-only`` phases 1, 5-9 and M-R (the LM serving path),
-``--train-only`` phases 1, S and T (LM training); none prints the
+``--train-only`` phases 1, S, T, U and V (LM training); none prints the
 result line.  Needs one CUDA card and the CUDA
 toolkit (``nvcc``); exits nonzero, printing no result, without them.
 Phases (each raises on failure):
@@ -113,7 +113,9 @@ S. the FA backward kernel (``flash_attention_bwd.cu``, two passes; bf16
    dv = 128 at ragged S, non-causal S < T) and every training shape of
    phase T (qwen2's d = 128 at 28 / 4 heads, S = T = 4,096; h2o's d = 120
    with window 4,096 at S = T = 8,192; deepseek's d = 192 / dv = 128 at
-   128 heads; seamless's non-causal cross attention, S 1,024 x T 4,096),
+   128 heads; seamless's non-causal cross attention, S 1,024 x T 4,096;
+   phase V's zamba2 shared block, d = dv = 80 at 32 / 32 heads, S = T =
+   4,096),
    f32 within 1e-4 and bf16 within 5e-3 of each output's max |ref|, each
    kernel call ``torch.equal`` to a second; the forward's lse, f32 and
    bf16 (every body), against the plain version's (1e-5); ptxas must
@@ -151,6 +153,34 @@ T. LM training through ``launch/train.py:train_lm`` on random weights and
    and seamless (4,096 source frames, 1,024 target tokens; FA enc + 2 dec
    a microbatch), finite loss and gradient norm, FA launches as in (a);
    one ``{"lm_train": ...}`` line with phases S-T's numbers and times;
+U. the SSD backward kernel (``ssd_chunks_bwd.cu``: f32 products on the
+   CUDA cores, per-head dB / dC partials summed by torch) against
+   ``ssd_chunks_bwd_plain`` on the same inputs (x, b, c strided views of
+   one projection buffer; ``cum`` from the forward kernel; normal
+   gradients of the three outputs): the SSD sweep's cases (G = 1, 2, 4,
+   f32 and bf16) and phase V's training shapes, mamba2's N = 128 and
+   zamba2's N = 64 at B = 2 x S = 4,096, 80 heads of 64, in f32 and bf16;
+   each f32 gradient (before the cast to its input's dtype) within 1e-4
+   (f32) or 5e-4 (bf16 inputs) of its max |ref|, two calls
+   ``torch.equal``; at the training shapes, bf16 timed with CUDA events
+   beside the plain version and the bound (``launch/roofline.py:
+   ssd_bwd_work``: inputs read once, gradients written once at their
+   inputs' widths, the least products at 989 TFLOP/s), no library call,
+   ptxas's report of both instantiations;
+V. Mamba-2 and Zamba2 training through ``train_lm``: (a) mamba2-2.7b at
+   full width, its depth by ``train_depth`` (all 64 layers fit), B = 2 x
+   S = 4,096 a microbatch, accumulation 2, remat, 10 steps: the mean loss
+   of the last 3 below the first 3's, every loss and gradient norm
+   finite, SSD launches a step exactly 2 forwards (all ``"tc"``) and 1
+   backward per layer and microbatch, FA none; step time, tokens/s, peak
+   memory; (b) mamba2 at 2 layers and zamba2 at 6 (one shared-block
+   call), B = 1 x S = 1,024, f32 and bf16: the loss and every leaf's
+   gradient through the kernels against the same with the plain versions
+   (``ssd_chunks_plain`` / ``ssd_chunks_bwd_plain``, FA's) at phase
+   T(b)'s bars; (c) zamba2-2.7b at full width (all 54 layers), the same
+   batch, 3 steps: finite, SSD as in (a), FA 1 forward (``tc_exact``) and
+   1 backward (``tc_k8``) per shared-block call and microbatch; one
+   ``{"ssm_train": ...}`` line with phases U-V's numbers and times;
 A. field cooling at the main path's size: ``Engine`` with K1/K2 under
    ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
    4 chunks x 20 steps, all six observables every 5 steps, a runlog with
@@ -328,7 +358,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
    only, started at the phase's beginning in the background) and
    ``report.dryrun_main``'s tables; one ``{"legacy": ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
-    all five kernels (FA's backward with phase T(a)'s launches a step,
+    all six kernels (SSD's backward with phase V(a)'s launches a step and
+    V(c)'s as ``launches_zamba2``, phase U's errors, and its time, plain
+    time, bound and ptxas at mamba2's shape and, with the case's name
+    appended, at zamba2's; SSD's forward with ``launches_train`` and
+    ``launches_train_zamba2``; FA's backward with phase T(a)'s launches a step,
     phase S's errors, times, bound and ptxas at qwen2's shape and, with
     the case's name appended, at the other training shapes; FA's forward
     with ``launches_train`` and ``body_train``; K1, K2 and SSD with
@@ -387,6 +421,12 @@ KERNELS = {
         source="src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
         replaces="none: src/repro/models/attention.py:60 (chunked_attention,"
                  " differentiated by jax.grad)"),
+    # no Pallas kernel: the reference differentiates its jnp ssd_chunked
+    # under jax.grad
+    "ssd_chunks_bwd": dict(
+        source="src/repro_torch/kernels/ssd/csrc/ssd_chunks_bwd.cu",
+        replaces="none: src/repro/models/ssm.py:61 (ssd_chunked, "
+                 "differentiated by jax.grad)"),
 }
 # the sweeps of tests/test_kernels_ssd.py:10 and tests/test_kernels_attention.py:9
 SSD_SWEEP = [   # bs, s, h, p, g, n, chunk, dtype
@@ -727,6 +767,7 @@ def lm_kernels_main(torch, dev, cfg, sweep_err, launches, ptxas):
     time the card could take."""
     import math
 
+    from repro_torch.launch import roofline
     from repro_torch.launch.roofline import nbytes
 
     from repro_torch.kernels.attention import kernel as fa
@@ -768,11 +809,7 @@ def lm_kernels_main(torch, dev, cfg, sweep_err, launches, ptxas):
         torch, ssd_names("bf16 cuda_core"),
         functools.partial(ssd.ssd_chunks, body="cuda_core"),
         ssd.ssd_chunks_plain, args, SSD_BAR["bfloat16"], chunk=L)
-    nc = S // L
-    f32_out = 4 * B * nc * (L * H * P + H * N * P + L * H)
-    nbytes_ssd = nbytes(x, b, c, dt, a) + f32_out
-    tri = L * (L + 1) // 2
-    flops_ssd = 2.0 * B * nc * H * (tri * N + tri * P + L * N * P)
+    nbytes_ssd, flops_ssd = roofline.ssd_fwd_work(x, dt, a, b, c, chunk=L)
     # the bodies in turns: tc, cuda_core, cuda_core, tc
     ssd_ms = {"tc": [], "cuda_core": []}
     for body in ("tc", "cuda_core", "cuda_core", "tc"):
@@ -1306,6 +1343,8 @@ FA_BWD_TRAIN_CASES = {
     "h2o_d120_window": (1, 8192, 8192, 32, 8, 120, 120, True, 4096),
     "deepseek_d192": (1, 4096, 4096, 128, 128, 192, 128, True, 0),
     "seamless_cross": (2, 1024, 4096, 16, 16, 64, 64, False, 0),
+    # phase V's zamba2 shared block: d = dv = 80 over 32 / 32 heads
+    "zamba2_d80": (2, 4096, 4096, 32, 32, 80, 80, True, 0),
 }
 # phase S, bf16 only: the tensor-core bodies' edges - the padded k-step
 # (d = 120) at GQA 7 with a window and ragged tiles; d = 192 / dv = 128 at
@@ -1359,19 +1398,66 @@ def fa_bwd_counters():
     return fa.flash_attention_fwd, fa.flash_attention_bwd
 
 
-def reset_fa_train_counters():
+def reset_train_counters():
+    """The FA and SSD kernels' launch counters, which the training phases
+    read."""
+    from repro_torch.kernels.ssd import kernel as ssd
     fwd, bwd = fa_bwd_counters()
     fwd.launches = bwd.launches = 0
     fwd.body_launches = dict.fromkeys(fwd.body_launches, 0)
     bwd.pass_launches = dict.fromkeys(bwd.pass_launches, 0)
     bwd.body_launches = dict.fromkeys(bwd.body_launches, 0)
+    ssd.ssd_chunks.launches = ssd.ssd_chunks_bwd.launches = 0
+    ssd.ssd_chunks.body_launches = dict.fromkeys(ssd.BODIES, 0)
 
 
-def read_fa_train_counters() -> dict:
+def read_train_counters() -> dict:
+    from repro_torch.kernels.ssd import kernel as ssd
     fwd, bwd = fa_bwd_counters()
     return {"fwd": fwd.launches, "fwd_bodies": dict(fwd.body_launches),
             "bwd": bwd.launches, "bwd_passes": dict(bwd.pass_launches),
-            "bwd_bodies": dict(bwd.body_launches)}
+            "bwd_bodies": dict(bwd.body_launches),
+            "ssd_fwd": ssd.ssd_chunks.launches,
+            "ssd_fwd_bodies": dict(ssd.ssd_chunks.body_launches),
+            "ssd_bwd": ssd.ssd_chunks_bwd.launches}
+
+
+def train_launches(torch, cfg, micro: int) -> tuple:
+    """(the FA and SSD launches ``micro`` microbatches of training make,
+    by body, in :func:`read_train_counters`' layout; the bodies: FA's
+    forward, FA's backward, SSD's forward).  Every layer is
+    rematted (its forward runs twice, its backward once) except zamba2's
+    shared attention block (one forward, one backward a call, as in the
+    reference); bf16 runs the tensor-core bodies (``fa_body`` /
+    ``fa_bwd_body``; SSD's forward ``"tc"``, the layout of the
+    projection's views being one it takes), f32 the CUDA-core ones."""
+    from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "hybrid":
+        fa_fwd = fa_bwd = cfg.n_layers // cfg.shared_every
+    elif cfg.family == "ssm":
+        fa_fwd = fa_bwd = 0
+    else:
+        fa_bwd = n_attention(cfg)
+        fa_fwd = 2 * fa_bwd
+    d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
+    dv = cfg.mla.v_head if cfg.mla else cfg.hd
+    body, bwd_body = fa.fa_body(dtype, d, dv), fa.fa_bwd_body(dtype, d, dv)
+    ssd_layers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    ssd_body = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    fa_fwd, fa_bwd, ssd_layers = (micro * v for v in (fa_fwd, fa_bwd,
+                                                       ssd_layers))
+    return ({"fwd": fa_fwd,
+             "fwd_bodies": {**dict.fromkeys(fa.BODIES, 0), body: fa_fwd},
+             "bwd": fa_bwd,
+             "bwd_passes": dict.fromkeys(fa.BWD_PASSES, fa_bwd),
+             "bwd_bodies": {**dict.fromkeys(fa.BWD_BODIES, 0),
+                            bwd_body: fa_bwd},
+             "ssd_fwd": 2 * ssd_layers,
+             "ssd_fwd_bodies": {**dict.fromkeys(ssd.BODIES, 0),
+                                ssd_body: 2 * ssd_layers},
+             "ssd_bwd": ssd_layers}, (body, bwd_body, ssd_body))
 
 
 def fa_bwd_hold(torch, dev, name, case, gen,
@@ -1568,34 +1654,25 @@ def n_attention(cfg) -> int:
 
 def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
     """``launch/train.py:train_lm`` on ``cfg`` (its depth already cut) on
-    the card: FA's launches must be, a step, 2 forwards (the forward and
-    remat's recomputation) and one backward (both passes) per attention and
-    microbatch, every forward and backward on the body ``fa_body`` /
-    ``fa_bwd_body`` names for the arch's dtype and head width (bf16: the
-    tensor-core bodies); every loss and gradient norm finite.  Returns the rows, the
-    launches a step and the peak memory."""
-    from repro_torch.kernels.attention import kernel as fa
+    the card: FA's and SSD's launches must be, a step, what
+    :func:`train_launches` names - for a rematted layer 2 forwards (the
+    forward and remat's recomputation) and one backward (FA's both
+    passes) per microbatch, every one on the body named for the arch's
+    dtype and widths (bf16: the tensor-core bodies); every loss and
+    gradient norm finite.  Returns the rows, the launches a step and the
+    peak memory."""
     from repro_torch.launch.train import train_lm
-    n = n_attention(cfg)
-    d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
-    dv = cfg.mla.v_head if cfg.mla else cfg.hd
-    body = fa.fa_body(getattr(torch, cfg.dtype), d, dv)
-    bwd_body = fa.fa_bwd_body(getattr(torch, cfg.dtype), d, dv)
+    expect, (body, bwd_body, _) = train_launches(torch, cfg, steps * accum)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_fa_train_counters()
+    reset_train_counters()
     run = train_lm(train_args(cfg.name, batch, seq, steps, accum, seed),
                    cfg_override=cfg)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    got = read_fa_train_counters()
-    per = steps * accum * n
-    want = {"fwd": 2 * per,
-            "fwd_bodies": {**dict.fromkeys(fa.BODIES, 0), body: 2 * per},
-            "bwd": per, "bwd_passes": dict.fromkeys(fa.BWD_PASSES, per),
-            "bwd_bodies": {**dict.fromkeys(fa.BWD_BODIES, 0), bwd_body: per}}
-    if got != want:
-        raise AssertionError(f"{cfg.name} training: FA launches {got}, "
-                             f"expected {want}")
+    got = read_train_counters()
+    if got != expect:
+        raise AssertionError(f"{cfg.name} training: FA / SSD launches "
+                             f"{got}, expected {expect}")
     rows = run["rows"]
     bad = [r for r in rows if not (math.isfinite(r["loss"])
                                    and math.isfinite(r["grad_norm"]))]
@@ -1611,83 +1688,87 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
                                      got["bwd_passes"].items()},
             "fa_bwd_bodies_a_step": {b_: c // steps for b_, c in
                                      got["bwd_bodies"].items()},
+            "ssd_fwd_a_step": got["ssd_fwd"] // steps,
+            "ssd_fwd_bodies_a_step": {b_: c // steps for b_, c in
+                                      got["ssd_fwd_bodies"].items()},
+            "ssd_bwd_a_step": got["ssd_bwd"] // steps,
             "fa_body": body, "fa_bwd_body": bwd_body, "peak_gib": peak}
 
 
-def train_parity(torch, dev, full, dtype) -> dict:
-    """T(b): ``full`` cut to TRAIN_PARITY_LAYERS layers
+def train_parity(torch, dev, full, dtype, layers=TRAIN_PARITY_LAYERS,
+                 tag="T(b)") -> dict:
+    """T(b) and V(b): ``full`` cut to ``layers`` layers
     (``launch/train.py:depth_cut``) in ``dtype``: the loss and every
     leaf's gradient through the kernels against the same computed with
-    ``flash_attention_plain`` and ``flash_attention_bwd_plain`` on the card
-    (the plain chain from the plain forward's own o and lse): in f32
-    within ``TRAIN_PARITY_BAR`` of each leaf's max |ref|; in bf16 both
+    their plain versions on the card (``flash_attention_plain`` /
+    ``flash_attention_bwd_plain``, the plain chain from the plain forward's
+    own o and lse; ``ssd_chunks_plain`` / ``ssd_chunks_bwd_plain``): in
+    f32 within ``TRAIN_PARITY_BAR`` of each leaf's max |ref|; in bf16 both
     against the plain path in f32 on the same bf16-valued weights, the
     kernels' error at most ``TRAIN_BF16_RATIO`` times the plain bf16
-    path's.  Holds the autograd Function's wiring and the forward body's
-    lse."""
+    path's.  Holds the autograd Functions' wiring and the forward body's
+    lse; the kernels' launches must be :func:`train_launches`'."""
     import dataclasses
 
     from repro_torch.data.tokens import synthetic_batches, to_tensors
     from repro_torch.kernels.attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.launch.train import depth_cut
     from repro_torch.models import lm
     from repro_torch.utils.tree import tree_cast, tree_leaves, tree_unflatten
-    cfg = dataclasses.replace(depth_cut(full, TRAIN_PARITY_LAYERS),
-                              dtype=dtype)
-    d = cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla else cfg.hd
-    dv = cfg.mla.v_head if cfg.mla else cfg.hd
-    body = fa.fa_body(getattr(torch, dtype), d, dv)
-    bwd_body = fa.fa_bwd_body(getattr(torch, dtype), d, dv)
+    cfg = dataclasses.replace(depth_cut(full, layers), dtype=dtype)
+    want, (body, bwd_body, ssd_body) = train_launches(torch, cfg, 1)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
         17), tp=1, device=dev)
     batch = to_tensors(next(synthetic_batches(cfg, 1, TRAIN_PARITY_S, 17)),
                        dev)
+    kernels = ((fa, "flash_attention_fwd", "flash_attention_plain"),
+               (fa, "flash_attention_bwd", "flash_attention_bwd_plain"),
+               (ssd, "ssd_chunks", "ssd_chunks_plain"),
+               (ssd, "ssd_chunks_bwd", "ssd_chunks_bwd_plain"))
 
     def loss_and_grads(c, tree, plain=False):
         # a gradient is None for a leaf no layer reads (an empty MoE stack)
-        real = fa.flash_attention_fwd, fa.flash_attention_bwd
+        real = [getattr(mod, name) for mod, name, _ in kernels]
         if plain:
-            fa.flash_attention_fwd = fa.flash_attention_plain
-            fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+            for mod, name, plain_name in kernels:
+                setattr(mod, name, getattr(mod, plain_name))
         try:
             ps = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
             loss = lm.make_loss_fn(c, remat=True)(tree_unflatten(tree, ps),
                                                   batch)
             grads = torch.autograd.grad(loss, ps, allow_unused=True)
         finally:
-            fa.flash_attention_fwd, fa.flash_attention_bwd = real
+            for (mod, name, _), fn in zip(kernels, real):
+                setattr(mod, name, fn)
         return float(loss.detach()), grads
 
     def leaf_errs(got, want):
         if [g is None for g in got] != [g is None for g in want]:
-            raise AssertionError(f"T(b) {cfg.name} {dtype}: the paths "
+            raise AssertionError(f"{tag} {cfg.name} {dtype}: the paths "
                                  "differentiate different leaves")
         return [rel_err(a.float(), b.float()) for a, b in zip(got, want)
                 if a is not None]
 
-    reset_fa_train_counters()
+    reset_train_counters()
     loss_k, grads_k = loss_and_grads(cfg, params)
     torch.cuda.synchronize()
-    launches = read_fa_train_counters()
-    want = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
-    if {k: launches[k] for k in want} != want or \
-            launches["fwd_bodies"][body] != want["fwd"] or \
-            launches["bwd_bodies"][bwd_body] != want["bwd"]:
-        raise AssertionError(f"T(b) {cfg.name} {dtype}: FA launches "
-                             f"{launches}, expected {want}, forwards on "
-                             f"{body}, backwards on {bwd_body}")
+    launches = read_train_counters()
+    if launches != want:
+        raise AssertionError(f"{tag} {cfg.name} {dtype}: FA / SSD launches "
+                             f"{launches}, expected {want}")
     loss_p, grads_p = loss_and_grads(cfg, params, plain=True)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     errs = leaf_errs(grads_k, grads_p)
     worst = [tuple(g.shape) for g in grads_k if g is not None][
         errs.index(max(errs))]
-    out = {"arch": cfg.name, "dtype": dtype, "body": body,
-           "bwd_body": bwd_body,
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": dtype,
+           "body": body, "bwd_body": bwd_body, "ssd_body": ssd_body,
            "loss_rel_err": loss_err, "grad_max_rel_err": max(errs),
            "worst_leaf_shape": worst, "leaves": len(errs),
            "launches": launches}
-    head = (f"  T(b) {cfg.name} {cfg.n_layers} layers {dtype} ({body}, "
-            f"backward {bwd_body}), "
+    head = (f"  {tag} {cfg.name} {cfg.n_layers} layers {dtype} (FA {body}, "
+            f"backward {bwd_body}; SSD {ssd_body}), "
             f"B=1 x S={TRAIN_PARITY_S}: loss {loss_k:.6f} vs plain "
             f"{loss_p:.6f} (rel {loss_err:.3e}); worst leaf gradient rel "
             f"err {max(errs):.3e} (a {worst} leaf) over {len(errs)} "
@@ -1695,7 +1776,7 @@ def train_parity(torch, dev, full, dtype) -> dict:
     if dtype == "float32":
         log(f"{head} (bar {TRAIN_PARITY_BAR:g})")
         if not (loss_err < TRAIN_PARITY_BAR and max(errs) < TRAIN_PARITY_BAR):
-            raise AssertionError(f"T(b) {cfg.name}: loss {loss_err:.3e}, "
+            raise AssertionError(f"{tag} {cfg.name}: loss {loss_err:.3e}, "
                                  f"gradients {max(errs):.3e} >= "
                                  f"{TRAIN_PARITY_BAR:g}")
         return out
@@ -1713,7 +1794,7 @@ def train_parity(torch, dev, full, dtype) -> dict:
         f"{ratio:.3f} (bar {TRAIN_BF16_RATIO:g}; loss bar "
         f"{TRAIN_BF16_LOSS_BAR:g})")
     if not (loss_err < TRAIN_BF16_LOSS_BAR and ratio <= TRAIN_BF16_RATIO):
-        raise AssertionError(f"T(b) {cfg.name} {dtype}: loss {loss_err:.3e}"
+        raise AssertionError(f"{tag} {cfg.name} {dtype}: loss {loss_err:.3e}"
                              f", kernel / plain error against f32 {ratio:.3f}"
                              f" > {TRAIN_BF16_RATIO:g}")
     out.update(loss_f32=loss_32, grad_max_rel_err_f32_kernel=max(errs_k),
@@ -1832,6 +1913,255 @@ def lm_train_phases(torch, dev, ptxas, fa_row) -> tuple:
     log(f"phases S-T: S {s['seconds']:.1f} s, T {t['phase_s']} s, "
         f"{s_total:.1f} s together")
     return {"fa_bwd": s, "train": t, "seconds": s_total}, row
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 and Zamba2 training (phases U-V): the SSD backward kernel, and the
+# ssm and hybrid families trained through SSD's forward and backward kernels
+# ---------------------------------------------------------------------------
+
+# phase U: the backward kernel at phase V's training shapes (bs, s, h, p,
+# g, n, chunk): mamba2-2.7b's N = 128 and zamba2-2.7b's N = 64, 80 heads of
+# 64 over one group, B = 2 x S = 4,096
+SSD_BWD_TRAIN_CASES = {
+    "mamba2_n128": (2, 4096, 80, 64, 1, 128, 128),
+    "zamba2_n64": (2, 4096, 80, 64, 1, 64, 128),
+}
+SSD_BWD_MAIN = "mamba2_n128"
+# each output's f32 gradient (before the cast to its input's dtype)
+# against the plain version's, of its max |ref|: bf16 inputs as phase 9
+# holds SSD's forward (both sides sum in f32 from the same bf16 values)
+SSD_BWD_BAR = {"float32": 1e-4, "bfloat16": 5e-4}
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "db", "dc")
+PTXAS_SSD_BWD = {"bfloat16": ("ssd_chunks_bwd",
+                              "ssd_chunk_bwd_kernelI13__nv_bfloat16E"),
+                 "float32": ("ssd_chunks_bwd", "ssd_chunk_bwd_kernelIfE")}
+SSM_TRAIN_ARCH = "mamba2-2.7b"
+HYBRID_TRAIN_ARCH = "zamba2-2.7b"
+HYBRID_TRAIN_STEPS = 3
+# V(b): (arch, layers) in f32 and bf16 at B=1 x S=1024: mamba2's 2 Mamba-2
+# layers; zamba2's 6, one shared-block call (d = 80)
+SSM_PARITY = (("mamba2-2.7b", 2), ("zamba2-2.7b", 6))
+
+
+def ssd_bwd_inputs(torch, dev, case, dtype, gen) -> tuple:
+    """The backward's inputs at ``case``: x, b and c strided views of one
+    (B, S, H P + 2 G N) buffer, as the model's projection split hands them
+    over; dt = softplus of a normal draw, a = -linspace(1, 16, H) (the
+    model's initial decays); ``cum`` from the forward kernel; f32 normal
+    gradients of the three outputs."""
+    from repro_torch.kernels.ssd import kernel as ssd
+    bs, s, h, p, g, n, L = case
+    d_in = h * p
+    xbc = (0.5 * torch.randn((bs, s, d_in + 2 * g * n), generator=gen,
+                             device=dev)).to(getattr(torch, dtype))
+    x = xbc[..., :d_in].view(bs, s, h, p)
+    b = xbc[..., d_in:d_in + g * n].view(bs, s, g, n)
+    c = xbc[..., d_in + g * n:].view(bs, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((bs, s, h), generator=gen,
+                                                  device=dev))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    y, st, cum = ssd.ssd_chunks(x, dt, a, b, c, chunk=L)
+    grads = [torch.randn(t.shape, generator=gen, device=dev)
+             for t in (y, st, cum)]
+    del y, st
+    return (x, dt, a, b, c, cum, *grads)
+
+
+def ssd_bwd_hold(torch, dev, name, case, dtype, gen) -> dict:
+    """The backward kernel against ``ssd_chunks_bwd_plain`` on the same
+    inputs, each f32 gradient within ``SSD_BWD_BAR`` of its max |ref|, two
+    kernel calls ``torch.equal``, the cast gradients in their inputs'
+    dtypes.  Returns the errors and the inputs."""
+    from repro_torch.kernels.ssd import kernel as ssd
+    L = case[6]
+    args = ssd_bwd_inputs(torch, dev, case, dtype, gen)
+    got = ssd.ssd_chunks_bwd(*args, chunk=L, cast=False)
+    again = ssd.ssd_chunks_bwd(*args, chunk=L, cast=False)
+    cast = ssd.ssd_chunks_bwd(*args, chunk=L)
+    want = ssd.ssd_chunks_bwd_plain(*args, chunk=L, cast=False)
+    torch.cuda.synchronize()
+    errs, abs_errs = [], []
+    for oname, g, a, w, cg, t in zip(SSD_BWD_OUTPUTS, got, again, want,
+                                     cast, args):
+        if not torch.equal(g, a):
+            raise AssertionError(f"SSD bwd {name} {oname} {dtype}: two "
+                                 "calls differ")
+        if cg.dtype != t.dtype or not torch.equal(cg, g.to(t.dtype)):
+            raise AssertionError(f"SSD bwd {name} {oname} {dtype}: the "
+                                 "cast gradient is not the f32 one cast")
+        errs.append(check(f"SSD bwd {name} {oname} {dtype}", g, w,
+                          SSD_BWD_BAR[dtype]))
+        abs_errs.append(float((g - w).abs().max()))
+    del got, again, cast, want
+    return {dtype: max(errs), f"abs_{dtype}": max(abs_errs),
+            "args": args}
+
+
+def ssd_bwd_timed(torch, dev, name, case, args, ptxas) -> dict:
+    """The bf16 backward kernel at a training shape timed with CUDA events
+    beside its plain version and the bound (``launch/roofline.py:
+    ssd_bwd_work``: its inputs read once, its gradients written once at
+    their inputs' widths; the least products at the bf16 dense peak).  No
+    single PyTorch call computes the function: no library time."""
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.launch import roofline
+    L = case[6]
+    ms = time_ms(torch, lambda: ssd.ssd_chunks_bwd(*args, chunk=L), 5)
+    plain = time_ms(torch, lambda: ssd.ssd_chunks_bwd_plain(*args, chunk=L),
+                    1)
+    nb, flops = roofline.ssd_bwd_work(*args, chunk=L)
+    bd = roofline.bound(nb, flops, "bfloat16")
+    ptx = ptxas_of(ptxas, *PTXAS_SSD_BWD["bfloat16"])
+    log(f"  SSD bwd {name}: {ms:.3f} ms, plain {plain:.1f} ms, library "
+        f"none; {nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
+        f"{100 * bd['bound_ms'] / ms:.2f}% of the kernel's time; ptxas {ptx}")
+    return {"ms": ms, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "bytes": nb, "flops": flops, "ptxas": ptx}
+
+
+def phase_ssd_bwd(torch, dev, ptxas) -> dict:
+    """Phase U: the SSD backward kernel against its plain version on the
+    SSD sweep's cases (G = 1, 2, 4; f32 and bf16) and at phase V's training
+    shapes in f32 and bf16, timed there in bf16."""
+    t0 = time.perf_counter()
+    reps = {dt: ptxas_of(ptxas, *parts) for dt, parts in
+            PTXAS_SSD_BWD.items()}
+    log(f"  SSD bwd ptxas {reps}")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {"sweep": {}, "train": {}, "ptxas": reps}
+    for i, (bs, s, h, p, g, n, chunk, dtype) in enumerate(SSD_SWEEP):
+        r = ssd_bwd_hold(torch, dev, f"sweep{i}", (bs, s, h, p, g, n, chunk),
+                         dtype, gen)
+        r.pop("args")
+        out["sweep"][f"sweep{i}_{dtype}"] = r
+    for name, case in SSD_BWD_TRAIN_CASES.items():
+        r = ssd_bwd_hold(torch, dev, name, case, "float32", gen)
+        r.pop("args")
+        rb = ssd_bwd_hold(torch, dev, name, case, "bfloat16", gen)
+        r.update(rb)
+        r.update(ssd_bwd_timed(torch, dev, name, case, r.pop("args"),
+                               ptxas))
+        out["train"][name] = r
+        torch.cuda.empty_cache()
+    held = [*out["sweep"].values(), *out["train"].values()]
+    out["max_rel_err"] = {dt: max(r[dt] for r in held if dt in r)
+                          for dt in SSD_BWD_BAR}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase U: worst {out['max_rel_err']} in {out['seconds']:.1f} s")
+    return out
+
+
+def phase_ssm_train(torch, dev) -> dict:
+    """Phase V: (a) mamba2-2.7b at full width, its depth by
+    ``train_depth`` (every layer fits TRAIN_BUDGET_GIB), TRAIN_STEPS steps
+    through the launcher; (b) the gradient parity of ``SSM_PARITY`` in f32
+    and bf16; (c) zamba2-2.7b at full width the same way, HYBRID_TRAIN_STEPS
+    steps."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train_depth
+    t_start = time.perf_counter()
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    full = configs.get(SSM_TRAIN_ARCH)
+    cfg, gib = train_depth(full, TRAIN_BUDGET_GIB)
+    log(f"phase V(a): {cfg.name} full width, depth {cfg.n_layers} of "
+        f"{full.n_layers} ({gib:.2f} GiB of training state by the meta "
+        f"estimate), B={TRAIN_B} x S={TRAIN_S} a microbatch, accum "
+        f"{TRAIN_ACCUM}, remat, {TRAIN_STEPS} steps")
+    run = train_run(torch, dev, cfg, TRAIN_B * TRAIN_ACCUM, TRAIN_S,
+                    TRAIN_STEPS, TRAIN_ACCUM, 21)
+    losses = [r["loss"] for r in run["rows"]]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        raise AssertionError(f"V(a): loss did not fall: {losses}")
+    steady = sorted(r["s"] for r in run["rows"][1:])
+    med = steady[len(steady) // 2]
+    run.update(estimate_gib=gib, full_layers=full.n_layers,
+               step_s_median=med,
+               tokens_per_s=TRAIN_B * TRAIN_ACCUM * TRAIN_S / med,
+               loss_first3=first, loss_last3=last)
+    log(f"  V(a): losses {[round(x, 4) for x in losses]}; step median "
+        f"{med:.3f} s = {run['tokens_per_s']:.1f} tokens/s; peak "
+        f"{run['peak_gib']:.2f} GiB; SSD {run['ssd_fwd_a_step']} forwards "
+        f"({run['ssd_fwd_bodies_a_step']}) and {run['ssd_bwd_a_step']} "
+        f"backwards a step; FA {run['fa_fwd_a_step']}")
+    out[SSM_TRAIN_ARCH] = run
+    times["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"phase V(b): {SSM_PARITY} in f32 and bf16: kernels against plain "
+        "versions under autograd")
+    out["parity"] = [train_parity(torch, dev, configs.get(arch), dtype,
+                                  layers=layers, tag="V(b)")
+                     for arch, layers in SSM_PARITY
+                     for dtype in ("float32", "bfloat16")]
+    times["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    full = configs.get(HYBRID_TRAIN_ARCH)
+    cfg, gib = train_depth(full, TRAIN_BUDGET_GIB)
+    log(f"phase V(c): {cfg.name} full width, depth {cfg.n_layers} of "
+        f"{full.n_layers} ({gib:.2f} GiB estimate), B={TRAIN_B} x "
+        f"S={TRAIN_S} a microbatch, accum {TRAIN_ACCUM}, "
+        f"{HYBRID_TRAIN_STEPS} steps")
+    r = train_run(torch, dev, cfg, TRAIN_B * TRAIN_ACCUM, TRAIN_S,
+                  HYBRID_TRAIN_STEPS, TRAIN_ACCUM, 22)
+    steady = sorted(x["s"] for x in r["rows"][1:])
+    med = steady[len(steady) // 2]
+    r.update(estimate_gib=gib, full_layers=full.n_layers, step_s_median=med,
+             tokens_per_s=TRAIN_B * TRAIN_ACCUM * TRAIN_S / med)
+    log(f"  V(c): losses {[round(x['loss'], 4) for x in r['rows']]}, gnorm "
+        f"{[round(x['grad_norm'], 3) for x in r['rows']]}; step median "
+        f"{med:.3f} s = {r['tokens_per_s']:.1f} tokens/s; peak "
+        f"{r['peak_gib']:.2f} GiB; SSD {r['ssd_fwd_a_step']} forwards and "
+        f"{r['ssd_bwd_a_step']} backwards a step; FA {r['fa_fwd_a_step']} "
+        f"forwards ({r['fa_body']}) and {r['fa_bwd_a_step']} backwards "
+        f"({r['fa_bwd_body']})")
+    out[HYBRID_TRAIN_ARCH] = r
+    times["c"] = time.perf_counter() - t0
+    out["phase_s"] = times
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def ssm_train_phases(torch, dev, ptxas, ssd_row) -> tuple:
+    """Phases U and V; returns ({"ssd_bwd": U, "train": V}, the SSD
+    backward kernel's row of the kernels line) and adds phase V's SSD
+    forward launches to ``ssd_row``."""
+    log("phase U: the SSD backward kernel against its plain version")
+    u = phase_ssd_bwd(torch, dev, ptxas)
+    v = phase_ssm_train(torch, dev)
+    main = u["train"][SSD_BWD_MAIN]
+    run, hyb = v[SSM_TRAIN_ARCH], v[HYBRID_TRAIN_ARCH]
+    meta = KERNELS["ssd_chunks_bwd"]
+    row = {"name": "ssd_chunks_bwd", "route": "cuda",
+           "source": meta["source"], "replaces": meta["replaces"],
+           "launches": run["ssd_bwd_a_step"],
+           "launches_per": "a phase-V(a) mamba2-2.7b training step",
+           "launches_zamba2": hyb["ssd_bwd_a_step"],
+           "body": "cuda_core",
+           "max_abs_err": main["abs_bfloat16"],
+           "max_rel_err_f32": u["max_rel_err"]["float32"],
+           "max_rel_err_bf16": u["max_rel_err"]["bfloat16"],
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
+           "library_ms": None, "library": "none (no single PyTorch call)",
+           "ptxas": main["ptxas"], "ptxas_f32": u["ptxas"]["float32"]}
+    for name, r in u["train"].items():
+        if name != SSD_BWD_MAIN:
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                row[f"{key}_{name}"] = r[key]
+    ssd_row["launches_train"] = run["ssd_fwd_a_step"]
+    ssd_row["launches_train_zamba2"] = hyb["ssd_fwd_a_step"]
+    total = u["seconds"] + v["seconds"]
+    log(f"phases U-V: U {u['seconds']:.1f} s, V {v['phase_s']} s, "
+        f"{total:.1f} s together")
+    return {"ssd_bwd": u, "train": v, "seconds": total}, row
 
 
 # ---------------------------------------------------------------------------
@@ -4635,8 +4965,13 @@ def main(argv) -> int:
         fa_row = {"name": "flash_attention_fwd"}
         lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, fa_row)
         print(json.dumps({"lm_train": lm_train}), flush=True)
+        torch.cuda.empty_cache()
+        ssd_row = {"name": "ssd_chunks"}
+        ssm_train, ssd_bwd_row = ssm_train_phases(torch, dev, ptxas, ssd_row)
+        print(json.dumps({"ssm_train": ssm_train}), flush=True)
         print(card, flush=True)
-        print(json.dumps({"kernels": [fa_row, bwd_row]}), flush=True)
+        print(json.dumps({"kernels": [fa_row, bwd_row, ssd_row,
+                                      ssd_bwd_row]}), flush=True)
         return 0
 
     # ---- phase 2: kernels vs plain versions, 4,096 atoms --------------------
@@ -4855,6 +5190,11 @@ def main(argv) -> int:
     lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, rows[-1])
     rows.append(bwd_row)
     print(json.dumps({"lm_train": lm_train}), flush=True)
+    torch.cuda.empty_cache()
+    ssd_row = next(r for r in rows if r["name"] == "ssd_chunks")
+    ssm_train, ssd_bwd_row = ssm_train_phases(torch, dev, ptxas, ssd_row)
+    rows.append(ssd_bwd_row)
+    print(json.dumps({"ssm_train": ssm_train}), flush=True)
     torch.cuda.empty_cache()
     surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
                                                     moments, kern)}

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ``ctypes``.
 
 Each ``.cu`` source under ``kernels/*/csrc/`` (NEP K1 and K2, the SSD
-chunk step, flash attention's forward and backward) becomes its own
+chunk step's forward and backward, flash attention's forward and
+backward) becomes its own
 shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -30,6 +31,8 @@ SOURCES = {
     "nep_atom_pass": PKG_DIR / "kernels" / "nep" / "csrc" / "nep_atom_pass.cu",
     "nep_force_pass": PKG_DIR / "kernels" / "nep" / "csrc" / "nep_force_pass.cu",
     "ssd_chunks": PKG_DIR / "kernels" / "ssd" / "csrc" / "ssd_chunks.cu",
+    "ssd_chunks_bwd": (PKG_DIR / "kernels" / "ssd" / "csrc"
+                       / "ssd_chunks_bwd.cu"),
     "flash_attention_fwd": (PKG_DIR / "kernels" / "attention" / "csrc"
                             / "flash_attention_fwd.cu"),
     "flash_attention_bwd": (PKG_DIR / "kernels" / "attention" / "csrc"

@@ -32,9 +32,10 @@
 //   so ldmatrix's eight row addresses fall in eight bank groups): ~57 KB
 //   at L = 128, N = P = 64, so three to four blocks share an SM and one
 //   block's loads overlap another's products.  While the copies fly, one
-//   warp scans cum in f32 from dt.  Each warp then owns two 16-row tiles
-//   of y, l-tiles w and L/16 - 1 - w (the causal triangle's short and long
-//   rows, so the warps' work is even); for each 16-column tile m <= l it
+//   warp scans cum from dt (scan_cum: f64 sums, rounded once).  Each warp
+//   then owns two 16-row tiles of y, l-tiles w and L/16 - 1 - w (the
+//   causal triangle's short and long rows, so the warps' work is even);
+//   for each 16-column tile m <= l it
 //   forms S = C B^T (C's A fragments held in registers through ldmatrix,
 //   B by ldmatrix), turns the f32 accumulators into W in registers
 //   (mask, then e^{cum_l - cum_m} dt_m), splits W into bf16 hi + lo
@@ -59,7 +60,7 @@
 //   (2 x 33 KB), x (32 KB), the L x L weights (64 KB) and cum/dt, 163 KB
 //   of the 227 KB a block may use, so one block per SM and no overlap of
 //   one block's loads with another's products.  It scans cum with one
-//   warp, then
+//   warp (scan_cum), then
 //   1. W = (C B^T) o decay o dt over the lower-triangular 4x4 tiles only
 //      (tiles above the diagonal stay zero);
 //   2. y_intra = W x, each 4x4 tile summing only m <= l;
@@ -99,6 +100,40 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float s,
   acc[1] = fmaf(s, v.y, acc[1]);
   acc[2] = fmaf(s, v.z, acc[2]);
   acc[3] = fmaf(s, v.w, acc[3]);
+}
+
+// cum[l] = sum_{j <= l} dt[j] a for one warp (lane = its lane): each step
+// dt[j] a rounded to f32, the running sum taken in f64 (a serial run per
+// lane, then a shuffle scan) and rounded once.  Over a chunk |cum| reaches
+// ~1,400, where an f32 running sum drifts by ~1e-4 and e^{cum_l - cum_m}
+// with it; the f64 sum gives the same bits in any order, so the plain
+// version (an f64 cumsum, rounded once) and the backward agree with it.
+__device__ __forceinline__ void scan_cum(const float* dts, float ah,
+                                         float* cum, int L, int lane) {
+  const int per = (L + 31) / 32, l0 = lane * per;
+  double run = 0.0;
+  for (int j = 0; j < per; ++j) {
+    const int l = l0 + j;
+    if (l < L) {
+      const float step = dts[l] * ah;
+      run += (double)step;
+    }
+  }
+  double tot = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot += v;
+  }
+  double acc = __shfl_up_sync(0xffffffffu, tot, 1);   // lanes before this
+  if (lane == 0) acc = 0.0;
+  for (int j = 0; j < per; ++j) {
+    const int l = l0 + j;
+    if (l < L) {
+      const float step = dts[l] * ah;
+      acc += (double)step;
+      cum[l] = (float)acc;
+    }
+  }
 }
 
 template <typename T>
@@ -150,28 +185,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   // ---- cum: one warp, a serial run per lane then a shuffle scan ----------
-  if (tid < 32) {
-    const float ah = a[h];
-    const int per = (L + 31) / 32, l0 = tid * per;
-    float run = 0.f;
-    for (int j = 0; j < per; ++j) {
-      const int l = l0 + j;
-      if (l < L) {
-        run += dts[l] * ah;
-        cum[l] = run;
-      }
-    }
-    float tot = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, tot, off);
-      if (tid >= off) tot += v;
-    }
-    const float before = tot - run;
-    for (int j = 0; j < per; ++j) {
-      const int l = l0 + j;
-      if (l < L) cum[l] += before;
-    }
-  }
+  if (tid < 32) scan_cum(dts, a[h], cum, L, tid);
   __syncthreads();
   const long long tile = (long long)bi * d.nc + ci;
   for (int l = tid; l < L; l += THREADS)
@@ -442,28 +456,8 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   for (int l = tid; l < L; l += THREADS)
     dts[l] = dt[((long long)bi * S + s0 + l) * H + h];
   __syncthreads();
-  if (warp == 0) {          // cum: a serial run per lane, then a shuffle scan
-    const float ah = a[h];
-    const int per = (L + 31) / 32, l0 = lane * per;
-    float run = 0.f;
-    for (int j = 0; j < per; ++j) {
-      const int l = l0 + j;
-      if (l < L) {
-        run += dts[l] * ah;
-        cum[l] = run;
-      }
-    }
-    float tot = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, tot, off);
-      if (lane >= off) tot += v;
-    }
-    const float before = tot - run;
-    for (int j = 0; j < per; ++j) {
-      const int l = l0 + j;
-      if (l < L) cum[l] += before;
-    }
-  }
+  if (warp == 0)            // cum: a serial run per lane, then a shuffle scan
+    ssd::scan_cum(dts, a[h], cum, L, lane);
   __syncthreads();
   for (int l = tid; l < L; l += THREADS) {
     cum_out[(tile * L + l) * H + h] = cum[l];

@@ -15,6 +15,14 @@ Unlike the reference, both take B and C per group, (B, S, G, N): head h
 reads group h // (H/G), so nothing is repeated over heads.  x may be a
 strided view (the projection split) as long as each row's (H, P) block is
 contiguous; B and C likewise with their (G, N) block.
+
+The gradient: ``ssd_chunks_bwd`` (``csrc/ssd_chunks_bwd.cu``, f32 products
+on the CUDA cores, deterministic) with its plain version
+``ssd_chunks_bwd_plain``, dispatched the same way and counted in
+``ssd_chunks_bwd.launches``.  The reference has no SSD backward kernel (it
+differentiates its jnp ``ssd_chunked``).  :func:`ssd_chunk_step` is what
+the models call: the forward kernel alone when no input needs a gradient,
+else the autograd Function whose backward runs ``ssd_chunks_bwd``.
 """
 from __future__ import annotations
 
@@ -32,19 +40,36 @@ BODIES = ("tc", "cuda_core")
 TC_MAX = 128          # the tensor-core body's bound on chunk, N and P
 
 
+def _work_dtype(*tensors):
+    """f32 for f32 / bf16 inputs; f64 when one is f64 (the plain versions'
+    f64 mode, which the CPU tests hold against autograd)."""
+    wd = torch.float32
+    for t in tensors:
+        wd = torch.promote_types(wd, t.dtype)
+    return wd
+
+
 def ssd_chunks_plain(x, dt, a, b, c, *, chunk: int):
     """The per-chunk einsums of the reference kernel, vectorised over
     (B, NC).  x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, b/c (B,S,G,N) ->
-    (y_intra (B,NC,L,H,P), states (B,NC,H,N,P), cum (B,NC,L,H)), all f32."""
+    (y_intra (B,NC,L,H,P), states (B,NC,H,N,P), cum (B,NC,L,H)), all f32
+    (f64 for f64 inputs)."""
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep, nc, L = h // g, s // chunk, chunk
-    xr = x.float().reshape(bs, nc, L, g, rep, p)
-    dtr = dt.float().reshape(bs, nc, L, g, rep)
-    br = b.float().reshape(bs, nc, L, g, n)
-    cr = c.float().reshape(bs, nc, L, g, n)
+    wd = _work_dtype(x, dt, a, b, c)
+    xr = x.to(wd).reshape(bs, nc, L, g, rep, p)
+    dtr = dt.to(wd).reshape(bs, nc, L, g, rep)
+    br = b.to(wd).reshape(bs, nc, L, g, n)
+    cr = c.to(wd).reshape(bs, nc, L, g, n)
 
-    cum = torch.cumsum(dtr * a.float().reshape(g, rep), dim=2)
+    # each chunk's running sum of the f32 steps dt * a taken in f64 and
+    # rounded once, as the kernel's scan does: the same bits in any order
+    # while the f64 sums are exact (over a chunk |cum| reaches ~1,400,
+    # where an f32 running sum drifts by ~1e-4 and e^{cum_l - cum_m} with
+    # it, in an order each implementation picks)
+    cum = torch.cumsum((dtr * a.to(wd).reshape(g, rep)).double(),
+                       dim=2).to(wd)
     seg = cum[:, :, :, None] - cum[:, :, None, :]       # (B,NC,L,L,G,R)
     li = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     # mask before the exponential: masked entries would overflow to inf
@@ -57,6 +82,86 @@ def ssd_chunks_plain(x, dt, a, b, c, *, chunk: int):
     st = torch.einsum("bclgr,bclgn,bclgrp->bcgrnp", dte, br, xr)
     return (y.reshape(bs, nc, L, h, p), st.reshape(bs, nc, h, n, p),
             cum.reshape(bs, nc, L, h))
+
+
+def ssd_chunks_bwd_plain(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
+                         cast: bool = True):
+    """The gradient of :func:`ssd_chunks_plain` written out, vectorised over
+    (B, NC): ``dy`` (B,NC,L,H,P), ``dst`` (B,NC,H,N,P) and ``dcum``
+    (B,NC,L,H) are the gradients of its three outputs, ``cum`` its third
+    output.  Returns (dx, ddt, da, db, dc) in their inputs' dtypes, every
+    sum taken in f32 or wider (f64 for f64 inputs).  Per (batch, chunk,
+    head), with W_lm = (c_l . b_m) e^{cum_l - cum_m} dt_m on m <= l and
+    dte_m = e^{cum_{L-1} - cum_m} dt_m:
+
+    * dX = W^T dY + diag(dte) B dS;  dW = dY X^T;  dS' = dW o E o dt_m;
+      dC = dS' B;  dB = dS'^T C + diag(dte) X dS^T;
+    * d(dt) from W (sum_l dW o C B^T o E), from dte, and a times the
+      reverse cumulative sum of dcum;
+    * dseg = dW o W adds to dcum by rows and subtracts by columns, the
+      state adds sum_m G_m dte_m to dcum_{L-1} and subtracts G_m dte_m
+      from dcum_m (G_m = sum_{n,p} b_mn x_mp dS_np), the incoming ``dcum``
+      adds; d(dt a)_j = sum_{l >= j} dcum_l.  Terms that cancel exactly
+      (dseg's diagonal, the state term of m = L-1) are left out, and the
+      state term's sum, the reverse scan and da run in f64, as in the
+      kernel.
+
+    dB and dC are summed over the heads of each group, da over (B, NC, L).
+    ``cast=False`` returns every gradient in the working dtype instead.
+    """
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep, nc, L = h // g, s // chunk, chunk
+    wd = _work_dtype(x, dt, a, b, c)
+    xr = x.to(wd).reshape(bs, nc, L, g, rep, p)
+    dtr = dt.to(wd).reshape(bs, nc, L, g, rep)
+    br = b.to(wd).reshape(bs, nc, L, g, n)
+    cr = c.to(wd).reshape(bs, nc, L, g, n)
+    cumr = cum.to(wd).reshape(bs, nc, L, g, rep)
+    dyr = dy.to(wd).reshape(bs, nc, L, g, rep, p)
+    dstr = dst.to(wd).reshape(bs, nc, g, rep, n, p)
+    dcumr = dcum.to(wd).reshape(bs, nc, L, g, rep)
+
+    seg = cumr[:, :, :, None] - cumr[:, :, None, :]     # (B,NC,L,L,G,R)
+    li = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    lim = li[:, :, None, None]
+    e = torch.exp(torch.where(lim, seg, -1e30))          # 0 above the diagonal
+    cb = torch.einsum("bclgn,bcmgn->bclmg", cr, br)[..., None]
+    w = cb * e * dtr[:, :, None]
+    dw = torch.where(lim, torch.einsum("bclgrp,bcmgrp->bclmgr", dyr, xr),
+                     0.0)
+    dsc = dw * e * dtr[:, :, None]                       # d(c_l . b_m)
+    dx = torch.einsum("bclmgr,bclgrp->bcmgrp", w, dyr)
+    dc = torch.einsum("bclmgr,bcmgn->bclgn", dsc, br)
+    db = torch.einsum("bclmgr,bclgn->bcmgn", dsc, cr)
+    ddt = (dw * cb * e).sum(2)                           # over l
+    strict = torch.ones((L, L), dtype=torch.bool,
+                        device=x.device).tril(-1)[:, :, None, None]
+    dseg = torch.where(strict, dw * w, 0.0)
+    dcum_all = dcumr + dseg.sum(3) - dseg.sum(2)
+
+    dec = torch.exp(cumr[:, :, -1:] - cumr)              # (B,NC,L,G,R)
+    dte = dec * dtr
+    dx = dx + torch.einsum("bclgr,bclgn,bcgrnp->bclgrp", dte, br, dstr)
+    db = db + torch.einsum("bclgr,bclgrp,bcgrnp->bclgn", dte, xr, dstr)
+    gm = torch.einsum("bclgn,bclgrp,bcgrnp->bclgr", br, xr, dstr)
+    ddt = ddt + gm * dec
+    gd = gm * dte
+    dcum_all = torch.cat(
+        [dcum_all[:, :, :-1] - gd[:, :, :-1],
+         dcum_all[:, :, -1:] + gd[:, :, :-1].double().sum(
+             2, keepdim=True).to(wd)], dim=2)
+    rcum = torch.flip(torch.cumsum(torch.flip(dcum_all.double(), [2]), 2),
+                      [2])
+    ddt = ddt + rcum.to(wd) * a.to(wd).reshape(g, rep)
+    da = (rcum * dtr.double()).sum((0, 1, 2)).reshape(h).to(wd)
+    out = (dx.reshape(bs, s, h, p), ddt.reshape(bs, s, h), da,
+           db.reshape(bs, s, g, n), dc.reshape(bs, s, g, n))
+    return _cast_grads(out, (x, dt, a, b, c)) if cast else out
+
+
+def _cast_grads(grads, inputs):
+    return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
 
 
 def tc_takes(chunk: int, p: int, n: int, pointers, strides) -> bool:
@@ -101,6 +206,12 @@ def _check(x, dt, a, b, c):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunks runs on CUDA or CPU tensors, got "
                          f"{x.device}")
+    check_inputs(x, dt, a, b, c)
+
+
+def check_inputs(x, dt, a, b, c) -> None:
+    """The kernels' rules on dtype, shape and layout, on any device: raise
+    on what they do not take."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_chunks takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -176,3 +287,143 @@ def ssd_chunks(x, dt, a, b, c, *, chunk: int, body: str | None = None):
 
 ssd_chunks.launches = 0
 ssd_chunks.body_launches = dict.fromkeys(BODIES, 0)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel (csrc/ssd_chunks_bwd.cu) and the autograd Function
+# ---------------------------------------------------------------------------
+
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 7 + [_L] * 6 + [_P]
+
+
+def _bwd_entry(dtype):
+    fn = getattr(_build.load("ssd_chunks_bwd"),
+                 f"ssd_chunks_bwd_{_DTYPES[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(L: int, P: int, N: int, pad: int = 0) -> int:
+    """Shared memory of the backward kernel's block (its rows padded by
+    ``pad`` floats; the launcher takes 4 where that fits, else 0): the
+    L x L tile region, two tile regions for B / C / x / dY, six per-step
+    vectors and three per-step partial-sum tables."""
+    r4 = lambda v: -(-v // 4) * 4     # noqa: E731
+    lp, pp, np_ = r4(L), r4(P), r4(N)
+    ls, ps, ns = lp + pad, pp + pad, np_ + pad
+    region_m = max(lp * ls, np_ * ps)
+    region_1 = max(lp * ns, lp * ps)
+    return 4 * (region_m + 2 * region_1 + 6 * lp + 3 * lp * (pp // 4))
+
+
+def check_bwd_inputs(x, dt, a, b, c, cum, dy, dst, dcum, *,
+                     chunk: int) -> None:
+    """The backward kernel's rules, on any device: the forward's
+    (:func:`check_inputs`), ``cum``, ``dy``, ``dst`` and ``dcum``
+    contiguous f32 of the forward outputs' shapes on x's device, and a
+    block that fits the card's shared memory (:func:`bwd_smem_bytes`)."""
+    check_inputs(x, dt, a, b, c)
+    bs, s, h, p = x.shape
+    n = b.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    for name, t, want in (("cum", cum, (bs, nc, chunk, h)),
+                          ("dy", dy, (bs, nc, chunk, h, p)),
+                          ("dst", dst, (bs, nc, h, n, p)),
+                          ("dcum", dcum, (bs, nc, chunk, h))):
+        if (tuple(t.shape) != want or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 {want} on "
+                             f"{x.device}")
+    if bwd_smem_bytes(chunk, p, n) > SMEM_MAX:
+        raise ValueError(f"chunk {chunk}, P {p}, N {n} need more than "
+                         f"{SMEM_MAX} bytes of shared memory in the "
+                         "backward kernel")
+
+
+def ssd_chunks_bwd(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
+                   cast: bool = True):
+    """(dx, ddt, da, db, dc) for :func:`ssd_chunks` (see
+    :func:`ssd_chunks_bwd_plain` for the contract).  A CPU tensor goes to
+    the plain version; a CUDA tensor launches ``csrc/ssd_chunks_bwd.cu``
+    (f32 products on the CUDA cores, from f32 or bf16 x / b / c read
+    through their strides) or raises.  The kernel writes dB and dC per
+    head, (B, S, H, N) f32, and da per (batch, chunk, head); one torch sum
+    each folds them over a group's heads and over (B, NC), in a fixed
+    order, so two calls are bitwise equal.  ``cast=False`` returns the
+    f32 gradients before the cast to the inputs' dtypes.  Counts
+    ``ssd_chunks_bwd.launches``."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"sequence {x.shape[1]} is not a multiple of "
+                         f"chunk {chunk}")
+    if x.device.type == "cpu":
+        return ssd_chunks_bwd_plain(x, dt, a, b, c, cum, dy, dst, dcum,
+                                    chunk=chunk, cast=cast)
+    _check(x, dt, a, b, c)
+    check_bwd_inputs(x, dt, a, b, c, cum, dy, dst, dcum, chunk=chunk)
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = s // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((bs, s, h, p), **f32)
+    ddt = torch.empty((bs, s, h), **f32)
+    da_part = torch.empty((bs, nc, h), **f32)
+    db_part = torch.empty((bs, s, h, n), **f32)
+    dc_part = torch.empty((bs, s, h, n), **f32)
+    grp = (bs, s, g, h // g, n)
+    if dx.numel() == 0 or db_part.numel() == 0:
+        out = (dx.zero_(), ddt.zero_(), torch.zeros((h,), **f32),
+               torch.zeros(grp[:3] + (n,), **f32),
+               torch.zeros(grp[:3] + (n,), **f32))
+        return _cast_grads(out, (x, dt, a, b, c)) if cast else out
+    with torch.cuda.device(x.device):
+        rc = _bwd_entry(x.dtype)(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), cum.data_ptr(), dy.data_ptr(), dst.data_ptr(),
+            dcum.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            da_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+            bs, nc, chunk, h, p, g, n, x.stride(0), x.stride(1),
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunks_bwd kernel launch failed with CUDA "
+                           f"error {rc}")
+    ssd_chunks_bwd.launches += 1
+    out = (dx, ddt, da_part.sum((0, 1)), db_part.view(grp).sum(3),
+           dc_part.view(grp).sum(3))
+    return _cast_grads(out, (x, dt, a, b, c)) if cast else out
+
+
+ssd_chunks_bwd.launches = 0
+
+
+class _SSDChunks(torch.autograd.Function):
+    """The forward kernel, saving its inputs and ``cum``; the backward
+    kernel, on the gradients of all three outputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        y, st, cum = ssd_chunks(x, dt, a, b, c, chunk=chunk)
+        ctx.save_for_backward(x, dt, a, b, c, cum)
+        ctx.chunk = chunk
+        return y, st, cum
+
+    @staticmethod
+    def backward(ctx, dy, dst, dcum):
+        x, dt, a, b, c, cum = ctx.saved_tensors
+        return (*ssd_chunks_bwd(x, dt, a, b, c, cum, dy.contiguous(),
+                                dst.contiguous(), dcum.contiguous(),
+                                chunk=ctx.chunk), None)
+
+
+def ssd_chunk_step(x, dt, a, b, c, *, chunk: int):
+    """The SSD chunk step as the models call it: :func:`ssd_chunks` alone
+    unless autograd records and an input requires a gradient, then the
+    autograd Function (its backward through :func:`ssd_chunks_bwd`)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c)):
+        return _SSDChunks.apply(x, dt, a, b, c, int(chunk))
+    return ssd_chunks(x, dt, a, b, c, chunk=chunk)

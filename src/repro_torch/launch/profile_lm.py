@@ -23,13 +23,13 @@ window there.
 T(a) by default: qwen2-7b at full width, its depth cut by
 ``launch/train.py:train_depth`` to fit ``TRAIN_BUDGET_GIB``, B = 2 x S =
 4,096 a microbatch, accumulation 2, remat, random bf16 weights at tp =
-1 as ``train_lm`` builds them, the synthetic token stream) after a warm
-step: device time by kind (FA forward, FA backward's dK/dV and dQ
-passes, cuBLAS, the rest),
-the busy share, and the device
-time of the loss chunks' forward and recomputation (their
-``record_function`` range, which the kinds also count).  Needs one CUDA
-card; imports torch and the port only.
+1 as ``train_lm`` builds them, the synthetic token stream; ``--train
+--arch mamba2-2.7b`` or ``zamba2-2.7b`` is phase V's step, every layer
+kept) after a warm step: device time by kind (SSD forward and backward, FA
+forward, FA backward's dK/dV and dQ passes, cuBLAS, the rest), the busy
+share, and the device time of the loss chunks' forward and recomputation
+(their ``record_function`` range, which the kinds also count).  Needs one
+CUDA card; imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ import time
 from pathlib import Path
 
 ARCH = "zamba2-2.7b"
-KINDS = (("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
+KINDS = (("ssd_chunks_bwd", ("ssd_chunk_bwd_kernel",)),
+         ("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
          ("flash_attention_fwd", ("flash_fwd",)),
          # the backward's passes, either body (CUDA cores, tensor cores)
          ("flash_attention_bwd dK/dV", ("dkdv_kernel", "dkdv_tc_kernel")),
@@ -146,15 +147,16 @@ def train_step_profile(torch, args, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None)
-    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--arch", default=None, help=f"default {ARCH}; with "
+                    f"--train {TRAIN_ARCH}")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many (decoder) layers")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step (default arch "
                     f"{TRAIN_ARCH})")
     args = ap.parse_args()
-    if args.train and args.arch == ARCH:
-        args.arch = TRAIN_ARCH
+    if args.arch is None:
+        args.arch = TRAIN_ARCH if args.train else ARCH
     import torch
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device", file=sys.stderr)
@@ -167,7 +169,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    _build.build(["ssd_chunks", "flash_attention_fwd",
+    _build.build(["ssd_chunks", "ssd_chunks_bwd", "flash_attention_fwd",
                   "flash_attention_bwd"])
     dev = torch.device("cuda")
     if args.train:

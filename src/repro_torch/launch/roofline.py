@@ -33,7 +33,8 @@ written once), :func:`bound` turns them into the least time the card could
 take, and :func:`nep_measured` times the kernels with CUDA events at a
 geometry.  The flash-attention half: :func:`fa_pairs` counts the (query,
 key) pairs the masks keep, :func:`fa_fwd_work` / :func:`fa_bwd_work` one
-forward / backward call's bytes and product FLOPs.  ``chip_smoke.py``
+forward / backward call's bytes and product FLOPs; :func:`ssd_fwd_work` /
+:func:`ssd_bwd_work` the same for the SSD chunk step.  ``chip_smoke.py``
 reads every kernel bound from here.
 """
 from __future__ import annotations
@@ -230,6 +231,39 @@ def fa_bwd_work(q, k, v, o, lse, do, *, causal: bool,
     pairs = b * h * fa_pairs(s, k.shape[1], causal, window)
     return (nbytes(q, k, v, o, lse, do) + nbytes(q, k, v),
             2.0 * pairs * (3 * d + 2 * dv))
+
+
+def ssd_fwd_work(x, dt, a, b, c, *, chunk: int) -> tuple[int, float]:
+    """(bytes, FLOPs) of one SSD chunk-step forward call: x, dt, a, b and
+    c read once, its f32 y_intra, states and cum written once; per
+    (batch, chunk, head) the products over the causal triangle of T =
+    L (L + 1) / 2 pairs: C B^T (T N) and W x (T P), and the chunk state
+    (L N P), 2 flops each."""
+    bs, s, h, p = x.shape
+    n = b.shape[3]
+    nc, L = s // chunk, chunk
+    tri = L * (L + 1) // 2
+    out = 4 * bs * nc * (L * h * p + h * n * p + L * h)
+    return (nbytes(x, dt, a, b, c) + out,
+            2.0 * bs * nc * h * (tri * n + tri * p + L * n * p))
+
+
+def ssd_bwd_work(x, dt, a, b, c, cum, dy, dst, dcum, *,
+                 chunk: int) -> tuple[int, float]:
+    """(bytes, FLOPs) of one SSD chunk-step backward call: x, dt, a, b, c,
+    cum and the three output gradients read once, dx, d(dt), da, db and dc
+    written once at their inputs' widths (db and dc at the group's, which
+    the work needs: the kernel's per-head partials are its own choice);
+    per (batch, chunk, head) the least products, 2 flops each: over the
+    causal triangle C B^T recomputed, dC and dB (T N each), dY X^T and
+    W^T dY (T P each); over the chunk B dS and X dS^T (L N P each)."""
+    bs, s, h, p = x.shape
+    n = b.shape[3]
+    nc, L = s // chunk, chunk
+    tri = L * (L + 1) // 2
+    return (nbytes(x, dt, a, b, c, cum, dy, dst, dcum) + nbytes(x, dt, a, b,
+                                                                 c),
+            2.0 * bs * nc * h * (3 * tri * n + 2 * tri * p + 2 * L * n * p))
 
 
 def pairs_inside(dr, mask, cutoff: float) -> int:

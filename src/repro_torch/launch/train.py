@@ -5,17 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch fege-spinlattice \\
         --steps 500 --cells 6 --temperature 160
 
-LM (``--arch`` of the zoo's attention families): random weights from
-``--seed`` (tp = 1), the synthetic token stream of ``data/tokens.py``,
+LM (``--arch`` of the zoo, any family): random weights from ``--seed``
+(tp = 1), the synthetic token stream of ``data/tokens.py``,
 ``make_loss_fn`` (remat, 512-row loss chunks) through the flash kernels'
-forward and backward, ``make_train_step`` with ``--accum`` microbatches
+forward and backward for attention and the SSD chunk kernels' forward and
+backward for the Mamba-2 blocks (ssm, hybrid), ``make_train_step`` with ``--accum`` microbatches
 and AdamW under a cosine schedule (warmup 20).  It prints every
 ``--log-every`` step's loss, learning rate, gradient norm and tokens/s.
 ``--ckpt-dir`` saves the train state every ``--ckpt-every`` steps and at
 the end, and a relaunch resumes from the newest complete checkpoint, the
 data stream seeked to the resumed step (the reference restarts its stream
-at batch 0).  The ssm and hybrid families raise: their training waits for
-the SSD backward kernel (ROADMAP §1 item 15.6b).
+at batch 0).
 
 MD (``--arch fege-spinlattice``): fits NEP-SPIN to synthetic
 constrained-DFT data (24 B20 2x2x2 configurations labeled by the

@@ -8,7 +8,8 @@ The full configs are production scale; this driver scales the chosen
 family's smoke config to ~100M parameters (d_model 512, 8 layers, d_ff
 2,048, vocab 32,000, 8 heads of 64 over up to 4 kv heads), keeping what
 distinguishes it (GQA + bias for qwen2, MoE routing for deepseek /
-moonshot, the window for h2o, ...), and runs ``launch/train.py``'s
+moonshot, the window for h2o, SSD for mamba2, SSD and the shared attention
+block for zamba2, ...), and runs ``launch/train.py``'s
 ``train_lm`` on it.  Interrupt and rerun with the same ``--ckpt-dir`` to
 resume.
 """

@@ -7,9 +7,10 @@ here, as in the reference.  Parameters are a plain nested dict of tensors
 whose keys are the reference's pytree paths, so a JAX parameter tree of any
 family converts key for key.  The dry-run helpers (``input_specs``,
 ``cache_specs``, ``abstract_params``) give meta-device tensors, the port's
-``ShapeDtypeStruct``.  ``make_loss_fn`` trains the attention families
-through the flash kernels' forward and backward; the ssm and hybrid
-families wait for the SSD backward kernel (ROADMAP §1 item 15.6b).
+``ShapeDtypeStruct``.  ``make_loss_fn`` trains every family: attention
+through the flash kernels' forward and backward, the Mamba-2 blocks of the
+ssm and hybrid families through the SSD chunk kernel's forward and
+backward.
 """
 from __future__ import annotations
 
@@ -95,12 +96,9 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True,
     """``loss_fn(params, batch)`` -> scalar f32 loss (the batch holds
     tensors in ``input_specs``' layout).  The reference's ``kv_chunk`` has
     no counterpart: the flash kernels replace ``chunked_attention``.  The
-    ssm and hybrid families raise on every device, so nothing trains on the
-    CPU that cannot train on the card."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) needs the SSD backward "
-            "kernel: ROADMAP §1 item 15.6b")
+    reference trains its ssm and hybrid families through the jnp
+    ``ssd_chunked``; the port through the SSD kernels' autograd Function
+    (``kernels/ssd/kernel.py:ssd_chunk_step``)."""
     if cfg.family == "audio":
         def loss_fn(params, batch):
             return encdec_mod.lm_loss(

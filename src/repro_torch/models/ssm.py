@@ -1,10 +1,12 @@
 """Mamba-2 (state-space duality / SSD) blocks (port of ``repro.models.ssm``).
 
-Prefill runs the chunked SSD algorithm through the hand-written chunk kernel
-(:func:`repro_torch.kernels.ssd.ops.ssd_chunked_kernel`); decode keeps a
-constant-size recurrent state and runs no kernel.  ``ssd_chunked`` (the
-reference's plain chunked form) and ``ssd_reference`` (the per-step
-recurrence) are kept as oracles.
+Training and prefill run the chunked SSD algorithm through the hand-written
+chunk kernel (:func:`repro_torch.kernels.ssd.ops.ssd_chunked_kernel`); under
+autograd its chunk step is the kernels' Function, whose backward is the SSD
+backward kernel (the reference differentiates its jnp ``ssd_chunked``).
+Decode keeps a constant-size recurrent state and runs no kernel.
+``ssd_chunked`` (the reference's plain chunked form) and ``ssd_reference``
+(the per-step recurrence) are kept as oracles.
 """
 from __future__ import annotations
 
@@ -131,8 +133,8 @@ def ssd_reference(x, dt, a, b, c, d_skip):
 
 
 def apply_mamba2(cfg, p, x):
-    """Full Mamba-2 block (prefill) through the SSD chunk kernel.
-    x: (B, S, d)."""
+    """Full Mamba-2 block (training and prefill) through the SSD chunk
+    kernels.  x: (B, S, d)."""
     s = cfg.ssm
     d_in, nh = ssm_dims(cfg)
     g, n = s.n_groups, s.d_state

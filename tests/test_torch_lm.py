@@ -113,8 +113,8 @@ def test_forward_calls_each_kernel_wrapper(case, monkeypatch):
             calls[name] += 1
             return fn(*args, **kwargs)
         return wrapped
-    monkeypatch.setattr(ssd_ops, "ssd_chunks",
-                        counting("ssd", ssd_ops.ssd_chunks))
+    monkeypatch.setattr(ssd_ops, "ssd_chunk_step",
+                        counting("ssd", ssd_ops.ssd_chunk_step))
     monkeypatch.setattr(tattn, "flash_attention",
                         counting("fa", tattn.flash_attention))
     cfg = case["cfg"]

@@ -13,8 +13,9 @@ serve CPU tensors.  Then the training substrate: the ports of
 ``tests/test_train.py``'s loss-decrease and accumulation tests, three
 AdamW steps against the reference's ``make_train_step``, the data
 pipeline, int8 error feedback (with the property of
-``tests/test_properties.py``), the ssm/hybrid refusal and the launchers
-with a checkpoint resume.
+``tests/test_properties.py``), the ``"save_collectives"`` refusal and the
+launchers with a checkpoint resume (the ssm and hybrid families train in
+``tests/test_torch_ssm_train.py``).
 """
 import dataclasses
 
@@ -320,12 +321,6 @@ def test_int8_error_feedback_unbiased_over_time(seed):
         total_sent += sent.numpy()
     resid = np.abs(total_true - total_sent).max()
     assert resid < 0.2, f"error-feedback residual {resid}"
-
-
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
-def test_make_loss_fn_raises_for_ssm_and_hybrid(arch):
-    with pytest.raises(NotImplementedError, match="15.6b"):
-        lm.make_loss_fn(configs.get_smoke(arch))
 
 
 def test_save_collectives_remat_raises():

@@ -284,14 +284,6 @@ def test_train_md_fits_then_runs_md():
         out["chunk_temperatures"]).all()
 
 
-def test_train_lm_names_its_item():
-    """The LM half trains the attention families (tests/test_torch_lm_
-    train.py); an ssm arch names the item its training waits for."""
-    from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="15.6"):
-        main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu"])
-
-
 def test_accuracy_table_rows(capsys):
     """launch/accuracy.py at 3 Adam steps: three CSV rows; the classical
     scan recovers the oracle's J0 (the grid holds 0.0168, near its 0.0166)
