@@ -153,26 +153,32 @@ T. LM training through ``launch/train.py:train_lm`` on random weights and
    and seamless (4,096 source frames, 1,024 target tokens; FA enc + 2 dec
    a microbatch), finite loss and gradient norm, FA launches as in (a);
    one ``{"lm_train": ...}`` line with phases S-T's numbers and times;
-U. the SSD backward kernel (``ssd_chunks_bwd.cu``: f32 products on the
-   CUDA cores, per-head dB / dC partials summed by torch) against
-   ``ssd_chunks_bwd_plain`` on the same inputs (x, b, c strided views of
+U. the SSD backward kernel (``ssd_chunks_bwd.cu``: bf16 on the tensor
+   cores where ``ssd_bwd_body`` names ``"tc"``, dB / dC summed over a
+   cluster of heads in the kernel; f32 on the CUDA cores, per-head dB /
+   dC partials summed by torch) against ``ssd_chunks_bwd_plain`` on the same inputs (x, b, c strided views of
    one projection buffer; ``cum`` from the forward kernel; normal
    gradients of the three outputs): the SSD sweep's cases (G = 1, 2, 4,
    f32 and bf16) and phase V's training shapes, mamba2's N = 128 and
    zamba2's N = 64 at B = 2 x S = 4,096, 80 heads of 64, in f32 and bf16;
    each f32 gradient (before the cast to its input's dtype) within 1e-4
    (f32) or 5e-4 (bf16 inputs) of its max |ref|, two calls
-   ``torch.equal``; at the training shapes, bf16 timed with CUDA events
-   beside the plain version and the bound (``launch/roofline.py:
+   ``torch.equal``, the cast gradients the f32 ones cast, every call on
+   the body ``ssd_bwd_body`` names; at the training shapes, bf16 timed
+   with CUDA events in turns with the earlier bf16 body (the CUDA-core
+   one), beside the plain version and the bound (``launch/roofline.py:
    ssd_bwd_work``: inputs read once, gradients written once at their
    inputs' widths, the least products at 989 TFLOP/s), no library call,
-   ptxas's report of both instantiations;
+   the dB / dC partial bytes of both bodies, the cluster size, the
+   occupancy calculator's blocks an SM and resident clusters; ptxas's
+   report of every instantiation, none of the tc body's exact ones
+   spilling;
 V. Mamba-2 and Zamba2 training through ``train_lm``: (a) mamba2-2.7b at
    full width, its depth by ``train_depth`` (all 64 layers fit), B = 2 x
    S = 4,096 a microbatch, accumulation 2, remat, 10 steps: the mean loss
    of the last 3 below the first 3's, every loss and gradient norm
-   finite, SSD launches a step exactly 2 forwards (all ``"tc"``) and 1
-   backward per layer and microbatch, FA none; step time, tokens/s, peak
+   finite, SSD launches a step exactly 2 forwards and 1 backward per
+   layer and microbatch, all ``"tc"``, FA none; step time, tokens/s, peak
    memory; (b) mamba2 at 2 layers and zamba2 at 6 (one shared-block
    call), B = 1 x S = 1,024, f32 and bf16: the loss and every leaf's
    gradient through the kernels against the same with the plain versions
@@ -365,8 +371,10 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
     ``launches_train_zamba2``; FA's backward with phase T(a)'s launches a step,
     phase S's errors, times, bound and ptxas at qwen2's shape and, with
     the case's name appended, at the other training shapes; FA's forward
-    with ``launches_train`` and ``body_train``; K1, K2 and SSD with
-    ``body`` and ``previous_ms``, the earlier body's time in this run; FA's ``previous_ms`` null, as its
+    with ``launches_train`` and ``body_train``; K1, K2, SSD and SSD's
+    backward with ``body`` and ``previous_ms``, the earlier body's time
+    in this run (the backward's also with its partial bytes, cluster
+    size and occupancy); FA's ``previous_ms`` null, as its
     earlier body is gone; all with ptxas's report of the body timed; K1
     and K2 with ``launches_field_cooling`` from phase A, from phase E
     ``launches_replica``, ``replica_ms`` and ``replica_flat_ms`` (one
@@ -1409,6 +1417,7 @@ def reset_train_counters():
     bwd.body_launches = dict.fromkeys(bwd.body_launches, 0)
     ssd.ssd_chunks.launches = ssd.ssd_chunks_bwd.launches = 0
     ssd.ssd_chunks.body_launches = dict.fromkeys(ssd.BODIES, 0)
+    ssd.ssd_chunks_bwd.body_launches = dict.fromkeys(ssd.BWD_BODIES, 0)
 
 
 def read_train_counters() -> dict:
@@ -1419,7 +1428,8 @@ def read_train_counters() -> dict:
             "bwd_bodies": dict(bwd.body_launches),
             "ssd_fwd": ssd.ssd_chunks.launches,
             "ssd_fwd_bodies": dict(ssd.ssd_chunks.body_launches),
-            "ssd_bwd": ssd.ssd_chunks_bwd.launches}
+            "ssd_bwd": ssd.ssd_chunks_bwd.launches,
+            "ssd_bwd_bodies": dict(ssd.ssd_chunks_bwd.body_launches)}
 
 
 def train_launches(torch, cfg, micro: int) -> tuple:
@@ -1429,8 +1439,9 @@ def train_launches(torch, cfg, micro: int) -> tuple:
     rematted (its forward runs twice, its backward once) except zamba2's
     shared attention block (one forward, one backward a call, as in the
     reference); bf16 runs the tensor-core bodies (``fa_body`` /
-    ``fa_bwd_body``; SSD's forward ``"tc"``, the layout of the
-    projection's views being one it takes), f32 the CUDA-core ones."""
+    ``fa_bwd_body``; SSD's forward and backward ``"tc"``, the layout of
+    the projection's views being one they take), f32 the CUDA-core
+    ones."""
     from repro_torch.kernels.attention import kernel as fa
     from repro_torch.kernels.ssd import kernel as ssd
     dtype = getattr(torch, cfg.dtype)
@@ -1457,7 +1468,10 @@ def train_launches(torch, cfg, micro: int) -> tuple:
              "ssd_fwd": 2 * ssd_layers,
              "ssd_fwd_bodies": {**dict.fromkeys(ssd.BODIES, 0),
                                 ssd_body: 2 * ssd_layers},
-             "ssd_bwd": ssd_layers}, (body, bwd_body, ssd_body))
+             "ssd_bwd": ssd_layers,
+             "ssd_bwd_bodies": {**dict.fromkeys(ssd.BWD_BODIES, 0),
+                                ssd_body: ssd_layers}},
+            (body, bwd_body, ssd_body))
 
 
 def fa_bwd_hold(torch, dev, name, case, gen,
@@ -1692,6 +1706,8 @@ def train_run(torch, dev, cfg, batch, seq, steps, accum, seed) -> dict:
             "ssd_fwd_bodies_a_step": {b_: c // steps for b_, c in
                                       got["ssd_fwd_bodies"].items()},
             "ssd_bwd_a_step": got["ssd_bwd"] // steps,
+            "ssd_bwd_bodies_a_step": {b_: c // steps for b_, c in
+                                      got["ssd_bwd_bodies"].items()},
             "fa_body": body, "fa_bwd_body": bwd_body, "peak_gib": peak}
 
 
@@ -1933,9 +1949,17 @@ SSD_BWD_MAIN = "mamba2_n128"
 # holds SSD's forward (both sides sum in f32 from the same bf16 values)
 SSD_BWD_BAR = {"float32": 1e-4, "bfloat16": 5e-4}
 SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "db", "dc")
-PTXAS_SSD_BWD = {"bfloat16": ("ssd_chunks_bwd",
-                              "ssd_chunk_bwd_kernelI13__nv_bfloat16E"),
-                 "float32": ("ssd_chunks_bwd", "ssd_chunk_bwd_kernelIfE")}
+# ptxas's reports of the backward's bodies (mangled names): the tc body's
+# exact instantiations (NK, KP) = (8, 4) at mamba2's N = 128 and (4, 4) at
+# zamba2's N = 64, its guarded one, and the CUDA-core body in bf16 and f32
+PTXAS_SSD_BWD = {
+    "tc_n128": ("ssd_chunks_bwd", "ssd_chunk_bwd_tc_kernelILi8ELi4ELb1E"),
+    "tc_n64": ("ssd_chunks_bwd", "ssd_chunk_bwd_tc_kernelILi4ELi4ELb1E"),
+    "tc_guarded": ("ssd_chunks_bwd", "ssd_chunk_bwd_tc_kernelILi8ELi8ELb0E"),
+    "cuda_core_bf16": ("ssd_chunks_bwd",
+                       "ssd_chunk_bwd_kernelI13__nv_bfloat16E"),
+    "cuda_core_f32": ("ssd_chunks_bwd", "ssd_chunk_bwd_kernelIfE")}
+SSD_BWD_TC_PTXAS = {"mamba2_n128": "tc_n128", "zamba2_n64": "tc_n64"}
 SSM_TRAIN_ARCH = "mamba2-2.7b"
 HYBRID_TRAIN_ARCH = "zamba2-2.7b"
 HYBRID_TRAIN_STEPS = 3
@@ -1972,13 +1996,22 @@ def ssd_bwd_hold(torch, dev, name, case, dtype, gen) -> dict:
     """The backward kernel against ``ssd_chunks_bwd_plain`` on the same
     inputs, each f32 gradient within ``SSD_BWD_BAR`` of its max |ref|, two
     kernel calls ``torch.equal``, the cast gradients in their inputs'
-    dtypes.  Returns the errors and the inputs."""
+    dtypes and equal to the f32 ones cast, every call on the body
+    ``ssd_bwd_body`` names.  Returns the errors, the body and the
+    inputs."""
     from repro_torch.kernels.ssd import kernel as ssd
     L = case[6]
     args = ssd_bwd_inputs(torch, dev, case, dtype, gen)
+    body = ssd.ssd_bwd_body(args[0], args[3], args[4], L)
+    before = dict(ssd.ssd_chunks_bwd.body_launches)
     got = ssd.ssd_chunks_bwd(*args, chunk=L, cast=False)
     again = ssd.ssd_chunks_bwd(*args, chunk=L, cast=False)
     cast = ssd.ssd_chunks_bwd(*args, chunk=L)
+    ran = {k: v - before[k] for k, v in
+           ssd.ssd_chunks_bwd.body_launches.items()}
+    if ran != {**dict.fromkeys(ssd.BWD_BODIES, 0), body: 3}:
+        raise AssertionError(f"SSD bwd {name} {dtype}: launches by body "
+                             f"{ran}, expected 3 on {body!r}")
     want = ssd.ssd_chunks_bwd_plain(*args, chunk=L, cast=False)
     torch.cuda.synchronize()
     errs, abs_errs = [], []
@@ -1990,60 +2023,100 @@ def ssd_bwd_hold(torch, dev, name, case, dtype, gen) -> dict:
         if cg.dtype != t.dtype or not torch.equal(cg, g.to(t.dtype)):
             raise AssertionError(f"SSD bwd {name} {oname} {dtype}: the "
                                  "cast gradient is not the f32 one cast")
-        errs.append(check(f"SSD bwd {name} {oname} {dtype}", g, w,
+        errs.append(check(f"SSD bwd {name} {oname} {dtype} {body}", g, w,
                           SSD_BWD_BAR[dtype]))
         abs_errs.append(float((g - w).abs().max()))
-    del got, again, cast, want
+    del got, again, cast
     return {dtype: max(errs), f"abs_{dtype}": max(abs_errs),
-            "args": args}
+            f"body_{dtype}": body, "args": args, "want": want}
 
 
-def ssd_bwd_timed(torch, dev, name, case, args, ptxas) -> dict:
+def ssd_bwd_timed(torch, dev, name, case, args, want, ptxas) -> dict:
     """The bf16 backward kernel at a training shape timed with CUDA events
-    beside its plain version and the bound (``launch/roofline.py:
+    in turns with the earlier bf16 body (the CUDA-core one, launched
+    through the uncounted ``_bwd_launch``: new, earlier, earlier, new; its
+    error against the plain version on the same inputs recorded, with no
+    bar), beside its plain version and the bound (``launch/roofline.py:
     ssd_bwd_work``: its inputs read once, its gradients written once at
     their inputs' widths; the least products at the bf16 dense peak).  No
-    single PyTorch call computes the function: no library time."""
+    single PyTorch call computes the function: no library time.  Records
+    the bytes of the dB / dC partials each body writes, the tc body's
+    cluster size, and what the occupancy calculator gives it."""
     from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.launch import roofline
-    L = case[6]
-    ms = time_ms(torch, lambda: ssd.ssd_chunks_bwd(*args, chunk=L), 5)
+    bs, s, h, p, g, n, L = case
+    body = ssd.ssd_bwd_body(args[0], args[3], args[4], L)
+    if body != "tc":
+        raise AssertionError(f"SSD bwd {name}: the bf16 training shape "
+                             f"takes {body!r}, not the tensor-core body")
+    prev = ssd._bwd_launch(*args, L, False, "cuda_core")
+    prev_err = max(rel_err(a, w) for a, w in zip(prev, want))
+    del prev
+    turns = {"new": (lambda: ssd.ssd_chunks_bwd(*args, chunk=L), 5, []),
+             "earlier": (lambda: ssd._bwd_launch(*args, L, True,
+                                                 "cuda_core"), 2, [])}
+    for which in ("new", "earlier", "earlier", "new"):
+        fn, reps, got = turns[which]
+        got.append(time_ms(torch, fn, reps))
+    ms, earlier = (sum(turns[w][2]) / 2 for w in ("new", "earlier"))
     plain = time_ms(torch, lambda: ssd.ssd_chunks_bwd_plain(*args, chunk=L),
                     1)
     nb, flops = roofline.ssd_bwd_work(*args, chunk=L)
     bd = roofline.bound(nb, flops, "bfloat16")
-    ptx = ptxas_of(ptxas, *PTXAS_SSD_BWD["bfloat16"])
-    log(f"  SSD bwd {name}: {ms:.3f} ms, plain {plain:.1f} ms, library "
+    k = ssd.cluster_heads(h // g)
+    info = ssd.tc_bwd_info(L, p, n, k)
+    part = {"tc": 2 * 4 * bs * s * (h // k) * n,
+            "cuda_core": 2 * 4 * bs * s * h * n}
+    ptx = ptxas_of(ptxas, *PTXAS_SSD_BWD[SSD_BWD_TC_PTXAS[name]])
+    ptx_cc = ptxas_of(ptxas, *PTXAS_SSD_BWD["cuda_core_bf16"])
+    log(f"  SSD bwd {name}: {ms:.3f} ms (tc; turns "
+        f"{[round(x, 3) for x in turns['new'][2]]}), earlier body "
+        f"(cuda_core) {earlier:.3f} ms in the same call (its worst rel err "
+        f"on these inputs {prev_err:.3e}), plain {plain:.1f} ms, library "
         f"none; {nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> bound "
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
-        f"{100 * bd['bound_ms'] / ms:.2f}% of the kernel's time; ptxas {ptx}")
-    return {"ms": ms, "plain_ms": plain, "library_ms": None,
+        f"{100 * bd['bound_ms'] / ms:.2f}% of the kernel's time; clusters "
+        f"of K={k} heads, dB/dC partials {part['tc'] / 1e6:.1f} MB (the "
+        f"earlier body's per-head ones {part['cuda_core'] / 1e6:.1f} MB); "
+        f"{info}; ptxas {ptx} (earlier {ptx_cc})")
+    return {"ms": ms, "body": body, "previous_ms": earlier,
+            "previous_body": "cuda_core", "previous_rel_err_bf16": prev_err,
+            "plain_ms": plain, "library_ms": None,
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-            "bytes": nb, "flops": flops, "ptxas": ptx}
+            "bytes": nb, "flops": flops, "cluster_heads": k,
+            "partial_bytes": part["tc"],
+            "previous_partial_bytes": part["cuda_core"], "occupancy": info,
+            "ptxas": ptx, "ptxas_previous": ptx_cc}
 
 
 def phase_ssd_bwd(torch, dev, ptxas) -> dict:
     """Phase U: the SSD backward kernel against its plain version on the
-    SSD sweep's cases (G = 1, 2, 4; f32 and bf16) and at phase V's training
-    shapes in f32 and bf16, timed there in bf16."""
+    SSD sweep's cases (G = 1, 2, 4; f32 on the CUDA-core body, bf16 on the
+    tensor-core body where it takes the shape) and at phase V's training
+    shapes in f32 and bf16, timed there in bf16 beside the earlier body."""
     t0 = time.perf_counter()
-    reps = {dt: ptxas_of(ptxas, *parts) for dt, parts in
-            PTXAS_SSD_BWD.items()}
+    reps = {b: ptxas_of(ptxas, *parts) for b, parts in PTXAS_SSD_BWD.items()}
     log(f"  SSD bwd ptxas {reps}")
+    spills = {b: r for b, r in reps.items()
+              if b.startswith("tc_n") and r.get("spill_bytes")}
+    if spills:
+        raise AssertionError(f"SSD bwd: the tc body's exact instantiations "
+                             f"spill: {spills}")
     gen = torch.Generator(device=dev).manual_seed(20)
     out = {"sweep": {}, "train": {}, "ptxas": reps}
     for i, (bs, s, h, p, g, n, chunk, dtype) in enumerate(SSD_SWEEP):
         r = ssd_bwd_hold(torch, dev, f"sweep{i}", (bs, s, h, p, g, n, chunk),
                          dtype, gen)
-        r.pop("args")
+        del r["args"], r["want"]
         out["sweep"][f"sweep{i}_{dtype}"] = r
     for name, case in SSD_BWD_TRAIN_CASES.items():
         r = ssd_bwd_hold(torch, dev, name, case, "float32", gen)
-        r.pop("args")
+        del r["args"], r["want"]
         rb = ssd_bwd_hold(torch, dev, name, case, "bfloat16", gen)
+        args, want = rb.pop("args"), rb.pop("want")
         r.update(rb)
-        r.update(ssd_bwd_timed(torch, dev, name, case, r.pop("args"),
-                               ptxas))
+        r.update(ssd_bwd_timed(torch, dev, name, case, args, want, ptxas))
+        del args, want
         out["train"][name] = r
         torch.cuda.empty_cache()
     held = [*out["sweep"].values(), *out["train"].values()]
@@ -2137,12 +2210,17 @@ def ssm_train_phases(torch, dev, ptxas, ssd_row) -> tuple:
     main = u["train"][SSD_BWD_MAIN]
     run, hyb = v[SSM_TRAIN_ARCH], v[HYBRID_TRAIN_ARCH]
     meta = KERNELS["ssd_chunks_bwd"]
+    for tag, r in (("V(a)", run), ("V(c)", hyb)):
+        if r["ssd_bwd_bodies_a_step"]["tc"] != r["ssd_bwd_a_step"]:
+            raise AssertionError(f"{tag}: SSD backward launches by body "
+                                 f"{r['ssd_bwd_bodies_a_step']}, not all tc")
     row = {"name": "ssd_chunks_bwd", "route": "cuda",
            "source": meta["source"], "replaces": meta["replaces"],
            "launches": run["ssd_bwd_a_step"],
            "launches_per": "a phase-V(a) mamba2-2.7b training step",
            "launches_zamba2": hyb["ssd_bwd_a_step"],
-           "body": "cuda_core",
+           "body": main["body"], "previous_ms": main["previous_ms"],
+           "previous_body": main["previous_body"],
            "max_abs_err": main["abs_bfloat16"],
            "max_rel_err_f32": u["max_rel_err"]["float32"],
            "max_rel_err_bf16": u["max_rel_err"]["bfloat16"],
@@ -2150,11 +2228,16 @@ def ssm_train_phases(torch, dev, ptxas, ssd_row) -> tuple:
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
            "bound_peak": "3.35 TB/s; bf16 dense 989 TFLOP/s",
            "library_ms": None, "library": "none (no single PyTorch call)",
-           "ptxas": main["ptxas"], "ptxas_f32": u["ptxas"]["float32"]}
+           "cluster_heads": main["cluster_heads"],
+           "partial_bytes": main["partial_bytes"],
+           "previous_partial_bytes": main["previous_partial_bytes"],
+           "occupancy": main["occupancy"],
+           "ptxas": main["ptxas"], "ptxas_previous": main["ptxas_previous"],
+           "ptxas_f32": u["ptxas"]["cuda_core_f32"]}
     for name, r in u["train"].items():
         if name != SSD_BWD_MAIN:
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by"):
+            for key in ("ms", "previous_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by", "ptxas"):
                 row[f"{key}_{name}"] = r[key]
     ssd_row["launches_train"] = run["ssd_fwd_a_step"]
     ssd_row["launches_train_zamba2"] = hyb["ssd_fwd_a_step"]

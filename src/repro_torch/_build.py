@@ -9,7 +9,9 @@ shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root.  The file name carries a
-hash of the source, the headers beside it and the flags, so an edited
+hash of the source, every kernel header (a source may include another
+kernel's, as the SSD backward includes flash attention's tensor-core
+toolset) and the flags, so an edited
 source builds anew and an unchanged one is reused.  :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for them; a failed
 build raises with nvcc's stderr.  ptxas's register / spill report is kept
@@ -61,8 +63,10 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [src, *sorted(src.parent.glob("*.cuh"))]:
-        h.update(f.name.encode())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    for f in sorted((PKG_DIR / "kernels").rglob("*.cuh")):
+        h.update(str(f.relative_to(PKG_DIR)).encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -16,13 +16,18 @@ reads group h // (H/G), so nothing is repeated over heads.  x may be a
 strided view (the projection split) as long as each row's (H, P) block is
 contiguous; B and C likewise with their (G, N) block.
 
-The gradient: ``ssd_chunks_bwd`` (``csrc/ssd_chunks_bwd.cu``, f32 products
-on the CUDA cores, deterministic) with its plain version
-``ssd_chunks_bwd_plain``, dispatched the same way and counted in
-``ssd_chunks_bwd.launches``.  The reference has no SSD backward kernel (it
-differentiates its jnp ``ssd_chunked``).  :func:`ssd_chunk_step` is what
-the models call: the forward kernel alone when no input needs a gradient,
-else the autograd Function whose backward runs ``ssd_chunks_bwd``.
+The gradient: ``ssd_chunks_bwd`` (``csrc/ssd_chunks_bwd.cu``,
+deterministic) with its plain version ``ssd_chunks_bwd_plain``, dispatched
+the same way and counted in ``ssd_chunks_bwd.launches`` and, per body, in
+``ssd_chunks_bwd.body_launches``.  Its two bodies: ``"tc"`` (bf16 on the
+tensor cores, f32 operands as bf16 hi + lo halves, dB and dC summed over a
+cluster of a group's heads inside the kernel) for the bf16 inputs
+:func:`ssd_bwd_body` gives it, and ``"cuda_core"`` (f32 products, per-head
+dB / dC partials) for f32 and the other bf16.  The reference has no SSD
+backward kernel (it differentiates its jnp ``ssd_chunked``).
+:func:`ssd_chunk_step` is what the models call: the forward kernel alone
+when no input needs a gradient, else the autograd Function whose backward
+runs ``ssd_chunks_bwd``.
 """
 from __future__ import annotations
 
@@ -294,22 +299,59 @@ ssd_chunks.body_launches = dict.fromkeys(BODIES, 0)
 # ---------------------------------------------------------------------------
 
 _BWD_ARGTYPES = [_P] * 14 + [_I] * 7 + [_L] * 6 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 14 + [_I] * 9 + [_L] * 6 + [_P]
+BWD_BODIES = ("tc", "cuda_core")
+CLUSTER_MAX = 8       # heads a cluster of the tc backward sums dB, dC over
 
 
-def _bwd_entry(dtype):
-    fn = getattr(_build.load("ssd_chunks_bwd"),
-                 f"ssd_chunks_bwd_{_DTYPES[dtype]}")
+def _bwd_entry(dtype, body: str):
+    if body == "tc":
+        name, argtypes = "ssd_chunks_bwd_tc_bf16", _BWD_TC_ARGTYPES
+    else:
+        name, argtypes = f"ssd_chunks_bwd_{_DTYPES[dtype]}", _BWD_ARGTYPES
+    fn = getattr(_build.load("ssd_chunks_bwd"), name)
     if fn.argtypes is None:
-        fn.argtypes = _BWD_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def bwd_smem_bytes(L: int, P: int, N: int, pad: int = 0) -> int:
-    """Shared memory of the backward kernel's block (its rows padded by
-    ``pad`` floats; the launcher takes 4 where that fits, else 0): the
-    L x L tile region, two tile regions for B / C / x / dY, six per-step
-    vectors and three per-step partial-sum tables."""
+def cluster_heads(rep: int) -> int:
+    """K, the heads of one group that a cluster of the tc backward sums dB
+    and dC over: the largest divisor of the heads a group (``rep`` = H/G)
+    up to ``CLUSTER_MAX`` (8 for Mamba-2's and Zamba2's 80)."""
+    return max(k for k in range(1, min(rep, CLUSTER_MAX) + 1) if rep % k == 0)
+
+
+def tc_bwd_sizes(p: int, n: int) -> tuple:
+    """(NK, KP), the tc backward's instantiation for these widths: exact
+    (8, 4) at N = 128, P = 64 (Mamba-2), (4, 4) at N = P = 64 (Zamba2),
+    else the guarded (8, 8).  NK k-steps of 16 over N, KP over P; they fix
+    the rows' strides in shared memory."""
+    if (n, p) == (128, 64):
+        return 8, 4
+    if (n, p) == (64, 64):
+        return 4, 4
+    return 8, 8
+
+
+def bwd_smem_bytes(L: int, P: int, N: int, pad: int = 0,
+                   body: str = "cuda_core") -> int:
+    """Shared memory of the backward kernel's block.  ``"cuda_core"`` (its
+    rows padded by ``pad`` floats; the launcher takes 4 where that fits,
+    else 0): the L x L tile region, two tile regions for B / C / x / dY,
+    six per-step vectors and three per-step partial-sum tables.  ``"tc"``
+    (csrc/ssd_chunks_bwd.cu:ssdb_tc::smem_bytes): x, dY's two bf16 halves,
+    B, C and dS's two halves (N rounded up to 16 rows) in bf16 rows padded
+    by 16 bytes, or, over the same bytes once the products are done, the
+    parked f32 dB and dC tiles, whichever is more; then seven per-step f32
+    vectors."""
+    if body == "tc":
+        nk, kp = tc_bwd_sizes(P, N)
+        ldx, ldb = 16 * kp + 8, 16 * nk + 8
+        nr = 16 * -(-N // 16)
+        inputs = 2 * (3 * L * ldx + 2 * L * ldb + 2 * nr * ldx)
+        return max(inputs, 4 * 2 * L * ldb) + 4 * 7 * L
     r4 = lambda v: -(-v // 4) * 4     # noqa: E731
     lp, pp, np_ = r4(L), r4(P), r4(N)
     ls, ps, ns = lp + pad, pp + pad, np_ + pad
@@ -318,12 +360,26 @@ def bwd_smem_bytes(L: int, P: int, N: int, pad: int = 0) -> int:
     return 4 * (region_m + 2 * region_1 + 6 * lp + 3 * lp * (pp // 4))
 
 
+def ssd_bwd_body(x, b, c, chunk: int) -> str:
+    """The backward body for these inputs, the one rule: ``"tc"`` for bf16
+    that :func:`tc_takes` (L % 16 == 0 up to 128, N and P multiples of 8
+    up to 128, 16-byte aligned x / b / c, strides multiples of 8) and whose
+    block fits the card's shared memory; else ``"cuda_core"``, f32 and all
+    other bf16 (TF32 products would break f32's 1e-4 bar)."""
+    p, n = x.shape[3], b.shape[3]
+    if ssd_body(x, b, c, chunk) == "tc" and \
+            bwd_smem_bytes(chunk, p, n, body="tc") <= SMEM_MAX:
+        return "tc"
+    return "cuda_core"
+
+
 def check_bwd_inputs(x, dt, a, b, c, cum, dy, dst, dcum, *,
                      chunk: int) -> None:
     """The backward kernel's rules, on any device: the forward's
     (:func:`check_inputs`), ``cum``, ``dy``, ``dst`` and ``dcum``
     contiguous f32 of the forward outputs' shapes on x's device, and a
-    block that fits the card's shared memory (:func:`bwd_smem_bytes`)."""
+    block of the body :func:`ssd_bwd_body` names that fits the card's
+    shared memory (:func:`bwd_smem_bytes`)."""
     check_inputs(x, dt, a, b, c)
     bs, s, h, p = x.shape
     n = b.shape[3]
@@ -338,7 +394,8 @@ def check_bwd_inputs(x, dt, a, b, c, cum, dy, dst, dcum, *,
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 {want} on "
                              f"{x.device}")
-    if bwd_smem_bytes(chunk, p, n) > SMEM_MAX:
+    body = ssd_bwd_body(x, b, c, chunk)
+    if bwd_smem_bytes(chunk, p, n, body=body) > SMEM_MAX:
         raise ValueError(f"chunk {chunk}, P {p}, N {n} need more than "
                          f"{SMEM_MAX} bytes of shared memory in the "
                          "backward kernel")
@@ -348,14 +405,11 @@ def ssd_chunks_bwd(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
                    cast: bool = True):
     """(dx, ddt, da, db, dc) for :func:`ssd_chunks` (see
     :func:`ssd_chunks_bwd_plain` for the contract).  A CPU tensor goes to
-    the plain version; a CUDA tensor launches ``csrc/ssd_chunks_bwd.cu``
-    (f32 products on the CUDA cores, from f32 or bf16 x / b / c read
-    through their strides) or raises.  The kernel writes dB and dC per
-    head, (B, S, H, N) f32, and da per (batch, chunk, head); one torch sum
-    each folds them over a group's heads and over (B, NC), in a fixed
-    order, so two calls are bitwise equal.  ``cast=False`` returns the
-    f32 gradients before the cast to the inputs' dtypes.  Counts
-    ``ssd_chunks_bwd.launches``."""
+    the plain version; a CUDA tensor launches ``csrc/ssd_chunks_bwd.cu`` on
+    the body :func:`ssd_bwd_body` names, or raises.  ``cast=False`` returns
+    the f32 gradients before the cast to the inputs' dtypes.  Two calls are
+    bitwise equal.  Counts ``ssd_chunks_bwd.launches`` and, per body,
+    ``ssd_chunks_bwd.body_launches``."""
     if x.shape[1] % chunk:
         raise ValueError(f"sequence {x.shape[1]} is not a multiple of "
                          f"chunk {chunk}")
@@ -364,40 +418,87 @@ def ssd_chunks_bwd(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
                                     chunk=chunk, cast=cast)
     _check(x, dt, a, b, c)
     check_bwd_inputs(x, dt, a, b, c, cum, dy, dst, dcum, chunk=chunk)
+    body = ssd_bwd_body(x, b, c, chunk)
+    out = _bwd_launch(x, dt, a, b, c, cum, dy, dst, dcum, chunk, cast, body)
+    if out[0].numel() and out[3].numel():
+        ssd_chunks_bwd.launches += 1
+        ssd_chunks_bwd.body_launches[body] += 1
+    return out
+
+
+def _bwd_launch(x, dt, a, b, c, cum, dy, dst, dcum, chunk, cast, body):
+    """The gradients of ``body`` on checked CUDA tensors, counting
+    nothing: :func:`ssd_chunks_bwd` takes the body :func:`ssd_bwd_body`
+    names; ``chip_smoke.py`` also times the bf16 CUDA-core body through
+    this.
+
+    ``"cuda_core"`` writes dB and dC per head, (B, S, H, N) f32, and dx in
+    f32.  ``"tc"`` sums dB and dC over each cluster of K =
+    :func:`cluster_heads` heads of a group inside the kernel and writes
+    (B, S, H/K, N) f32, and dx in x's dtype when ``cast`` (rounded once
+    from its f32 value).  da leaves per (batch, chunk, head).  One torch
+    sum each folds the rest, in a fixed order."""
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     nc = s // chunk
+    k = cluster_heads(h // g) if body == "tc" else 1
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((bs, s, h, p), **f32)
+    dx_bf16 = body == "tc" and cast
+    dx = torch.empty((bs, s, h, p), dtype=x.dtype if dx_bf16 else
+                     torch.float32, device=x.device)
     ddt = torch.empty((bs, s, h), **f32)
     da_part = torch.empty((bs, nc, h), **f32)
-    db_part = torch.empty((bs, s, h, n), **f32)
-    dc_part = torch.empty((bs, s, h, n), **f32)
-    grp = (bs, s, g, h // g, n)
+    db_part = torch.empty((bs, s, h // k, n), **f32)
+    dc_part = torch.empty((bs, s, h // k, n), **f32)
     if dx.numel() == 0 or db_part.numel() == 0:
         out = (dx.zero_(), ddt.zero_(), torch.zeros((h,), **f32),
-               torch.zeros(grp[:3] + (n,), **f32),
-               torch.zeros(grp[:3] + (n,), **f32))
+               torch.zeros((bs, s, g, n), **f32),
+               torch.zeros((bs, s, g, n), **f32))
         return _cast_grads(out, (x, dt, a, b, c)) if cast else out
+    extra = (k, int(dx_bf16)) if body == "tc" else ()
     with torch.cuda.device(x.device):
-        rc = _bwd_entry(x.dtype)(
+        rc = _bwd_entry(x.dtype, body)(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), cum.data_ptr(), dy.data_ptr(), dst.data_ptr(),
             dcum.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             da_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-            bs, nc, chunk, h, p, g, n, x.stride(0), x.stride(1),
+            bs, nc, chunk, h, p, g, n, *extra, x.stride(0), x.stride(1),
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_chunks_bwd kernel launch failed with CUDA "
-                           f"error {rc}")
-    ssd_chunks_bwd.launches += 1
-    out = (dx, ddt, da_part.sum((0, 1)), db_part.view(grp).sum(3),
-           dc_part.view(grp).sum(3))
+        raise RuntimeError(f"ssd_chunks_bwd kernel ({body}) launch failed "
+                           f"with CUDA error {rc}")
+    out = (dx, ddt, da_part.sum((0, 1)), fold_groups(db_part, g),
+           fold_groups(dc_part, g))
     return _cast_grads(out, (x, dt, a, b, c)) if cast else out
 
 
+def fold_groups(part, g: int):
+    """(B, S, G, N) from a body's (B, S, H/K, N) dB or dC partials, K heads
+    summed in each (K = 1 for the CUDA-core body's per-head ones), by one
+    torch sum over each group's partials."""
+    bs, s, hk, n = part.shape
+    return part.view(bs, s, g, hk // g, n).sum(3)
+
+
+def tc_bwd_info(L: int, P: int, N: int, K: int) -> dict:
+    """What a tc backward launch at (L, P, N, K) takes of this card:
+    shared memory a block, blocks an SM and clusters of K resident at once
+    (the CUDA occupancy calculator's answers)."""
+    out = (ctypes.c_longlong * 3)()
+    fn = _build.load("ssd_chunks_bwd").ssd_chunks_bwd_tc_info
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    rc = fn(L, P, N, K, out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunks_bwd_tc_info failed with CUDA error "
+                           f"{rc}")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1],
+            "max_active_clusters": out[2]}
+
+
 ssd_chunks_bwd.launches = 0
+ssd_chunks_bwd.body_launches = dict.fromkeys(BWD_BODIES, 0)
 
 
 class _SSDChunks(torch.autograd.Function):

@@ -41,7 +41,8 @@ import time
 from pathlib import Path
 
 ARCH = "zamba2-2.7b"
-KINDS = (("ssd_chunks_bwd", ("ssd_chunk_bwd_kernel",)),
+KINDS = (("ssd_chunks_bwd", ("ssd_chunk_bwd_kernel",
+                               "ssd_chunk_bwd_tc_kernel")),
          ("ssd_chunks", ("ssd_chunk_kernel", "ssd_chunk_tc_kernel")),
          ("flash_attention_fwd", ("flash_fwd",)),
          # the backward's passes, either body (CUDA cores, tensor cores)

@@ -7,9 +7,18 @@ rank takes card ``rank % device_count``; gloo ranks may share one card (gloo
 copies CUDA tensors through the host itself and has no send/recv of them,
 so they run the plan in allgather mode, :mod:`repro_torch.parallel.halo`),
 which is no scaling measurement.
+
+A rank that returns from ``fn`` waits at a barrier for the others, then
+destroys the process group and collects garbage before its process exits.
+The collection matters: an Engine on the Sharded plan sits in reference
+cycles that hold its process groups, so without it
+``destroy_process_group`` leaves each group's gloo threads running, and
+the interpreter tears them down as it exits, which now and then aborts the
+rank ("terminate called without an active exception").
 """
 from __future__ import annotations
 
+import gc
 import os
 import tempfile
 
@@ -23,8 +32,10 @@ def _entry(rank: int, fn, nproc: int, backend: str, path: str, args):
                             world_size=nproc, rank=rank)
     try:
         fn(rank, *args)
+        dist.barrier()      # a rank that raised skips it; spawn ends the rest
     finally:
         dist.destroy_process_group()
+        gc.collect()        # the groups' threads stop here, not at exit
 
 
 def spawn(fn, nproc: int, *args, backend: str = "gloo",
