@@ -2,15 +2,16 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only |
-                           --lm-only | --train-only]
+                           --lm-only | --train-only | --mesh-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
 and L (without L (c)'s readings, which come from phases 4 and G),
 ``--lm-only`` phases 1, 5-9 and M-R (the LM serving path),
-``--train-only`` phases 1, S, T, U and V (LM training); none prints the
-result line.  Needs one CUDA card and the CUDA
-toolkit (``nvcc``); exits nonzero, printing no result, without them.
+``--train-only`` phases 1, S, T, U and V (LM training), ``--mesh-only``
+phases 1 and W (LM training on a mesh); none prints the result line.
+Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero,
+printing no result, without them.
 Phases (each raises on failure):
 
 1. the card's name and power limit; build every kernel from ``csrc/``;
@@ -187,6 +188,31 @@ V. Mamba-2 and Zamba2 training through ``train_lm``: (a) mamba2-2.7b at
    batch, 3 steps: finite, SSD as in (a), FA 1 forward (``tc_exact``) and
    1 backward (``tc_k8``) per shared-block call and microbatch; one
    ``{"ssm_train": ...}`` line with phases U-V's numbers and times;
+W. the LM zoo on a mesh of two ranks (NCCL with a card each when there
+   are two cards, else gloo ranks sharing the one card, which measures
+   no scaling): ``MESH_CASES`` at full width, depth by ``train_depth`` at
+   ``MESH_BUDGET_GIB`` over the ranks sharing a card (times the ranks
+   sharing the state under tp / fsdp), cut to ``MESH_MAX_LAYERS``, B = 2
+   x S = 4,096 a microbatch (fsdp 512), accumulation 2: (a) qwen2-7b
+   ``dp`` over data = 2, (b) qwen2-7b ``tp`` (14 q / 2 kv heads a rank)
+   and ``fsdp`` over model = 2, (c) mamba2-2.7b ``tp`` (40 of 80 heads a
+   rank), (d)
+   moonshot-v1-16b-a3b ``tp`` with ``moe_impl="ep"`` on a 1 x 2 mesh (32
+   of 64 experts a rank), whose MoE layer is first held against the
+   dense dispatch at capacity factor E/k (neither drops: asserted) within
+   ``MESH_EP_BAR``.  Each case's one-rank step (the same parameters,
+   global batch and seed; cases that share them share it) runs first,
+   all of them in one process of their own, then the ranks run every
+   case through ``launch/train.py:train_lm_on_mesh`` for its steps (5 for
+   (a), else 3): loss and gradient norm of
+   steps 1-2 within ``MESH_LOSS_BAR`` / ``MESH_GNORM_BAR`` of the one
+   rank's (W(d), at the config's own capacity factor, where the paths
+   drop different tokens: ``MESH_EP_*``), each rank's FA and SSD
+   launches a step equal to the one rank's and to ``train_launches``
+   (bf16: ``tc_k8`` / ``tc`` only); the median global tokens/s of steps
+   2 on, the gradient reduction's seconds, each rank's peak memory, the
+   SSD backward's cluster K a rank, the MoE drops of each path; one
+   ``{"lm_mesh": ...}`` line;
 A. field cooling at the main path's size: ``Engine`` with K1/K2 under
    ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
    4 chunks x 20 steps, all six observables every 5 steps, a runlog with
@@ -371,7 +397,9 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
     ``launches_train_zamba2``; FA's backward with phase T(a)'s launches a step,
     phase S's errors, times, bound and ptxas at qwen2's shape and, with
     the case's name appended, at the other training shapes; FA's forward
-    with ``launches_train`` and ``body_train``; K1, K2, SSD and SSD's
+    with ``launches_train`` and ``body_train``; FA's and SSD's forward
+    and backward with ``launches_mesh_a_step_by_rank`` (phase W(b) tp,
+    W(c)); K1, K2, SSD and SSD's
     backward with ``body`` and ``previous_ms``, the earlier body's time
     in this run (the backward's also with its partial bytes, cluster
     size and occupancy); FA's ``previous_ms`` null, as its
@@ -4959,11 +4987,375 @@ def _legacy_roofline(reports) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase W: the LM zoo on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_BUDGET_GIB = 60.0   # training state on one card (TRAIN_BUDGET_GIB)
+MESH_B, MESH_ACCUM = 2, 2    # train_4k's rows a microbatch, accumulation
+MESH_REF_STEPS = 2       # the one-rank step's losses and norms compared
+# (tag, arch, sharding, mesh, moe_impl, positions a row, steps); the depth
+# by train_depth at the per-rank budget, then cut to MESH_MAX_LAYERS (the
+# phase's time: every collective of gloo ranks sharing the card crosses
+# the host).  W(a) reads the median of steps 2-5, the rest of steps 2-3.
+# fsdp at 512 positions: the reference's rules split the activations'
+# d_model too, so every projection and each loss chunk's logits are
+# all-reduced (~88 s a step at 4,096 positions on gloo ranks sharing
+# an H100: PERF.md §6)
+MESH_CASES = (("W(a)", "qwen2-7b", "dp", {"data": 2}, None, 4096, 5),
+              ("W(b)", "qwen2-7b", "tp", {"model": 2}, None, 4096, 3),
+              ("W(b)", "qwen2-7b", "fsdp", {"model": 2}, None, 512, 3),
+              ("W(c)", "mamba2-2.7b", "tp", {"model": 2}, None, 4096, 3),
+              ("W(d)", "moonshot-v1-16b-a3b", "tp", {"data": 1, "model": 2},
+               "ep", 4096, 3))
+MESH_MAX_LAYERS = {"qwen2-7b": 2, "mamba2-2.7b": 2,
+                   "moonshot-v1-16b-a3b": 2}
+# bf16 against the one-rank step at the same tp: T(b) found two bf16
+# paths apart by rounding alone by up to ~3 % of a leaf's largest gradient
+# (the embedding's most) and its loss bar is TRAIN_BF16_LOSS_BAR on one
+# layout; a mesh adds the bf16 rounding of each partial sum before its
+# reduction and another order of every reduction (dp sums each half's
+# bf16 embedding gradient in f32: the one rank's bf16 sum over all rows
+# is the coarser), so 5x each: the loss within 5e-3 and the gradient
+# norm within 5e-2 (relative).  W(d) trains at the config's own capacity
+# factor, where EP (per model-rank capacity) and the dense dispatch
+# (global) drop different tokens: 2e-2 and 1e-1
+MESH_LOSS_BAR, MESH_GNORM_BAR = 5e-3, 5e-2
+MESH_EP_LOSS_BAR, MESH_EP_GNORM_BAR = 2e-2, 1e-1
+# W(d)'s EP layer against the dense dispatch where neither drops (the
+# capacity factor E/k): bf16 outputs of the same products on buffers of
+# other shapes, 2e-2 of max |ref| (bf16 keeps 8 bits: 3.9e-3 an element)
+MESH_EP_S, MESH_EP_BAR = 1024, 2e-2
+
+
+def mesh_case_cfg(arch, mode, shape, moe_impl, sharing: int):
+    """The case's config: full width, depth by ``train_depth`` at
+    MESH_BUDGET_GIB over the ranks that share a card (``sharing``), times
+    the ranks that share the state under tp / fsdp, then cut to
+    MESH_MAX_LAYERS."""
+    from repro_torch import configs
+    from repro_torch.launch.train import depth_cut, train_depth
+    full = configs.get(arch)
+    world = math.prod(shape.values())
+    budget = MESH_BUDGET_GIB / sharing * (world if mode != "dp" else 1)
+    cfg, gib = train_depth(full, budget)
+    if cfg.n_layers > MESH_MAX_LAYERS[arch]:
+        cfg = depth_cut(full, MESH_MAX_LAYERS[arch])
+    if moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
+    return cfg, budget, full.n_layers
+
+
+def mesh_args(cfg, mode, shape, seq, steps, tp, seed=27):
+    from repro_torch.launch.train import parse_args
+    args = parse_args(["--arch", cfg.name, "--batch",
+                       str(MESH_B * MESH_ACCUM), "--seq", str(seq),
+                       "--steps", str(steps), "--accum", str(MESH_ACCUM),
+                       "--lr", str(TRAIN_LR), "--seed", str(seed),
+                       "--log-every", "1", "--device", "cuda",
+                       "--sharding", mode, "--tp", str(tp)])
+    args.mesh = ",".join(f"{k}={v}" for k, v in shape.items())
+    return args
+
+
+def _mesh_tp(shape) -> int:
+    return shape.get("model", 1)
+
+
+def _lm_mesh_ref(rank: int, refs, out: str) -> None:
+    """Phase W's one-rank steps, one after another in this process (each
+    one's memory freed before the next): ``train_lm`` with no mesh at the
+    case's tp, MESH_REF_STEPS steps, FA / SSD launches a step and the
+    MoE drops.  ``refs``: (cfg, tp, positions a row)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import moe
+    res = []
+    for cfg, tp, seq in refs:
+        args = mesh_args(cfg, "tp", {}, seq, MESH_REF_STEPS, tp)
+        args.mesh = None
+        reset_train_counters()
+        moe.DROPS = [] if cfg.moe is not None else None
+        torch.cuda.reset_peak_memory_stats()
+        run = train_lm(args, cfg_override=cfg)
+        got = read_train_counters()
+        res.append({"rows": run["rows"], "launches": got,
+                    "dropped": sum(moe.DROPS or []),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        moe.DROPS = None
+        del run
+        torch.cuda.empty_cache()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _ep_layer_check(torch, cfg, mesh) -> dict:
+    """W(d) (a): one MoE layer of ``cfg`` (its widths, bf16) through the
+    expert-parallel path on ``mesh`` against the dense dispatch on the
+    same tokens, at capacity factor E/k (neither path can drop)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as sh
+    m = cfg.moe
+    cf = m.n_experts / m.top_k
+    c2 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf), moe_impl="ep")
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    p = moe.init_moe(c2, gen, getattr(torch, cfg.dtype), dev)
+    x = torch.randn((MESH_B, MESH_EP_S, cfg.d_model), generator=gen,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    moe.DROPS = []
+    want, _ = moe.apply_moe_dense(c2, p, x)
+    dense_drops = sum(moe.DROPS)
+    pl = sh.param_shardings(mesh, {"moe": p}, "tp")["moe"]
+    dp = {k: distribute_tensor(v, mesh, pl[k], src_data_rank=None)
+          for k, v in p.items()}
+    xd = distribute_tensor(x, mesh, sh.placements(mesh, sh.resolve_spec(
+        mesh, ("batch",), (MESH_B,))), src_data_rank=None)
+    moe.DROPS = []
+    with sh.use_mesh(mesh, "tp"):
+        y, _ = moe.apply_moe(c2, dp, xd)
+    got = y.full_tensor()
+    drops = [None] * dist.get_world_size()
+    dist.all_gather_object(drops, sum(moe.DROPS))
+    moe.DROPS = None
+    err = rel_err(got.float(), want.float())
+    return {"capacity_factor": cf, "tokens": MESH_B * MESH_EP_S,
+            "dense_dropped": dense_drops, "ep_dropped_by_rank": drops,
+            "max_rel_err": err, "bar": MESH_EP_BAR}
+
+
+def _lm_mesh_rank(rank: int, cases, out: str) -> None:
+    """Phase W's mesh runs on one of two ranks (gloo ranks on the one
+    card, or NCCL ranks on cards of their own): each case through
+    ``launch/train.py:train_lm_on_mesh``, the rank loop ``train_lm
+    --mesh`` spawns, with this rank's FA / SSD launches, the SSD
+    backward's cluster size and the MoE drops; W(d) first holds its EP
+    layer against the dense dispatch."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.launch.train import make_mesh, train_lm_on_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.ssm import ssm_dims
+    res = []
+    for cfg, mode, shape, seq, steps in cases:
+        args = mesh_args(cfg, mode, shape, seq, steps, _mesh_tp(shape))
+        mesh = make_mesh(args)
+        case = {}
+        if cfg.moe is not None and cfg.moe_impl == "ep":
+            case["ep_layer"] = _ep_layer_check(torch, cfg, mesh)
+            torch.cuda.empty_cache()
+        reset_train_counters()
+        moe.DROPS = [] if cfg.moe is not None else None
+        torch.cuda.reset_peak_memory_stats()
+        run = train_lm_on_mesh(args, cfg, mesh)
+        launches = read_train_counters()
+        dropped = sum(moe.DROPS or [])
+        moe.DROPS = None
+        if cfg.ssm is not None:
+            _, nh = ssm_dims(cfg)
+            h_loc = nh // _mesh_tp(shape)
+            g_loc = max(1, cfg.ssm.n_groups // _mesh_tp(shape))
+            case["ssd_cluster_k"] = ssd.cluster_heads(h_loc // g_loc)
+        mine = {"launches": launches, "dropped": dropped,
+                "ssd_cluster_k": case.get("ssd_cluster_k")}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        case.update(rows=run["rows"], peak_gib=run["peak_gib"],
+                    backend=run["backend"], tp=run["tp"], ranks=ranks)
+        res.append(case)
+        del run
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+
+def _per_step(launches: dict, steps: int) -> dict:
+    return {k: (v // steps if isinstance(v, int) else
+                {b_: c // steps for b_, c in v.items()})
+            for k, v in launches.items()}
+
+
+def phase_mesh(torch, dev) -> dict:
+    """Phase W: the LM zoo on a mesh of two ranks (``MESH_CASES``)."""
+    from repro_torch.models import lm
+    from repro_torch.models.attention import pad_heads
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.parallel.ranks import spawn
+    t_start = time.perf_counter()
+    world = 2
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    sharing = 1 if backend == "nccl" else world
+    log(f"phase W: the LM zoo on a mesh of {world} ranks: {backend}"
+        + (" ranks sharing the one card (no scaling measurement; their "
+           "all-gathers of CUDA tensors staged through the host)"
+           if sharing > 1 else ", a card each"))
+    cases, meta, refs, ref_of = [], [], [], []
+    for tag, arch, mode, shape, impl, seq, steps in MESH_CASES:
+        cfg, budget, full_layers = mesh_case_cfg(arch, mode, shape, impl,
+                                                 sharing)
+        tp = _mesh_tp(shape)
+        # one one-rank run serves every case with the same parameters
+        # (shapes at the case's tp, drawn from the same seed) and batch
+        key = (arch, cfg.n_layers, seq, tuple(
+            (k, tuple(v.shape)) for k, v in sorted(_flat(
+                lm.abstract_params(cfg, tp=tp)).items())))
+        keys = [r[0] for r in refs]
+        if key not in keys:
+            refs.append((key, (cfg, tp, seq)))
+            keys.append(key)
+        ref_of.append(keys.index(key))
+        cases.append((cfg, mode, shape, seq, steps))
+        meta.append({"case": tag, "arch": arch, "sharding": mode,
+                     "mesh": shape, "moe_impl": impl, "seq": seq,
+                     "steps": steps, "n_layers": cfg.n_layers,
+                     "full_layers": full_layers, "budget_gib": budget})
+        log(f"  {tag} {arch} {mode} on {shape}: depth {cfg.n_layers} of "
+            f"{full_layers} (per-rank budget {budget:g} GiB, cut to "
+            f"{MESH_MAX_LAYERS[arch]}), B={MESH_B} x S={seq} a microbatch, "
+            f"accum {MESH_ACCUM}, {steps} steps; one-rank run "
+            f"{ref_of[-1]}")
+    wdir = ROOT / "build" / "chip_smoke" / "mesh"
+    wdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    spawn(_lm_mesh_ref, 1, [r[1] for r in refs], str(wdir / "ref.json"),
+          backend="gloo", workdir=str(wdir))
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn(_lm_mesh_rank, world, cases, str(wdir / "mesh.json"),
+          backend=backend, workdir=str(wdir))
+    mesh_s = time.perf_counter() - t0
+    ref_runs = json.loads((wdir / "ref.json").read_text())
+    runs = json.loads((wdir / "mesh.json").read_text())
+    out = {"backend": backend, "ranks_a_card": sharing, "cases": []}
+    for (cfg, mode, shape, seq, steps), m, ri, run in zip(cases, meta,
+                                                          ref_of, runs):
+        ref = ref_runs[ri]
+        tag = f"{m['case']} {m['arch']} {mode}"
+        ep = cfg.moe is not None and cfg.moe_impl == "ep"
+        lbar, gbar = ((MESH_EP_LOSS_BAR, MESH_EP_GNORM_BAR) if ep else
+                      (MESH_LOSS_BAR, MESH_GNORM_BAR))
+        errs = []
+        for i in range(MESH_REF_STEPS):
+            for key, bar in (("loss", lbar), ("grad_norm", gbar)):
+                a, b = run["rows"][i][key], ref["rows"][i][key]
+                e = abs(a - b) / abs(b)
+                errs.append(e)
+                if not (math.isfinite(a) and e < bar):
+                    raise AssertionError(f"{tag}: step {i + 1} {key} {a} "
+                                         f"vs one-rank {b} (rel {e:.3e}, "
+                                         f"bar {bar:g})")
+        expect, (body, bwd_body, ssd_body) = train_launches(
+            torch, cfg, steps * MESH_ACCUM)
+        one = _per_step(ref["launches"], MESH_REF_STEPS)
+        for r, rk in enumerate(run["ranks"]):
+            if rk["launches"] != expect:
+                raise AssertionError(f"{tag}: rank {r} launches "
+                                     f"{rk['launches']}, expected {expect}")
+            if _per_step(rk["launches"], steps) != one:
+                raise AssertionError(f"{tag}: rank {r} launches a step "
+                                     f"{_per_step(rk['launches'], steps)}, "
+                                     f"one rank {one}")
+        if ep:
+            el = run["ep_layer"]
+            if el["dense_dropped"] or any(el["ep_dropped_by_rank"]):
+                raise AssertionError(f"{tag}: EP layer at cf "
+                                     f"{el['capacity_factor']} dropped {el}")
+            if not el["max_rel_err"] < MESH_EP_BAR:
+                raise AssertionError(f"{tag}: EP vs dense {el}")
+            log(f"  {tag}: EP layer vs dense dispatch at cf "
+                f"{el['capacity_factor']:.3f} on {el['tokens']} tokens: 0 "
+                f"dropped, rel err {el['max_rel_err']:.3e} (bar "
+                f"{MESH_EP_BAR:g})")
+        steady = sorted(r["s"] for r in run["rows"][1:])
+        med = steady[len(steady) // 2]
+        tokens = MESH_B * MESH_ACCUM * seq
+        red = sorted(r["reduce_s"] for r in run["rows"][1:])
+        a_step = _per_step(expect, steps)
+        row = dict(m, backend=run["backend"], tp=run["tp"],
+                   rows=run["rows"], ref_rows=ref["rows"],
+                   max_rel_err_vs_one_rank=max(errs),
+                   loss_bar=lbar, grad_norm_bar=gbar,
+                   step_s_median=med, global_tokens_per_s=tokens / med,
+                   grad_reduction_s_median=red[len(red) // 2],
+                   peak_gib_by_rank=run["peak_gib"],
+                   one_rank_peak_gib=ref["peak_gib"],
+                   launches_a_step_by_rank=[_per_step(rk["launches"], steps)
+                                            for rk in run["ranks"]],
+                   fa_body=body, fa_bwd_body=bwd_body, ssd_body=ssd_body)
+        split = _mesh_tp(shape) if mode == "tp" else 1
+        if cfg.n_heads:
+            hp = pad_heads(cfg.n_heads, run["tp"])
+            kvp = (cfg.kv_heads if cfg.kv_heads <= run["tp"] else
+                   pad_heads(cfg.kv_heads, run["tp"]))
+            row["q_kv_heads_a_rank"] = (hp // split, kvp // split
+                                        if kvp % split == 0 else kvp)
+        if cfg.ssm is not None:
+            row["ssd_heads_a_rank"] = ssm_dims(cfg)[1] // split
+            row["ssd_cluster_k_by_rank"] = [rk["ssd_cluster_k"]
+                                            for rk in run["ranks"]]
+        if cfg.moe is not None:
+            row["experts_a_rank"] = cfg.moe.n_experts // split
+            row["dropped_a_step_by_rank"] = [rk["dropped"] / steps
+                                             for rk in run["ranks"]]
+            row["one_rank_dropped_a_step"] = ref["dropped"] / MESH_REF_STEPS
+            row["ep_layer"] = run.get("ep_layer")
+        out["cases"].append(row)
+        log(f"  {tag}: losses {[round(r['loss'], 4) for r in run['rows']]} "
+            f"(one rank {[round(r['loss'], 4) for r in ref['rows']]}), "
+            f"worst rel {max(errs):.3e}; median step {med:.3f} s = "
+            f"{tokens / med:.1f} global tokens/s; gradient reduction "
+            f"{row['grad_reduction_s_median']:.3f} s; peak GiB by rank "
+            f"{[p if p is None else round(p, 2) for p in run['peak_gib']]}"
+            f" (one rank {ref['peak_gib']:.2f}); a step a rank: FA "
+            f"{a_step['fwd']} "
+            f"fwd ({body}) + {a_step['bwd']} bwd ({bwd_body}), SSD "
+            f"{a_step['ssd_fwd']} fwd + {a_step['ssd_bwd']} bwd "
+            f"({ssd_body})"
+            + (f"; q / kv heads a rank {row['q_kv_heads_a_rank']}"
+               if cfg.n_heads else "")
+            + (f"; {row['ssd_heads_a_rank']} SSD heads a rank, backward "
+               f"cluster K by rank {row['ssd_cluster_k_by_rank']}"
+               if cfg.ssm is not None else "")
+            + (f"; {row['experts_a_rank']} experts a rank"
+               if cfg.moe is not None else "")
+            + (f"; dropped (token, choice) pairs a step by rank "
+               f"{row['dropped_a_step_by_rank']}, one rank "
+               f"{row['one_rank_dropped_a_step']}"
+               if cfg.moe is not None else ""))
+    out.update(ref_s=ref_s, mesh_s=mesh_s,
+               seconds=time.perf_counter() - t_start)
+    log(f"phase W: {len(cases)} cases in {out['seconds']:.1f} s ("
+        f"{len(refs)} one-rank runs {ref_s:.1f} s, mesh {mesh_s:.1f} s)")
+    return out
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"],
-                    ["--legacy-only"], ["--lm-only"], ["--train-only"]):
+                    ["--legacy-only"], ["--lm-only"], ["--train-only"],
+                    ["--mesh-only"]):
         print("usage: chip_smoke.py [--serve-only | --sharded-only | "
-              "--legacy-only | --lm-only | --train-only]", file=sys.stderr)
+              "--legacy-only | --lm-only | --train-only | --mesh-only]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -5043,6 +5435,10 @@ def main(argv) -> int:
         print(json.dumps({"lm_zoo": zoo}), flush=True)
         print(card, flush=True)
         print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if argv == ["--mesh-only"]:
+        print(json.dumps({"lm_mesh": phase_mesh(torch, dev)}), flush=True)
+        print(card, flush=True)
         return 0
     if argv == ["--train-only"]:
         fa_row = {"name": "flash_attention_fwd"}
@@ -5279,6 +5675,18 @@ def main(argv) -> int:
     rows.append(ssd_bwd_row)
     print(json.dumps({"ssm_train": ssm_train}), flush=True)
     torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, dev)
+    by_case = {(c["case"], c["sharding"]): c for c in mesh["cases"]}
+    for row in rows:
+        src = {"flash_attention_fwd": ("W(b)", "tp", "fwd"),
+               "flash_attention_bwd": ("W(b)", "tp", "bwd"),
+               "ssd_chunks": ("W(c)", "tp", "ssd_fwd"),
+               "ssd_chunks_bwd": ("W(c)", "tp", "ssd_bwd")}.get(row["name"])
+        if src:
+            row["launches_mesh_a_step_by_rank"] = [
+                r[src[2]] for r in by_case[src[:2]][
+                    "launches_a_step_by_rank"]]
+    print(json.dumps({"lm_mesh": mesh}), flush=True)
     surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
                                                     moments, kern)}
     surface["heisenberg"] = phase_heisenberg(torch, dev, lat)

@@ -57,3 +57,15 @@ def dp_size(mesh) -> int:
 
 def tp_size(mesh) -> int:
     return mesh_shape(mesh).get("model", 1)
+
+
+def batch_shardings(mesh, batch: dict) -> dict:
+    """The DTensor placements of each batch leaf: the leading dimension
+    split over the data-parallel dimensions when it divides them, the
+    rest replicated (the reference's ``_batch_shardings``)."""
+    from repro_torch.parallel.sharding import placements
+    dp = dp_axes(mesh)
+    n = dp_size(mesh)
+    spec = (dp if len(dp) > 1 else dp[0]) if dp else None
+    return {k: placements(mesh, ((spec if v.shape[0] % n == 0 else None),))
+            for k, v in batch.items()}

@@ -17,6 +17,19 @@ the end, and a relaunch resumes from the newest complete checkpoint, the
 data stream seeked to the resumed step (the reference restarts its stream
 at batch 0).
 
+On a mesh (``--mesh data=2`` / ``model=2`` / ``pod=2,data=2,model=2``,
+``--sharding tp|fsdp|dp``, ``--backend nccl|gloo``) ``train_lm`` starts
+one rank per mesh position through ``parallel/ranks.py:spawn``: NCCL with
+one card a rank when the machine has a card for each (the default then),
+else gloo ranks, which share the one card (no scaling measurement) or run
+on the host with ``--device cpu``.  Every rank builds the same full
+parameters from ``--seed`` at tp = the mesh's "model" size (``--tp``
+overrides it; a one-device run compared with a mesh run must use the
+same), keeps its shard (``train/train_step.py:shard_train_state``) and
+takes the same global batch, each microbatch's rows split over the
+data-parallel dimensions; rank 0 prints the loss, gradient norm, global
+tokens/s and each rank's peak memory.  A mesh run keeps no checkpoint.
+
 MD (``--arch fege-spinlattice``): fits NEP-SPIN to synthetic
 constrained-DFT data (24 B20 2x2x2 configurations labeled by the
 Heisenberg-DMI oracle, Adam for ``--fit-steps``), then runs coupled
@@ -30,6 +43,7 @@ host, for either half.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -37,6 +51,7 @@ import torch
 from repro_torch.utils.device import resolve_device
 
 MD_ARCH = "fege-spinlattice"
+MESH_DIMS = ("pod", "data", "model")
 # the training state a parameter holds on the card: bf16 weight, its bf16
 # gradient from the backward, the f32 accumulation buffer and the two f32
 # AdamW moments
@@ -81,9 +96,32 @@ def train_depth(cfg, budget_gib: float):
         lm.abstract_params(c, tp=1)) * TRAIN_BYTES_PER_PARAM)
 
 
+def parse_mesh(spec: str | None) -> dict:
+    """``"data=2,model=1"`` -> {"data": 2, "model": 1}, in mesh order
+    (pod, data, model); None or "" -> {}."""
+    if not spec:
+        return {}
+    got = {}
+    for part in spec.split(","):
+        name, _, n = part.partition("=")
+        if name not in MESH_DIMS or not n.isdigit() or int(n) < 1:
+            raise ValueError(f"--mesh {spec!r}: want name=size with names "
+                             f"from {MESH_DIMS}")
+        got[name] = int(n)
+    return {a: got[a] for a in MESH_DIMS if a in got}
+
+
+def mesh_world(args) -> int:
+    return math.prod(parse_mesh(getattr(args, "mesh", None)).values())
+
+
 def train_lm(args, cfg_override=None) -> dict:
     """The LM training loop; returns the config, the final state and each
-    step's metrics (floats) with its wall time and tokens/s."""
+    step's metrics (floats) with its wall time and tokens/s.  With a mesh
+    of more than one position the ranks train in processes of their own
+    and rank 0's rows come back (no state)."""
+    if mesh_world(args) > 1:
+        return train_lm_mesh(args, cfg_override)
     from repro_torch import configs
     from repro_torch.ckpt.checkpoint import (latest_step, load_checkpoint,
                                              save_checkpoint)
@@ -97,7 +135,8 @@ def train_lm(args, cfg_override=None) -> dict:
     cfg = cfg_override or (configs.get_smoke(args.arch) if args.smoke
                            else configs.get(args.arch))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm.init_params(cfg, gen, tp=1, device=dev)
+    params = lm.init_params(cfg, gen, tp=getattr(args, "tp", None) or 1,
+                            device=dev)
     print(f"arch={cfg.name} params={tree_count(params) / 1e6:.1f}M "
           f"device={dev}", flush=True)
     state = init_train_state(params)
@@ -148,6 +187,147 @@ def train_lm(args, cfg_override=None) -> dict:
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def mesh_backend(args) -> str:
+    """``--backend``, or NCCL when every rank has a card of its own."""
+    if getattr(args, "backend", None):
+        return args.backend
+    n = mesh_world(args)
+    if args.device != "cpu" and torch.cuda.is_available() and \
+            torch.cuda.device_count() >= n:
+        return "nccl"
+    return "gloo"
+
+
+def train_lm_mesh(args, cfg_override=None) -> dict:
+    """``train_lm`` on ``--mesh``: spawn the ranks, return rank 0's
+    result (the config, the rows, each rank's peak memory)."""
+    import json
+    import os
+    import tempfile
+    from repro_torch.parallel.ranks import spawn
+    if args.ckpt_dir:
+        raise ValueError("a mesh run keeps no checkpoint (--ckpt-dir)")
+    backend = mesh_backend(args)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "rank0.json")
+        spawn(_mesh_rank, mesh_world(args), args, cfg_override, out,
+              backend=backend, workdir=d)
+        with open(out) as f:
+            res = json.load(f)
+    from repro_torch import configs
+    res["cfg"] = cfg_override or (configs.get_smoke(args.arch) if args.smoke
+                                  else configs.get(args.arch))
+    return res
+
+
+def _mesh_rank(rank, args, cfg_override, out) -> None:
+    import json
+    res = train_lm_on_mesh(args, cfg_override, make_mesh(args))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({k: v for k, v in res.items()
+                       if k not in ("cfg", "state")}, f)
+
+
+def make_mesh(args):
+    """The DeviceMesh of ``--mesh`` over the initialised world (on the
+    card each rank uses: its own under NCCL, the one shared under gloo,
+    whose all-gathers of CUDA tensors are then staged through the host:
+    ``sharding.stage_gloo_all_gather``), or on the host with ``--device
+    cpu``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.parallel.sharding import stage_gloo_all_gather
+    shape = parse_mesh(args.mesh)
+    kind = "cpu" if args.device == "cpu" else "cuda"
+    if kind == "cuda" and dist.get_backend() != "nccl":
+        torch.cuda.set_device(0)
+        stage_gloo_all_gather()
+    return DeviceMesh(kind, torch.arange(math.prod(shape.values())).reshape(
+        tuple(shape.values())), mesh_dim_names=tuple(shape))
+
+
+def train_lm_on_mesh(args, cfg_override, mesh) -> dict:
+    """One rank's training loop on ``mesh`` (every rank calls it): the
+    same full parameters on every rank from ``--seed``, sharded by
+    ``--sharding``'s rules, the same global batches.  Returns the config,
+    the final (sharded) state, the rows (loss, gradient norm, wall time,
+    global tokens/s, the gradient reduction's seconds) and each rank's
+    peak memory in GiB (gathered: the same on every rank)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_batches, to_tensors
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import mesh_dims
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+    from repro_torch.utils.tree import tree_count
+
+    rank = dist.get_rank()
+    dev = (torch.device("cpu") if mesh.device_type == "cpu" else
+           torch.device("cuda", torch.cuda.current_device()))
+    cfg = cfg_override or (configs.get_smoke(args.arch) if args.smoke
+                           else configs.get(args.arch))
+    mode = args.sharding
+    tp = getattr(args, "tp", None) or tp_size(mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = lm.init_params(cfg, gen, tp=tp, device=dev)
+    n_params = tree_count(params)
+    state = shard_train_state(init_train_state(params), mesh, mode)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh="
+              f"{mesh_dims(mesh)} "
+              f"sharding={mode} backend={dist.get_backend()} tp={tp} "
+              f"device={dev}", flush=True)
+    loss_fn = lm.make_loss_fn(cfg, remat=getattr(args, "remat", True),
+                              xent_chunk=512)
+    step_fn = make_train_step(
+        loss_fn, lambda s: cosine_schedule(s, peak_lr=args.lr, warmup=20,
+                                           total=args.steps),
+        accum=args.accum, mesh=mesh, mode=mode)
+    batches = synthetic_batches(cfg, args.batch, args.seq, args.seed)
+    tokens = args.batch * args.seq
+    rows, t_all = [], 0.0
+    for i in range(args.steps):
+        batch = to_tensors(next(batches), dev)
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        row = {"step": i, "loss": float(metrics["loss"]),
+               "lr": float(metrics["lr"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "reduce_s": metrics["reduce_s"]}
+        _sync(dev)
+        row["s"] = time.perf_counter() - t0
+        row["tokens_per_s"] = tokens / row["s"]
+        rows.append(row)
+        t_all += row["s"]
+        if rank == 0 and (i % args.log_every == 0 or i == args.steps - 1):
+            print(f"step {i:5d} loss {row['loss']:.4f} lr {row['lr']:.2e} "
+                  f"gnorm {row['grad_norm']:.3f} global tok/s "
+                  f"{tokens * len(rows) / t_all:.0f} grad reduction "
+                  f"{row['reduce_s']:.3f} s", flush=True)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    if rank == 0 and peak is not None:
+        print("peak memory a rank (GiB): "
+              f"{[round(p, 2) for p in peaks]}", flush=True)
+    return {"cfg": cfg, "state": state, "rows": rows, "start": 0,
+            "peak_gib": peaks, "backend": dist.get_backend(), "tp": tp,
+            "mesh": mesh_dims(mesh), "sharding": mode}
 
 
 def fit_potential(args, generator, device, dtype):
@@ -259,6 +439,14 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. data=2 or data=2,model=2 (pod/data/model)")
+    ap.add_argument("--sharding", default="tp", choices=("tp", "fsdp", "dp"))
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="default: nccl with a card a rank, else gloo")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="build the parameters at this tp (default: the "
+                    "mesh's model size, else 1)")
     # MD options (the reference's defaults)
     ap.add_argument("--cells", type=int, default=6)
     ap.add_argument("--temperature", type=float, default=160.0)

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models.common import apply_rope, normal, rmsnorm
+from repro_torch.parallel.sharding import heads_local_map, is_dtensor
 
 NEG_INF = -1e30
 
@@ -111,12 +112,24 @@ def chunked_attention(q, k, v, q_pos, k_pos, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)          # (B,S,H,hd)
 
 
+def attend(q, k, v, *, causal=True, window=0, fa=None):
+    """``fa`` (:func:`flash_attention` by default) as the models call it;
+    on DTensors (a mesh) it runs on each rank's own heads through
+    ``local_map``, the kv heads of a rank's q heads handed to it whole."""
+    fa = fa or flash_attention
+    if not is_dtensor(q):
+        return fa(q, k, v, causal=causal, window=window)
+    return heads_local_map(
+        lambda ql, kl, vl: fa(ql, kl, vl, causal=causal, window=window),
+        (q, k, v), (("h", 2, True), ("g", 2, True), ("g", 2, True)))
+
+
 def apply_gqa(cfg, p, x, positions):
     """Prefill self-attention through the flash kernel.  ``positions`` must
     be 0..S-1 in every row (the kernel's causal and window masks use row
     indices).  Returns (out, (k, v))."""
     q, k, v = _qkv(cfg, p, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = attend(q, k, v, causal=True, window=cfg.sliding_window)
     return _out(out, p["wo"]), (k, v)
 
 
@@ -217,7 +230,7 @@ def apply_mla(cfg, p, x, positions):
     qc = torch.cat([q_nope, q_rope], dim=-1)
     kc = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], m.qk_rope)],
                    dim=-1)
-    out = flash_attention(qc, kc, v, causal=True)
+    out = attend(qc, kc, v, causal=True)
     return _out(out, p["wo"]), (ckv, k_rope)
 
 

@@ -158,9 +158,48 @@ def chunked_xent(logits_fn, h: torch.Tensor, targets: torch.Tensor,
     logits (qwen2's V = 152,064 makes one 2,048-row chunk of f32 logits
     1.25 GB).  h: (T, d), targets: (T,), mask: (T,); logits_fn: (n, d) ->
     (n, V).  The mean is over max(sum(mask), 1), as in the reference."""
+    from repro_torch.parallel.sharding import is_dtensor
+    if is_dtensor(h):
+        return _chunked_xent_mesh(logits_fn, h, targets, mask, chunk)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, h.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
         total = total + checkpoint(_xent_sum, logits_fn, h[sl], targets[sl],
                                    mask[sl], use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask.float()), min=1.0)
+
+
+def _xent_sum_sharded(logits_fn, hb, tb, mb):
+    """:func:`_xent_sum` on DTensors whose logits may be split over the
+    vocabulary: the log-sum-exp from a gathered row max and a summed
+    exp, and the gold logit as a masked sum (a gather across a split
+    vocabulary has no sharding rule), so no rank holds a whole row."""
+    with torch.profiler.record_function("chunked_xent"):
+        logits = logits_fn(hb).float()
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(tb.long()[..., None] == vocab, logits,
+                           0.0).sum(-1)
+        return torch.sum((lse - gold) * mb.float())
+
+
+def _chunked_xent_mesh(logits_fn, h, targets, mask, chunk):
+    """:func:`chunked_xent` on a mesh: the rows are cut into the shards of
+    their data-parallel split, and each chunk takes ``chunk`` rows of
+    every shard at once, so a chunk never crosses a shard (the rows of
+    a shard stay on their rank)."""
+    from torch.distributed.tensor import Shard
+    n = math.prod(int(sz) for p, sz in zip(h.placements,
+                                           h.device_mesh.mesh.shape)
+                  if isinstance(p, Shard) and p.dim == 0)
+    t = h.shape[0]
+    h3 = h.view(n, t // n, h.shape[1])
+    t3, m3 = targets.view(n, t // n), mask.view(n, t // n)
+    total = None
+    for c0 in range(0, t // n, chunk):
+        sl = slice(c0, c0 + chunk)
+        part = checkpoint(_xent_sum_sharded, logits_fn, h3[:, sl],
+                          t3[:, sl], m3[:, sl], use_reentrant=False)
+        total = part if total is None else total + part
     return total / torch.clamp(torch.sum(mask.float()), min=1.0)

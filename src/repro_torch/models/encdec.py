@@ -25,7 +25,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm, chunked_xent,
                                        init_mlp, init_norm, normal)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import (_stack, check_remat, index_layer,
+from repro_torch.parallel.sharding import shard
+from repro_torch.models.transformer import (_stack, check_remat,
+                                            embed_inputs, index_layer,
                                             padded_vocab, remat_call,
                                             unstack_layers)
 from repro_torch.utils.device import resolve_device
@@ -66,10 +68,11 @@ def init_encdec(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
 def _enc_block(cfg, p, h, positions):
     hn = apply_norm(cfg, p["norm_attn"], h)
     q, k, v = attn._qkv(cfg, p["attn"], hn, positions)
-    out = flash_attention(q, k, v, causal=False)         # bidirectional
+    out = attn.attend(q, k, v, causal=False,            # bidirectional
+                      fa=flash_attention)
     h = h + attn._out(out, p["attn"]["wo"])
     hn = apply_norm(cfg, p["norm_mlp"], h)
-    return h + apply_mlp(cfg, p["mlp"], hn)
+    return shard(h + apply_mlp(cfg, p["mlp"], hn), "batch", None, "embed")
 
 
 def _enc_kv(p_dec_layer, enc_out):
@@ -85,10 +88,11 @@ def _dec_block(cfg, p, h, enc_kv, positions):
     h = h + a
     hn = apply_norm(cfg, p["norm_xattn"], h)
     q = attn._proj(hn, p["xattn"]["wq"])
-    out = flash_attention(q, *enc_kv, causal=False)      # S_tgt x S_src
+    out = attn.attend(q, *enc_kv, causal=False,         # S_tgt x S_src
+                      fa=flash_attention)
     h = h + attn._out(out, p["xattn"]["wo"])
     hn = apply_norm(cfg, p["norm_mlp"], h)
-    return h + apply_mlp(cfg, p["mlp"], hn)
+    return shard(h + apply_mlp(cfg, p["mlp"], hn), "batch", None, "embed")
 
 
 def _positions(b: int, s: int, device):
@@ -115,7 +119,7 @@ def forward(cfg: ArchConfig, params: dict, tgt_tokens: torch.Tensor,
             src_embeds: torch.Tensor, remat=False):
     """Returns (hidden (B, S_tgt, d), aux = 0, logits_fn)."""
     enc_out = encode(cfg, params, src_embeds, remat)
-    h = params["embed"][tgt_tokens.long()].to(getattr(torch, cfg.dtype))
+    h = embed_inputs(cfg, params, tgt_tokens)
     positions = _positions(h.shape[0], h.shape[1], h.device)
     for lp in unstack_layers(params["dec"], cfg.n_layers):
         h = remat_call(remat, _dec_layer, cfg, lp, h, enc_out, positions)

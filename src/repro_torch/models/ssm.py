@@ -15,6 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd.ops import ssd_chunked_kernel
 from repro_torch.models.common import normal, rmsnorm
+from repro_torch.parallel.sharding import (heads_local_map, is_dtensor,
+                                           keep_shards, redistribute)
 
 
 def ssm_dims(cfg):
@@ -139,8 +141,16 @@ def apply_mamba2(cfg, p, x):
     d_in, nh = ssm_dims(cfg)
     g, n = s.n_groups, s.d_state
     proj = x @ p["in_proj"]
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if is_dtensor(proj):
+        # [z, x, B, C, dt] split over "model" is not head-aligned: gather
+        # it (an all-gather under tp) and the conv's small weights, as
+        # GSPMD would
+        proj = redistribute(proj, keep_shards(proj, (0,)))
+        conv_w = redistribute(conv_w, keep_shards(conv_w))
+        conv_b = redistribute(conv_b, keep_shards(conv_b))
     z, xbc, dt = _split_proj(cfg, proj)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xbc = F.silu(_causal_conv(xbc, conv_w, conv_b))
     xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
     bs, sl, _ = x.shape
     xh = xs.view(bs, sl, nh, s.head_dim)      # strided views, no copies
@@ -148,7 +158,14 @@ def apply_mamba2(cfg, p, x):
     ch = c.view(bs, sl, g, n)
     dt = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    y = ssd_chunked_kernel(xh, dt, a, bh, ch, p["d_skip"], s.chunk)
+    if is_dtensor(xh):      # each rank's heads, with their groups' B / C
+        y = heads_local_map(
+            lambda *t: ssd_chunked_kernel(*t, s.chunk),
+            (xh, dt, a, bh, ch, p["d_skip"]),
+            (("h", 2, True), ("h", 2, True), ("h", 0, False),
+             ("g", 2, True), ("g", 2, True), ("h", 0, False)))
+    else:
+        y = ssd_chunked_kernel(xh, dt, a, bh, ch, p["d_skip"], s.chunk)
     y = y.reshape(bs, sl, d_in)
     y = rmsnorm(y * F.silu(z), p["norm_w"])
     return y @ p["out_proj"]

@@ -10,11 +10,15 @@ is an MLP or an MoE (``models/moe.py``).  Every attention of the forward
 runs the flash kernels (forward, and backward in training).  ``forward``
 returns the MoE auxiliary loss as the reference does; ``remat=True`` wraps
 each layer in ``torch.utils.checkpoint`` (non-reentrant), as the
-reference's ``_remat_wrap`` wraps each scanned layer.  Sharding
-annotations and ``checkpoint_name`` have no counterpart on one card, and
-the reference's ``"save_collectives"`` remat policy (which only matters
-under a mesh) raises.  Decode updates its caches in place and returns the
-same dictionary.
+reference's ``_remat_wrap`` wraps each scanned layer, and
+``remat="save_collectives"`` does so under a selective-checkpoint policy
+that keeps each block's two outputs (the reference's ``blk_out``) and,
+under a mesh, the outputs of the block's collectives, so the backward
+reuses the tensor-parallel all-reduces instead of re-issuing them.  On a
+mesh the parameters and the batch are DTensors and the reference's
+``shard`` constraints redistribute the residual stream
+(``parallel/sharding.py``); with no mesh they do nothing.  Decode updates
+its caches in place and returns the same dictionary.
 """
 from __future__ import annotations
 
@@ -25,11 +29,14 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.common import (apply_mlp, apply_norm, chunked_xent,
                                        init_mlp, init_norm, normal)
 from repro_torch.models.config import ArchConfig
+from repro_torch.parallel.sharding import (embedding_lookup, is_dtensor,
+                                           shard)
 from repro_torch.utils.device import resolve_device
 
 VOCAB_PAD = 256
@@ -88,20 +95,43 @@ def unstack_layers(tree, n: int) -> list:
     return out
 
 
+REMAT_POLICIES = (False, None, True, "save_collectives")
+# the op that marks a block output for "save_collectives" (the reference's
+# checkpoint_name(x, "blk_out")); nothing else in the models calls it
+BLK_OUT = torch.ops.aten.alias_copy.default
+
+
 def check_remat(remat) -> None:
-    """``remat`` is False/None or True; the reference's
-    ``"save_collectives"`` policy pins TP all-reduce results and has no
-    meaning without a mesh."""
-    if remat not in (False, None, True):
-        raise NotImplementedError(
-            f"remat={remat!r}: the reference's 'save_collectives' policy "
-            "needs a device mesh (ROADMAP §1 item 15.6c); use True or "
-            "False")
+    """``remat`` is False/None, True, or the reference's
+    ``"save_collectives"`` policy."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_POLICIES}")
+
+
+def blk_out(x, save: bool):
+    """``x`` marked as a block output that ``"save_collectives"`` keeps
+    (a copy, made only under that policy)."""
+    return BLK_OUT(x) if save else x
+
+
+def _save_collectives(ctx, op, *args, **kwargs):
+    """Keep the marked block outputs and every functional collective's
+    output (the tensor-parallel all-reduces and gathers: the backward's
+    recomputation then re-issues none); recompute the rest."""
+    if op is BLK_OUT or getattr(op, "namespace", "") == "_c10d_functional":
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_call(remat, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant: its
-    activations are recomputed in the backward) when ``remat``."""
+    activations are recomputed in the backward) when ``remat``; under the
+    ``"save_collectives"`` policy's selective checkpoint for that one."""
+    if remat == "save_collectives":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (
+                              create_selective_checkpoint_contexts(
+                                  _save_collectives)))
     if remat:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -162,8 +192,11 @@ def init_lm(cfg: ArchConfig, generator, tp: int, dtype, device) -> dict:
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg, kind, p, h, positions):
-    """One layer: (h, aux), aux the MoE router's loss (0 elsewhere)."""
+def _apply_block(cfg, kind, p, h, positions, save=False):
+    """One layer: (h, aux), aux the MoE router's loss (0 elsewhere).
+    ``save`` marks the attention and MLP / MoE outputs for the
+    ``"save_collectives"`` policy (under a mesh, after their
+    all-reduce)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "ssm":
         hn = apply_norm(cfg, p["norm_ssm"], h)
@@ -173,13 +206,14 @@ def _apply_block(cfg, kind, p, h, positions):
         a, _ = attn.apply_mla(cfg, p["attn"], hn, positions)
     else:
         a, _ = attn.apply_gqa(cfg, p["attn"], hn, positions)
-    h = h + a
+    h = h + blk_out(shard(a, "batch", "seq_act", "embed"), save)
     hn = apply_norm(cfg, p["norm_mlp"], h)
     if kind == "moe":
         y, aux = moe_mod.apply_moe(cfg, p["moe"], hn)
     else:
         y = apply_mlp(cfg, p["mlp"], hn)
-    return h + y, aux
+    h = h + blk_out(shard(y, "batch", "seq_act", "embed"), save)
+    return shard(h, "batch", "seq_act", "embed"), aux
 
 
 def _shared_block(cfg, p, h, resid, positions):
@@ -201,7 +235,10 @@ def embed_inputs(cfg, params, tokens, embeds=None):
     token embeddings (pixtral-style early fusion).
     """
     dtype = getattr(torch, cfg.dtype)
-    h = params["embed"][tokens.long()].to(dtype)
+    if is_dtensor(params["embed"]):
+        h = embedding_lookup(params["embed"], tokens.long()).to(dtype)
+    else:
+        h = params["embed"][tokens.long()].to(dtype)
     if embeds is not None:
         h = torch.cat([embeds.to(dtype), h], dim=1)
     return h
@@ -221,6 +258,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     check_remat(remat)
     groups = layer_groups(cfg)
     h = embed_inputs(cfg, params, tokens, embeds)
+    h = shard(h, "batch", "seq_act", "embed")
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
@@ -230,7 +268,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         layers = unstack_layers(params[f"g{gi}"], grp.count)
         for li, lp in enumerate(layers):
             h, a = remat_call(remat, _apply_block, cfg, grp.kind, lp, h,
-                              positions)
+                              positions, remat == "save_collectives")
             aux = aux + a
             if grp.shared_attn and (li + 1) % cfg.shared_every == 0:
                 h = _shared_block(cfg, params["shared"], h, resid0,

@@ -5,8 +5,8 @@ Int8 block-quantised compression with error feedback: gradients are
 quantised before a cross-host reduction, and the quantisation residual is
 carried into the next step, so the compressed trajectory tracks the exact
 one (Karimireddy et al. 2019).  The reference does not wire it into
-``make_train_step``, and neither does the port (data-parallel training is
-ROADMAP §1 item 15.6c).
+``make_train_step``, and neither does the port: its mesh step reduces
+each parameter's f32 gradient sum once a step, uncompressed.
 
     comp = Int8ErrorFeedback(block=256)
     carry = comp.init(grads_like)

@@ -13,7 +13,9 @@ used, so a test can hold each step against the reference on the same
 numbers.  ``adamw_update(..., inplace=True)`` (the LM training step) writes
 the same values into the parameters and moments it is given, a chunk of
 ``INPLACE_CHUNK`` elements at a time, so that a multi-billion-parameter
-update needs no second copy of the moments.
+update needs no second copy of the moments.  Its leaves may be DTensors
+(a mesh): the global-norm clip then sums over every rank's shard, and each
+leaf is updated ZeRO-1 style in its moments' placement.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.utils.tree import sum_squares
 
 INPLACE_CHUNK = 2 ** 24    # elements a step of the in-place update
 
@@ -63,6 +66,39 @@ def _adamw_leaf(p, g, mu, nu, scale, bc1, bc2, lr, b1, b2, eps,
     return p.to(f32) - lr * step, mu32, nu32
 
 
+def _inplace_leaf(p, g, mu, nu, scale, hyper) -> None:
+    """One leaf's update written into ``p``, ``mu`` and ``nu`` (contiguous
+    tensors), ``INPLACE_CHUNK`` elements at a time."""
+    views = [p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1)]
+    for i in range(0, p.numel(), INPLACE_CHUNK):
+        pc, gc, mc, nc = (x[i:i + INPLACE_CHUNK] for x in views)
+        q, mu32, nu32 = _adamw_leaf(pc, gc, mc, nc, scale, *hyper)
+        pc.copy_(q)
+        mc.copy_(mu32)
+        nc.copy_(nu32)
+
+
+def _zero1_leaf(p, g, mu, nu, scale, hyper) -> None:
+    """A DTensor leaf's update, ZeRO-1: each rank updates the shard of the
+    parameter its moments hold (``opt_shardings``), and the new values
+    are redistributed back to the parameter's placement."""
+    from torch.distributed.tensor import DTensor
+    opl = list(mu.placements)
+    mesh = p.device_mesh
+    g_l = _to(g, opl).to_local()
+    p_l = _to(p, opl).to_local().contiguous().clone()
+    _inplace_leaf(p_l, g_l, mu.to_local(), nu.to_local(), scale, hyper)
+    new = DTensor.from_local(p_l, mesh, opl, run_check=False,
+                             shape=p.shape, stride=p.stride())
+    p.to_local().copy_(_to(new, p.placements).to_local())
+
+
+def _to(x, placements):
+    if list(x.placements) == list(placements):
+        return x
+    return x.redistribute(x.device_mesh, list(placements))
+
+
 def adamw_update(params, grads, state: OptState, lr, *, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, grad_clip=1.0, inplace=False):
     """Returns (new_params, new_state).  Math in f32, moments stored in the
@@ -73,8 +109,7 @@ def adamw_update(params, grads, state: OptState, lr, *, b1=0.9, b2=0.95,
     f32 = torch.float32
     flat_g = [g.detach() for g in _leaves(grads)]
     # global-norm clip
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
-                           for g in flat_g))
+    gnorm = torch.sqrt(sum(sum_squares(g) for g in flat_g))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     c = torch.tensor(float(count), dtype=f32)
     bc1 = 1 - torch.tensor(b1, dtype=f32) ** c
@@ -85,15 +120,10 @@ def adamw_update(params, grads, state: OptState, lr, *, b1=0.9, b2=0.95,
     if inplace:
         with torch.no_grad():
             for p, g, mu, nu in leaves:
-                views = [p.view(-1), g.reshape(-1), mu.view(-1),
-                         nu.view(-1)]
-                for i in range(0, p.numel(), INPLACE_CHUNK):
-                    pc, gc, mc, nc = (x[i:i + INPLACE_CHUNK] for x in views)
-                    q, mu32, nu32 = _adamw_leaf(pc, gc, mc, nc, scale,
-                                                *hyper)
-                    pc.copy_(q)
-                    mc.copy_(mu32)
-                    nc.copy_(nu32)
+                if hasattr(p, "device_mesh"):
+                    _zero1_leaf(p, g, mu, nu, scale, hyper)
+                else:
+                    _inplace_leaf(p, g, mu, nu, scale, hyper)
         return params, OptState(mu=state.mu, nu=state.nu, count=count)
     newp, newmu, newnu = [], [], []
     for p, g, mu, nu in leaves:

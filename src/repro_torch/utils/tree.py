@@ -92,10 +92,16 @@ def tree_zeros_like(tree, dtype=None):
                     tree)
 
 
+def sum_squares(x) -> torch.Tensor:
+    """The sum of squares of ``x`` in f32; of the whole tensor for a
+    DTensor (a plain tensor, the same on every rank)."""
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, taken in f32."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+    return torch.sqrt(sum(sum_squares(x) for x in leaves))

@@ -179,16 +179,21 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
 
 
 def test_unported_archs_raise():
-    """What still raises: an arch outside the registry, and the MoE
-    expert-parallel dispatch (a mesh's, ROADMAP items 15.6c and 15.7)."""
+    """What raises: an arch outside the registry and an unknown MoE
+    dispatch.  The expert-parallel dispatch is a mesh's; with no mesh
+    ``moe_impl="ep"`` takes the dense dispatch, as in the reference."""
     with pytest.raises(KeyError, match="unknown"):
         configs.get("no-such-arch")
-    moe = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"),
-                              moe_impl="ep")
-    params = lm.init_params(moe, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="15.6c and 15.7"):
-        lm.make_prefill_fn(moe)(params, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.long)})
+    auto = configs.get_smoke("moonshot-v1-16b-a3b")
+    params = lm.init_params(auto, torch.Generator().manual_seed(0),
+                            device="cpu")
+    batch = {"tokens": torch.arange(4, dtype=torch.long)[None]}
+    want = lm.make_prefill_fn(auto)(params, batch)
+    ep = dataclasses.replace(auto, moe_impl="ep")
+    assert torch.equal(lm.make_prefill_fn(ep)(params, batch), want)
+    bad = dataclasses.replace(auto, moe_impl="megablocks")
+    with pytest.raises(ValueError, match="moe_impl"):
+        lm.make_prefill_fn(bad)(params, batch)
 
 
 def test_init_params_draws_from_the_generator():

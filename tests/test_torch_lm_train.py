@@ -13,7 +13,7 @@ serve CPU tensors.  Then the training substrate: the ports of
 ``tests/test_train.py``'s loss-decrease and accumulation tests, three
 AdamW steps against the reference's ``make_train_step``, the data
 pipeline, int8 error feedback (with the property of
-``tests/test_properties.py``), the ``"save_collectives"`` refusal and the
+``tests/test_properties.py``), the ``"save_collectives"`` policy and the
 launchers with a checkpoint resume (the ssm and hybrid families train in
 ``tests/test_torch_ssm_train.py``).
 """
@@ -44,7 +44,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.parallel.compression import Int8ErrorFeedback
 from repro_torch.train.optimizer import cosine_schedule
 from repro_torch.train.train_step import init_train_state, make_train_step
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCHS = ["h2o-danube-3-4b", "qwen2-7b", "minitron-4b", "starcoder2-3b",
@@ -324,12 +324,29 @@ def test_int8_error_feedback_unbiased_over_time(seed):
 
 
 def test_save_collectives_remat_raises():
+    """Only an unknown remat policy raises.  ``"save_collectives"`` (the
+    reference's policy: keep each block's two outputs, recompute the rest;
+    under a mesh also the collectives' outputs, see
+    ``tests/test_torch_mesh_train.py``) gives remat=True's loss and
+    gradients on one device."""
     cfg = configs.get_smoke("qwen2-7b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), tp=1,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="15.6c"):
-        tfm.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32),
-                    remat="save_collectives")
+    tokens = torch.arange(8, dtype=torch.int32).reshape(1, 8) % cfg.vocab
+    with pytest.raises(ValueError, match="remat"):
+        tfm.forward(cfg, params, tokens, remat="save_everything")
+    batch = {"tokens": tokens, "targets": tokens,
+             "mask": torch.ones((1, 8))}
+    leaves = tree_leaves(params)
+    out = {}
+    for remat in (True, "save_collectives"):
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        loss = lm.make_loss_fn(cfg, remat=remat, xent_chunk=XENT_CHUNK)(
+            tree_unflatten(params, ps), batch)
+        out[remat] = (loss, torch.autograd.grad(loss, ps))
+    assert torch.equal(out[True][0], out["save_collectives"][0])
+    for a, b in zip(out["save_collectives"][1], out[True][1]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
 
 
 def test_specs_are_the_references():

@@ -267,13 +267,18 @@ def test_moe_drops_the_reference_pairs(router):
 
 
 def test_moe_ep_and_unknown_arch_raise():
-    cfg = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"),
-                              moe_impl="ep")
-    x = torch.zeros((1, 4, cfg.d_model))
-    p = moe.init_moe(cfg, torch.Generator(), torch.float32,
-                     torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="15.6c and 15.7"):
-        moe.apply_moe(cfg, p, x)
+    """With no mesh ``moe_impl="ep"`` is the dense dispatch (the reference
+    takes its expert-parallel path only under a mesh); an unknown
+    dispatch and an unknown arch raise."""
+    cfg = configs.get_smoke("moonshot-v1-16b-a3b")
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((1, 4, cfg.d_model), generator=g)
+    p = moe.init_moe(cfg, g, torch.float32, torch.device("cpu"))
+    want, want_aux = moe.apply_moe_dense(cfg, p, x)
+    y, aux = moe.apply_moe(dataclasses.replace(cfg, moe_impl="ep"), p, x)
+    assert torch.equal(y, want) and torch.equal(aux, want_aux)
+    with pytest.raises(ValueError, match="moe_impl"):
+        moe.apply_moe(dataclasses.replace(cfg, moe_impl="megablocks"), p, x)
     with pytest.raises(KeyError, match="unknown"):
         configs.get("no-such-arch")
 
