@@ -2,14 +2,18 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only |
-                           --lm-only | --train-only | --mesh-only]
+                           --lm-only | --train-only | --mesh-only |
+                           --ci-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
 and L (without L (c)'s readings, which come from phases 4 and G),
 ``--lm-only`` phases 1, 5-9 and M-R (the LM serving path),
 ``--train-only`` phases 1, S, T, U and V (LM training), ``--mesh-only``
-phases 1 and W (LM training on a mesh); none prints the result line.
+phases 1 and W (LM training on a mesh), ``--ci-only`` phase 1 and
+``launch/ci_smoke.py`` on the card (the CI smoke suite: engine,
+resilience, serve, serve-chaos, kernel and docs smokes, each in a child
+process); none prints the result line.
 Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero,
 printing no result, without them.
 Phases (each raises on failure):
@@ -213,6 +217,20 @@ W. the LM zoo on a mesh of two ranks (NCCL with a card each when there
    2 on, the gradient reduction's seconds, each rank's peak memory, the
    SSD backward's cluster K a rank, the MoE drops of each path; one
    ``{"lm_mesh": ...}`` line;
+X. the CI smokes and the LM dry run: (a) ``launch/kernel_smoke.py`` on
+   the card (the reference's spec, B20 4^3 with a 0.08 A jitter, capacity
+   64): K1 and K2 launched once each on the body the spec picks (warp),
+   E / F / H_eff within 1e-4 / 2e-4 / 2e-4 of the plain versions, the
+   kernels more than 1.2x faster than the plain versions on the card
+   (median of 3 x 5 calls), no build or load across four chunked calls;
+   (b) ``launch/engine_smoke.py`` on two gloo ranks sharing the card
+   (Sharded plan, field cooling, runlog contract, bitwise
+   checkpoint/resume); (c) ``DRY_LM_CELLS`` through
+   ``launch/dryrun.py:run_all`` (host only, ``CUDA_VISIBLE_DEVICES=""``,
+   started right after phase 1 in the background and read here): per
+   cell FLOPs a rank, bytes, collectives by kind, whether it fits the
+   card, the roofline's bottleneck and its host seconds; one ``{"ci":
+   ...}`` line;
 A. field cooling at the main path's size: ``Engine`` with K1/K2 under
    ``protocol.field_cooling(300, 100, 0.2, t_hold=0.02, t_ramp=0.04)``,
    4 chunks x 20 steps, all six observables every 5 steps, a runlog with
@@ -385,10 +403,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
    other at ``tests/test_domain.py``'s bars (of max(|ref|, 1)); (c)
    ``launch/roofline.py``'s ``nep_report`` at the main path (taken in
    phase 4: its bounds must read ``MAIN_PATH_BOUNDS``) and at the fitted
-   spec (taken in phase G); (d) ``python -m repro_torch.launch.dryrun
-   --all`` (md_small and md_large on fake 256- and 512-rank worlds, host
-   only, started at the phase's beginning in the background) and
-   ``report.dryrun_main``'s tables; one ``{"legacy": ...}`` line;
+   spec (taken in phase G); (d) the dry run's MD cells through
+   ``launch/dryrun.py:run_all`` (md_small and md_large on fake 256- and
+   512-rank worlds, host only, started at the phase's beginning in the
+   background) and ``report.dryrun_main``'s tables; one ``{"legacy":
+   ...}`` line;
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all six kernels (SSD's backward with phase V(a)'s launches a step and
     V(c)'s as ``launches_zamba2``, phase U's errors, and its time, plain
@@ -421,8 +440,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
     phases N-R and, for each case of phase M (``d120``, ``d192``,
     ``noncausal``), ``ms_``, ``bound_ms_``, ``bound_by_``,
     ``library_ms_``, ``plain_ms_``, ``max_rel_err_`` and ``ptxas_``
-    followed by the case's name), then ``{"ok": true, "device": ...}``.  Every bound is
-    ``launch/roofline.py``'s.
+    followed by the case's name); K1 and K2 with phase X's
+    ``launches_kernel_smoke`` and the smoke's whole evaluation (gather,
+    K1, K2) timed as ``eval_ms_kernel_smoke`` beside the plain versions'
+    ``plain_eval_ms_kernel_smoke``; the script's wall seconds, then ``{"ok":
+    true, "device": ...}``.  Every bound is ``launch/roofline.py``'s.
 """
 from __future__ import annotations
 
@@ -4750,6 +4772,29 @@ def _unbin(torch, aid, dev, *blocks):
         aid, *(t.cpu().numpy() for t in blocks))]
 
 
+# the dry run's cells: phase L (d) the MD ones on both worlds, phase X
+# (c) three LM cells, each on one world (False: 16 x 16, True: 2 x 16 x 16)
+DRY_MD_CELLS = (("fege-spinlattice", "md_small"),
+                ("fege-spinlattice", "md_large"))
+DRY_LM_CELLS = (("qwen2-7b", "train_4k", False),
+                ("moonshot-v1-16b-a3b", "train_4k", False),
+                ("zamba2-2.7b", "decode_32k", True))
+DRY_LM_DIR = SURFACE_DIR / "dryrun_lm"
+DRY_LM_TIMEOUT = 900
+
+
+def start_dryrun(cells, out_dir):
+    """``launch/dryrun.py:run_all`` on ``cells`` in a background process
+    on the host (no card: ``CUDA_VISIBLE_DEVICES=""``), its output piped."""
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "dryrun.run_all(sys.argv[2], cells=json.loads(sys.argv[1]))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(cells), str(out_dir)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
     """Phase L: the legacy per-evaluation domain paths on one NCCL rank,
     the roofline module's bounds at the main path and the fitted spec
@@ -4766,12 +4811,7 @@ def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
     LEGACY_DIR.mkdir(parents=True)
     dry_dir = LEGACY_DIR / "dryrun"
     # (d) starts first: host work with no card, beside (a)-(c)
-    dry = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--out", str(dry_dir)],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                 CUDA_VISIBLE_DEVICES=""),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    dry = start_dryrun(DRY_MD_CELLS, dry_dir)
     out = {}
     try:
         dist.init_process_group("nccl", init_method="file://" + str(
@@ -4790,7 +4830,7 @@ def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
         if dry.poll() is None:
             dry.kill()
             dry.wait()
-    log("phase L (d): python -m repro_torch.launch.dryrun --all (fake "
+    log("phase L (d): launch/dryrun.py:run_all on the MD cells (fake "
         "worlds of 256 and 512 ranks, a child process each)")
     for line in text.splitlines():
         log("  " + line)
@@ -5339,6 +5379,76 @@ def phase_mesh(torch, dev) -> dict:
     return out
 
 
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_ci(torch, dev, dry) -> dict:
+    """Phase X: the kernel and engine smokes on the card, and the LM dry
+    run's cells from ``dry`` (the background process of
+    :func:`start_dryrun` on ``DRY_LM_CELLS``)."""
+    from repro_torch.launch import engine_smoke, kernel_smoke, report
+    t_phase = time.perf_counter()
+    out = {}
+    log("phase X (a): launch/kernel_smoke.py on the card")
+    out["kernel_smoke"] = kernel_smoke.main(["--device", "cuda"])
+    ks = out["kernel_smoke"]
+    log(f"  K1 {ks['bodies']['K1']} / K2 {ks['bodies']['K2']} bodies, "
+        f"launches {ks['launches']}, parity {ks['parity']}, "
+        f"{ks['ratio']:.2f}x the plain versions ({ks['ms']:.3f} vs "
+        f"{ks['plain_ms']:.3f} ms), builds/loads {ks['builds']}")
+    torch.cuda.empty_cache()
+    log("phase X (b): launch/engine_smoke.py on two gloo ranks sharing "
+        "the card")
+    t0 = time.perf_counter()
+    out["engine_smoke"] = engine_smoke.main(["--device", "cuda"])
+    out["engine_smoke"]["seconds"] = time.perf_counter() - t0
+    es = out["engine_smoke"]
+    log(f"  {es['ranks']} ranks, {es['chunks']} chunk records, halo "
+        f"{es['halo']['counts']}, resume bitwise {es['resume_bitwise']}, "
+        f"{es['seconds']:.1f} s")
+    log("phase X (c): the LM dry run's cells (host, fake worlds), started "
+        "after phase 1")
+    t0 = time.perf_counter()
+    try:
+        text, _ = dry.communicate(timeout=DRY_LM_TIMEOUT)
+    finally:
+        _stop(dry)
+    log(f"  waited {time.perf_counter() - t0:.1f} s for it")
+    for line in text.splitlines():
+        if not line.startswith("[rank"):
+            log("  " + line)
+    if dry.returncode != 0:
+        raise AssertionError(f"the LM dry run exited with {dry.returncode}")
+    recs = {(r["arch"], r["shape"], bool(r["mesh"].get("pod"))): r
+            for r in report.load_all(str(DRY_LM_DIR))}
+    out["dryrun"] = {}
+    for cell in DRY_LM_CELLS:
+        r = recs.get(tuple(cell))
+        if r is None or "roofline" not in r:
+            raise AssertionError(f"LM dry run: no record for {cell}: "
+                                 f"{None if r is None else r.get('error')}")
+        rf = r["roofline"]
+        tag = f"{cell[0]}__{cell[1]}__{'pod2' if cell[2] else 'pod1'}"
+        out["dryrun"][tag] = {
+            "flops_per_rank": r["flops_total"],
+            "bytes_per_rank": r["bytes_total"],
+            "bytes_naive_per_rank": r["bytes_naive"],
+            "collectives": r["collectives"], "memory": r["memory"],
+            "fits": r["card"]["fits"], "bottleneck": rf["bottleneck"],
+            "step_time_s": rf["step_time_s"], "elapsed_s": r["elapsed_s"]}
+        log(f"  {tag}: {r['flops_total']:.4e} FLOP/rank, "
+            f"{r['bytes_total']:.4e} B/rank, collectives "
+            f"{ {k: (v['count'], v['bytes']) for k, v in r['collectives'].items()} }, "
+            f"fits {r['card']['fits']}, bound {rf['bottleneck']}, "
+            f"{r['elapsed_s']} host s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase X: {out['phase_s']:.1f} s")
+    return out
+
+
 def _flat(tree, prefix="") -> dict:
     out = {}
     for k, v in tree.items():
@@ -5352,11 +5462,12 @@ def _flat(tree, prefix="") -> dict:
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"],
                     ["--legacy-only"], ["--lm-only"], ["--train-only"],
-                    ["--mesh-only"]):
+                    ["--mesh-only"], ["--ci-only"]):
         print("usage: chip_smoke.py [--serve-only | --sharded-only | "
-              "--legacy-only | --lm-only | --train-only | --mesh-only]",
-              file=sys.stderr)
+              "--legacy-only | --lm-only | --train-only | --mesh-only | "
+              "--ci-only]", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5440,6 +5551,12 @@ def main(argv) -> int:
         print(json.dumps({"lm_mesh": phase_mesh(torch, dev)}), flush=True)
         print(card, flush=True)
         return 0
+    if argv == ["--ci-only"]:
+        from repro_torch.launch import ci_smoke
+        res = ci_smoke.main(["--device", "cuda"])
+        print(json.dumps({"ci_smoke": res}), flush=True)
+        print(card, flush=True)
+        return 0 if res["ok"] else 1
     if argv == ["--train-only"]:
         fa_row = {"name": "flash_attention_fwd"}
         lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, fa_row)
@@ -5452,6 +5569,13 @@ def main(argv) -> int:
         print(json.dumps({"kernels": [fa_row, bwd_row, ssd_row,
                                       ssd_bwd_row]}), flush=True)
         return 0
+
+    # phase X (c) runs on the host beside everything that follows
+    import atexit
+    import shutil
+    shutil.rmtree(DRY_LM_DIR, ignore_errors=True)
+    dry_lm = start_dryrun(DRY_LM_CELLS, DRY_LM_DIR)
+    atexit.register(_stop, dry_lm)
 
     # ---- phase 2: kernels vs plain versions, 4,096 atoms --------------------
     log("phase 2: kernels vs plain versions, B20 8x8x8, production spec")
@@ -5687,6 +5811,17 @@ def main(argv) -> int:
                 r[src[2]] for r in by_case[src[:2]][
                     "launches_a_step_by_rank"]]
     print(json.dumps({"lm_mesh": mesh}), flush=True)
+    torch.cuda.empty_cache()
+    ci = phase_ci(torch, dev, dry_lm)
+    for row in rows:
+        if row["name"] in ("nep_atom_pass", "nep_force_pass"):
+            i = 0 if row["name"] == "nep_atom_pass" else 1
+            row["launches_kernel_smoke"] = ci["kernel_smoke"]["launches"][i]
+            row["eval_ms_kernel_smoke"] = ci["kernel_smoke"]["ms"]
+            row["plain_eval_ms_kernel_smoke"] = ci["kernel_smoke"][
+                "plain_ms"]
+    print(json.dumps({"ci": ci}), flush=True)
+    torch.cuda.empty_cache()
     surface = {"field_cooling": phase_field_cooling(torch, dev, spec, lat,
                                                     moments, kern)}
     surface["heisenberg"] = phase_heisenberg(torch, dev, lat)
@@ -5777,6 +5912,7 @@ def main(argv) -> int:
             row["bound_by_fitted"] = fitted["bound_by"]
             row["ms_fitted"] = fitted["ms"]
     print(json.dumps({"legacy": legacy}), flush=True)
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

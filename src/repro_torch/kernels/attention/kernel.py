@@ -5,7 +5,10 @@ contract of ``repro.kernels.attention.ops.flash_attention``).
 
 ``flash_attention_fwd`` dispatches on the device of its tensors: a CPU
 tensor goes to ``flash_attention_plain``; a CUDA tensor launches
-``csrc/flash_attention_fwd.cu`` on the current stream, or raises.  bf16
+``csrc/flash_attention_fwd.cu`` on the current stream, or raises; a
+``meta`` tensor (the dry run's shape-only route) also goes to the plain
+version, which gives the shapes and whose products the cost counter
+counts.  No other device is accepted.  bf16
 runs a tensor-core body (``mma.sync``, ``ldmatrix``, ``cp.async``), whose
 shape and alignment limits :func:`check_bf16_layout` states; f32 runs the
 CUDA-core body.  :func:`fa_body` names the body a call takes (the
@@ -60,6 +63,7 @@ BODIES = ("cuda_core", "tc_exact", "tc_k8", "tc_k12")   # the C body index
 BWD_BODIES = ("cuda_core", "tc_k8", "tc_k12")           # the backward's
 BWD_PASSES = ("dkdv", "dq")
 MAX_D_BWD = 192
+PLAIN_DEVICES = ("cpu", "meta")   # devices whose tensors take the plain route
 
 
 def _visible(s0, sb, t, causal, window, device):
@@ -195,8 +199,8 @@ def check_bf16_layout(d: int, dv: int, data_ptrs, strides) -> None:
 
 def _check(q, k, v, do=None):
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on CUDA or CPU tensors, "
-                         f"got {q.device}")
+        raise ValueError(f"flash_attention_fwd runs on CUDA, CPU or meta "
+                         f"tensors, got {q.device}")
     check_inputs(q, k, v, do)
 
 
@@ -244,7 +248,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0,
     f32 in: f32 math on the CUDA cores.  bf16 in: bf16 products on the
     tensor cores with f32 accumulation, scores and softmax in f32, P V as
     bf16 hi and lo products."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
     _check(q, k, v)
@@ -312,11 +316,11 @@ def _bwd_entry(dtype):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """(dq, dk, dv) in q's dtype for :func:`flash_attention_fwd`'s output
     ``o`` and log-sum-exp ``lse`` at upstream gradient ``do`` (B,S,H,dv).
-    A CPU tensor goes to :func:`flash_attention_bwd_plain`; a CUDA one
+    A CPU or meta tensor goes to :func:`flash_attention_bwd_plain`; a CUDA one
     launches ``csrc/flash_attention_bwd.cu``'s two passes on the body
     :func:`fa_bwd_body` names (D = rowsum(do * o) is one torch reduction in
     f32 before them), or raises."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window)
     _check(q, k, v, do)

@@ -3,7 +3,9 @@ PyTorch version (port of ``repro.kernels.ssd.kernel.ssd_chunks``).
 
 ``ssd_chunks`` dispatches on the device of its tensors: a CPU tensor goes to
 ``ssd_chunks_plain``; a CUDA tensor launches ``csrc/ssd_chunks.cu`` on the
-current stream, or raises.  The kernel has two bodies: ``"tc"`` (bf16 on
+current stream, or raises; a ``meta`` tensor (the dry run's shape-only
+route) also goes to the plain version, which gives the shapes and whose
+products the cost counter counts.  No other device is accepted.  The kernel has two bodies: ``"tc"`` (bf16 on
 the tensor cores, for the shapes and layouts of :func:`tc_takes`) and
 ``"cuda_core"`` (f32 products on the CUDA cores, any f32 or bf16 input
 whose tile fits in shared memory).  :func:`ssd_body` picks one from the
@@ -43,6 +45,7 @@ _ARGTYPES = [_P] * 8 + [_I] * 7 + [_L] * 6 + [_P]
 SMEM_MAX = 232448
 BODIES = ("tc", "cuda_core")
 TC_MAX = 128          # the tensor-core body's bound on chunk, N and P
+PLAIN_DEVICES = ("cpu", "meta")   # devices whose tensors take the plain route
 
 
 def _work_dtype(*tensors):
@@ -209,8 +212,8 @@ def _smem_bytes(L: int, P: int, N: int) -> int:
 
 def _check(x, dt, a, b, c):
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunks runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
+        raise ValueError(f"ssd_chunks runs on CUDA, CPU or meta tensors, "
+                         f"got {x.device}")
     check_inputs(x, dt, a, b, c)
 
 
@@ -262,7 +265,7 @@ def ssd_chunks(x, dt, a, b, c, *, chunk: int, body: str | None = None):
         raise ValueError(f"ssd_chunks has no {body!r} body for {x.dtype}, "
                          f"chunk {chunk}, P {p}, N {n} and this layout "
                          "(see tc_takes)")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_chunks_plain(x, dt, a, b, c, chunk=chunk)
     _check(x, dt, a, b, c)
     if body == "cuda_core" and _smem_bytes(chunk, p, n) > SMEM_MAX:
@@ -405,7 +408,8 @@ def ssd_chunks_bwd(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
                    cast: bool = True):
     """(dx, ddt, da, db, dc) for :func:`ssd_chunks` (see
     :func:`ssd_chunks_bwd_plain` for the contract).  A CPU tensor goes to
-    the plain version; a CUDA tensor launches ``csrc/ssd_chunks_bwd.cu`` on
+    the plain version (as does a meta one); a CUDA tensor launches
+    ``csrc/ssd_chunks_bwd.cu`` on
     the body :func:`ssd_bwd_body` names, or raises.  ``cast=False`` returns
     the f32 gradients before the cast to the inputs' dtypes.  Two calls are
     bitwise equal.  Counts ``ssd_chunks_bwd.launches`` and, per body,
@@ -413,7 +417,7 @@ def ssd_chunks_bwd(x, dt, a, b, c, cum, dy, dst, dcum, *, chunk: int,
     if x.shape[1] % chunk:
         raise ValueError(f"sequence {x.shape[1]} is not a multiple of "
                          f"chunk {chunk}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_chunks_bwd_plain(x, dt, a, b, c, cum, dy, dst, dcum,
                                     chunk=chunk, cast=cast)
     _check(x, dt, a, b, c)

@@ -1554,8 +1554,9 @@ class Engine:
         # (the health signals are global, so every rank gates alike)
         rank0 = not self._sharded or self._rplan.rank == 0
         if tel is not None and rank0:
-            session = TelemetrySession(tel,
-                                       run_info=self._run_info(n_steps, chunk))
+            session = TelemetrySession(
+                tel, run_info=self._run_info(n_steps, chunk),
+                ledger=self._halo if self._sharded else None)
         try:
             with maybe_trace(tel.profile_dir if tel is not None and rank0
                              else None):

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models.common import apply_rope, normal, rmsnorm
-from repro_torch.parallel.sharding import heads_local_map, is_dtensor
+from repro_torch.parallel.sharding import (heads_local_map, is_dtensor,
+                                           redistribute)
 
 NEG_INF = -1e30
 
@@ -147,13 +148,95 @@ def init_gqa_cache(cfg, b: int, seq_len: int, dtype=torch.bfloat16,
     }
 
 
+def write_slots(buf, slot, value) -> None:
+    """``buf[b, slot[b]] = value[b]`` for every row b, in place (a cache
+    (B, T, ...) and the new token's (B, ...)).  On DTensors each rank
+    writes its own rows (and heads) into its own shard: ``value`` and
+    ``slot`` are first placed to match ``buf`` (its T must not be
+    split)."""
+    if is_dtensor(buf):
+        from torch.distributed.tensor import Replicate, Shard
+        if any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
+            raise ValueError("a cache split over its slots takes no write")
+        want_v = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                  else p for p in buf.placements]
+        want_s = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                  for p in buf.placements]
+        value = redistribute(value, want_v).to_local()
+        slot = redistribute(slot, want_s).to_local()
+        buf = buf.to_local()
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, slot] = value.to(buf.dtype)
+
+
+def _decode_attend(cfg, q, ck, cv, cpos, position, reduce=None):
+    """One query (B, 1, H, hd) against the cache: (B, 1, H, hd) in f32.
+    ``reduce`` (on the raw scores) sums them over a split head
+    dimension."""
+    b, hkv, hd = q.shape[0], ck.shape[2], ck.shape[3]
+    h = q.shape[2]
+    qf = (q[:, 0] * cfg.hd ** -0.5).float().view(b, hkv, h // hkv, hd)
+    sco = torch.einsum("bgrk,btgk->bgrt", qf, ck.float())
+    if reduce is not None:
+        sco = reduce(sco)
+    sco = sco.reshape(b, h, -1)
+    ok = (cpos >= 0) & (cpos <= position[:, None])
+    if cfg.sliding_window:
+        ok &= cpos > (position[:, None] - cfg.sliding_window)
+    sco = torch.where(ok[:, None, :], sco, NEG_INF)
+    prob = torch.softmax(sco, dim=-1).view(b, hkv, h // hkv, -1)
+    return torch.einsum("bgrt,btgk->bgrk", prob, cv.float()).reshape(
+        b, 1, h, hd)
+
+
+def _decode_attend_mesh(cfg, q, ck, cv, cpos, position):
+    """:func:`_decode_attend` on DTensors.  A cache split by kv heads (or
+    whole) runs on each rank's q heads (``heads_local_map``).  A cache
+    whose head dimension is split (the dry run's cache rule where the kv
+    heads do not divide "model") keeps it: q is moved to the same split,
+    each rank scores its slice of every head and one all-reduce a split
+    mesh dimension sums the slices, so no rank gathers the cache.
+    (B, 1, H, hd), placed like q (or, split, like the cache)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    split = [i for i, pl in enumerate(ck.placements)
+             if isinstance(pl, Shard) and pl.dim == 3]
+    if not split:
+        return heads_local_map(
+            lambda ql, kl, vl, pl, pos: _decode_attend(cfg, ql, kl, vl, pl,
+                                                       pos),
+            (q, ck, cv, cpos, position),
+            (("h", 2, True), ("g", 2, True), ("g", 2, True),
+             ("b", None, True), ("b", None, True)))
+    mesh = ck.device_mesh
+    row = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+           for pl in ck.placements]
+    q_pl = [Shard(3) if i in split else pl for i, pl in enumerate(row)]
+
+    def reduce(sco):
+        for i in split:
+            sco = funcol.all_reduce(sco, "sum", (mesh, i))
+        return sco
+
+    def body(ql, kl, vl, pl, pos):
+        return _decode_attend(cfg, ql, kl, vl, pl, pos, reduce)
+
+    return local_map(body, out_placements=q_pl,
+                     in_placements=(q_pl, list(ck.placements),
+                                    list(cv.placements), row, row),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, ck, cv, cpos, position)
+
+
 def apply_gqa_decode(cfg, p, x, position, cache):
     """One-token decode against a KV cache, which is written in place.
 
     x: (B, 1, d); position: (B,) absolute position of the new token.
     cache['pos'] stores the absolute position held in each slot (-1 empty).
+    On DTensors each rank writes and attends with its own shard
+    (:func:`write_slots`, :func:`_decode_attend_mesh`).
     """
-    b = x.shape[0]
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -163,22 +246,14 @@ def apply_gqa_decode(cfg, p, x, position, cache):
 
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     slot = (position % ck.shape[1]).long()
-    bidx = torch.arange(b, device=x.device)
-    ck[bidx, slot] = k[:, 0].to(ck.dtype)
-    cv[bidx, slot] = v[:, 0].to(cv.dtype)
-    cpos[bidx, slot] = position.to(cpos.dtype)
-
-    hkv, hd = ck.shape[2], ck.shape[3]
-    h = q.shape[2]
-    qf = (q[:, 0] * cfg.hd ** -0.5).float().view(b, hkv, h // hkv, hd)
-    sco = torch.einsum("bgrk,btgk->bgrt", qf, ck.float()).reshape(b, h, -1)
-    ok = (cpos >= 0) & (cpos <= position[:, None])
-    if cfg.sliding_window:
-        ok &= cpos > (position[:, None] - cfg.sliding_window)
-    sco = torch.where(ok[:, None, :], sco, NEG_INF)
-    prob = torch.softmax(sco, dim=-1).view(b, hkv, h // hkv, -1)
-    out = torch.einsum("bgrt,btgk->bgrk", prob, cv.float()).reshape(b, h, hd)
-    y = _out(out.to(x.dtype), p["wo"])[:, None, :]
+    write_slots(ck, slot, k[:, 0])
+    write_slots(cv, slot, v[:, 0])
+    write_slots(cpos, slot, position)
+    if is_dtensor(q):
+        out = _decode_attend_mesh(cfg, q, ck, cv, cpos, position)
+    else:
+        out = _decode_attend(cfg, q, ck, cv, cpos, position)
+    y = _out(out[:, 0].to(x.dtype), p["wo"])[:, None, :]
     return y, cache
 
 
@@ -253,7 +328,6 @@ def apply_mla_decode(cfg, p, x, position, cache):
     written in place: scores and values in the latent space (W_uk folded
     into q, W_uv into the output projection)."""
     m = cfg.mla
-    b = x.shape[0]
     cq = rmsnorm(x @ p["wq_a"], p["q_norm"])
     q = _proj(cq, p["wq_b"])[:, 0]                       # (B,H,nope+rope)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
@@ -267,10 +341,9 @@ def apply_mla_decode(cfg, p, x, position, cache):
 
     ckv, kr, cpos = cache["ckv"], cache["kr"], cache["pos"]
     slot = (position % ckv.shape[1]).long()
-    bidx = torch.arange(b, device=x.device)
-    ckv[bidx, slot] = ckv_new.to(ckv.dtype)
-    kr[bidx, slot] = kr_new.to(kr.dtype)
-    cpos[bidx, slot] = position.to(cpos.dtype)
+    write_slots(ckv, slot, ckv_new)
+    write_slots(kr, slot, kr_new)
+    write_slots(cpos, slot, position)
 
     # absorb: q_eff[h] = q_nope[h] @ wk_b[:, h, :]^T (latent-space query)
     q_eff = torch.einsum("bhk,lhk->bhl", q_nope, p["wk_b"])

@@ -42,10 +42,13 @@ SHAPES = {
 
 
 def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
-    """(runnable, reason-if-not). long_500k needs sub-quadratic attention."""
+    """(runnable, reason-if-not). long_500k needs sub-quadratic attention.
+    The reason is the reference's, word for word (the dry run's skip
+    records name it)."""
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, ("pure full-attention arch: 500k-token KV decode is "
-                       "quadratic-memory")
+                       "quadratic-memory; skipped per assignment "
+                       "(DESIGN.md §Arch-applicability)")
     return True, ""
 
 

@@ -354,7 +354,7 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict,
                 token: torch.Tensor, position: torch.Tensor):
     """One autoregressive step. token: (B, 1) int; position: (B,) int.
     Returns (logits (B, V) f32, caches) - ``caches`` updated in place."""
-    h = params["embed"][token.long()].to(getattr(torch, cfg.dtype))
+    h = embed_inputs(cfg, params, token)
     resid0 = h
     sh = params.get("shared")
     for gi, grp in enumerate(layer_groups(cfg)):

@@ -232,11 +232,13 @@ def heads_local_map(body, args, roles):
     ``"h"`` splits like the heads of ``args[0]`` (q, or the SSM's x),
     ``"g"`` holds the groups those heads read (kv heads, B / C): split
     too where they divide, else whole and sliced in the body to the
-    rank's heads (:func:`group_slice`).  ``args[0]`` keeps its batch and
-    head sharding (anything else is gathered first); the other arguments
-    follow it.  An input that is whole on a mesh dimension that splits
-    the body's work gets its gradient back as a ``Partial`` sum.  Returns
-    one DTensor, placed like ``args[0]``."""
+    rank's heads (:func:`group_slice`); ``"b"`` has no head dimension
+    (a decode cache's slot positions) and splits by batch only.
+    ``args[0]`` keeps its batch and head sharding (anything else is
+    gathered first); the other arguments follow it.  An input that is
+    whole on a mesh dimension that splits the body's work gets its
+    gradient back as a ``Partial`` sum.  Returns one DTensor, placed like
+    ``args[0]``."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     x = args[0]
@@ -253,7 +255,8 @@ def heads_local_map(body, args, roles):
         for i in range(len(sizes)):
             if batch[i] and has_b:
                 pl.append(Shard(0))
-            elif heads[i] and (kind == "h" or a.shape[hd] % sizes[i] == 0):
+            elif heads[i] and kind != "b" and (
+                    kind == "h" or a.shape[hd] % sizes[i] == 0):
                 pl.append(Shard(hd))
             else:
                 pl.append(Replicate())

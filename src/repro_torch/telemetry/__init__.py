@@ -67,13 +67,22 @@ def as_telemetry(telemetry) -> "Telemetry | None":
                     f"{type(telemetry).__name__}")
 
 
+def _halo_totals(ledger) -> dict:
+    return {"counts": dict(ledger.counts), "bytes": dict(ledger.bytes)} \
+        if ledger is not None else {}
+
+
 class TelemetrySession:
     """One run's telemetry: wall clocks, compile deltas, runlog records.
     The engine calls :meth:`chunk` at every chunk boundary and
     :meth:`finish` once."""
 
-    def __init__(self, tel: Telemetry, *, run_info: dict):
+    def __init__(self, tel: Telemetry, *, run_info: dict, ledger=None):
         self.tel = tel
+        # the halo ledger (Sharded plan): each chunk record gets the
+        # exchanges of its chunk, {"counts", "bytes"} by tag
+        self.ledger = ledger
+        self._halo_mark = _halo_totals(ledger)
         self.metrics = tel.metrics
         self.watchdog = CompileWatchdog()
         self._compile_mark = self.watchdog.mark()
@@ -107,6 +116,12 @@ class TelemetrySession:
             "compiles": compiles, "health": health, "verdict": verdict,
             **(counters or {}),
         }
+        if self.ledger is not None:
+            now = _halo_totals(self.ledger)
+            record["halo"] = {
+                k: {t: v - self._halo_mark[k].get(t, 0)
+                    for t, v in now[k].items()} for k in now}
+            self._halo_mark = now
         if error is not None:
             record["error"] = error
         if self.runlog is not None:

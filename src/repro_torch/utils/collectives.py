@@ -2,15 +2,49 @@
 of ``repro.utils.hlo``).
 
 The reference parses the collectives out of compiled HLO text.  The port
-has no HLO: every halo exchange, fold and energy reduction of the domain
-layer records its tag and per-rank message bytes into the active
-:class:`repro_torch.parallel.halo.HaloTrace` as it is called, so the
-ledger already holds what the parse recovers, in the same ``{kind:
-{"count", "bytes"}}`` shape (a kind is a ledger tag: ``"legacy-pos"``,
-``"qfp"``, ``"energy"``, ...).  Calls are recorded as they run, so loop
-trip counts are exact and ``unknown_trips`` is always False.
+has no HLO; it has two ledgers, each already holding what the parse
+recovers, in the same ``{kind: {"count", "bytes"}}`` shape:
+
+* the MD domain layer: every halo exchange, fold and energy reduction
+  records its tag and per-rank message bytes into the active
+  :class:`repro_torch.parallel.halo.HaloTrace` as it is called (a kind is
+  a ledger tag: ``"legacy-pos"``, ``"qfp"``, ``"energy"``, ...);
+* a step on DTensors (the LM zoo on a mesh):
+  :class:`repro_torch.utils.cost.CostCounter` sees every collective the
+  step issues at dispatch and files it under the reference's HLO kind
+  (:func:`collective_kind`: ``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``all-to-all``) with its output bytes, as the
+  reference sums each collective's output shape.
+
+Calls are recorded as they run, so loop trip counts are exact and
+``unknown_trips`` is always False.
 """
 from __future__ import annotations
+
+# aten-level op names (``utils.cost._name``: the in-place underscore
+# dropped) of the functional collectives DTensor issues, of the c10d ops
+# behind an explicit torch.distributed call, and of DTensor's all-to-all
+# op -> the reference's HLO kind
+HLO_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allreduce": "all-reduce", "allreduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather": "all-gather", "allgather_into_tensor_coalesced":
+        "all-gather", "_allgather_base": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter": "reduce-scatter", "_reduce_scatter_base":
+        "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base": "all-to-all",
+    "alltoall": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+
+
+def collective_kind(opname: str) -> str | None:
+    """The reference's HLO kind of the collective op ``opname``, or None
+    for any other op."""
+    return HLO_KINDS.get(opname)
 
 
 def _ledger(ledger) -> tuple[dict, dict]:

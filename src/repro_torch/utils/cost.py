@@ -25,14 +25,30 @@ op by op as autograd runs it.  The reference's categories:
 
 ``ops`` counts each aten op by name (``mm``, ``index``, ...), which
 :func:`repro_torch.utils.collectives.count_op` reads.
+
+DTensors (a step on a mesh): the counter declines an op on DTensors, so
+DTensor's own dispatch runs it and the ops it issues on the rank's LOCAL
+tensors come back to the counter, which so counts one rank's program: its
+local products and elementwise work, and each collective that its
+redistributions issue (``_c10d_functional`` all-reduce, all-gather,
+reduce-scatter, all-to-all, and the ``c10d`` ops of an explicit
+``torch.distributed`` call), counted by the reference's HLO kind in
+``collectives`` with its per-rank output bytes (the reference's
+output-shape proxy for the wire volume).  DTensor's own planning is not
+the program: the global-shape run that derives an output's metadata and
+the shard arithmetic of the redistribution planner run with counting
+paused (:func:`_hook_dtensor_planning`).
 """
 from __future__ import annotations
 
 import collections
+import functools
 import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.utils.collectives import collective_kind
 
 # data movement, comparisons and allocation: no FLOPs
 _FREE = {
@@ -94,6 +110,49 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+_PAUSED = [0]       # > 0 inside DTensor's planning: nothing is counted
+
+
+def _paused(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _PAUSED[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PAUSED[0] -= 1
+    run.cost_paused = True
+    return run
+
+
+def _hook_dtensor_planning() -> None:
+    """Pause every counter inside DTensor's planning, once per process:
+    ``ShardingPropagator._propagate_tensor_meta_non_cached`` (the op run
+    on global-shape fake tensors to derive an output's metadata) and
+    ``_redistribute._gen_transform_infos_non_cached`` (the planner, whose
+    shard arithmetic runs torch ops).  Where a torch version lacks one,
+    it is left alone."""
+    try:
+        from torch.distributed.tensor import _redistribute, _sharding_prop
+    except ImportError:          # a build without torch.distributed
+        return
+    for owner, name in ((_sharding_prop.ShardingPropagator,
+                         "_propagate_tensor_meta_non_cached"),
+                        (_redistribute, "_gen_transform_infos_non_cached")):
+        fn = getattr(owner, name, None)
+        if fn is not None and not getattr(fn, "cost_paused", False):
+            setattr(owner, name, _paused(fn))
+
+
+@functools.cache
+def _dtensor_type():
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:          # a build without torch.distributed
+        return ()
+    return DTensor
+
+
 class CostCounter(TorchDispatchMode):
     """Count the ops run while active (a context manager)::
 
@@ -112,16 +171,28 @@ class CostCounter(TorchDispatchMode):
         self.ops: collections.Counter = collections.Counter()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.coll_counts: collections.Counter = collections.Counter()
+        self.coll_bytes: collections.Counter = collections.Counter()
+        _hook_dtensor_planning()
 
     def _free(self, n: int) -> None:
         self.live_bytes -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        ins = _tensors((args, kwargs))
+        if any(isinstance(t, _dtensor_type()) for t in ins):
+            return NotImplemented    # DTensor runs it; its local ops return
         out = func(*args, **kwargs)
+        if _PAUSED[0]:
+            return out
         name = _name(func)
         self.ops[name] += 1
-        ins, outs = _tensors((args, kwargs)), _tensors((out,))
+        outs = _tensors((out,))
+        kind = collective_kind(name)
+        if kind is not None:     # a c10d op writes its first argument
+            self.coll_counts[kind] += 1
+            self.coll_bytes[kind] += sum(map(_nbytes, outs or ins[:1]))
         io = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         self.bytes_naive += io
         if name in _ANCHOR_BYTES:
@@ -153,9 +224,13 @@ class CostCounter(TorchDispatchMode):
                 "bytes_anchor": int(self.bytes_anchor)}
 
     def record(self) -> dict:
-        """The triple, the peak of live output bytes and the op counts."""
+        """The triple, the peak of live output bytes, the op counts and the
+        collectives (``{"counts", "bytes"}`` by HLO kind, the halo
+        ledger's snapshot shape)."""
         return {**self.cost(), "peak_bytes": int(self.peak_bytes),
-                "ops": dict(self.ops)}
+                "ops": dict(self.ops),
+                "collectives": {"counts": dict(self.coll_counts),
+                                "bytes": dict(self.coll_bytes)}}
 
 
 def lowered_cost(fn, *args, **kwargs) -> dict:

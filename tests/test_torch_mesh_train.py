@@ -31,7 +31,14 @@ one world of 2 ranks and one of 8 (``tests/torch_mesh_ranks.py``, through
 (iv)  ``save_collectives`` under a 2-rank tp: gradients equal
       ``remat=True``'s within 1e-6, and the backward issues the
       collectives of a backward with no remat, where ``remat=True``
-      re-issues the recomputed blocks' all-reduces.
+      re-issues the recomputed blocks' all-reduces;
+(v)   decode on the dry run's 2 x 2 x 2 (pod, data, model) mesh of the 8
+      ranks, caches placed by ``launch/dryrun.py:cache_shardings``:
+      zamba2 (the SSM state and the GQA shared block's KV cache),
+      deepseek-v3 (MLA's latent cache, the EP MoE at capacity factor E)
+      and qwen2 with one kv head (its cache split on the head dimension:
+      the scores summed over the ranks' slices), 3 steps from empty
+      caches, logits and caches within 1e-5 of one rank's.
 """
 import dataclasses
 import json
@@ -52,9 +59,9 @@ from repro.models.moe import apply_moe_dense as j_moe_dense
 from repro.models.moe import init_moe as j_init_moe
 from repro.train.train_step import init_train_state as j_init_state
 from repro.train.train_step import make_train_step as j_make_train_step
-from torch_mesh_ranks import (ACCUM, BATCH, LR, MESH_CASES, SEQ, STEPS,
-                              XENT_CHUNK, case_tp, eight_ranks, split_arch,
-                              two_ranks)
+from torch_mesh_ranks import (ACCUM, BATCH, DECODE_ARCHS, LR, MESH_CASES,
+                              SEQ, STEPS, XENT_CHUNK, case_tp, eight_ranks,
+                              split_arch, two_ranks)
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 SECONDS = {}
@@ -172,6 +179,14 @@ def test_ep_gradients_finite_and_match_dense(runs):
     e = runs["eight"]
     assert e["grads_finite"]
     assert max(e["grad_vs_dense"].values()) < 1e-5, e["grad_vs_dense"]
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_decode_on_a_mesh_matches_one_rank(runs, arch):
+    """(v): decode steps on DTensors (the cache writes into each rank's
+    shard, attention on each rank's heads) as on one rank."""
+    e = runs["eight"]["decode"][arch]
+    assert e["logits"] < 1e-5 and e["caches"] < 1e-5, e
 
 
 def test_save_collectives_reuses_block_all_reduces(runs):

@@ -198,9 +198,79 @@ def two_ranks(rank, d):
             json.dump(res, f)
 
 
+# (v) decode on the dry run's 2 x 2 x 2 (pod, data, model) mesh: the
+# hybrid (SSM state and GQA shared block), MLA with the EP MoE, and one kv
+# head (the cache then splits its head dimension over "model")
+DECODE_ARCHS = ("zamba2-2.7b", "deepseek-v3-671b", "qwen2-7b:mqa")
+DECODE_B, DECODE_T, DECODE_STEPS = 8, 16, 3
+
+
+def _decode_case(arch):
+    """(v) ``DECODE_STEPS`` decode steps of the smoke config from empty
+    caches (seeded port weights at tp = 2) on the mesh, parameters placed
+    by the tp rules and caches by ``launch/dryrun.py:cache_shardings``,
+    against the same steps on one rank: the largest logit error over the
+    largest |logit|, and every cache leaf's."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import cache_shardings, place_tree
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.train_step import batch_to_mesh
+    name, over = split_arch(arch)
+    cfg = dataclasses.replace(configs.get_smoke(name), **over)
+    if cfg.moe is not None:   # every token kept on both paths
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(5), tp=2,
+                            device="cpu")
+    one = tfm.init_caches(cfg, DECODE_B, DECODE_T, torch.float32, "cpu")
+    mesh = _mesh({"pod": 2, "data": 2, "model": 2})
+    mine = place_tree(_map(one, torch.clone), cache_shardings(mesh, one),
+                      mesh)
+    p_mesh = place_tree(params, sh.param_shardings(mesh, params, "tp"),
+                        mesh)
+    fn = lm.make_decode_fn(cfg)
+    g = torch.Generator().manual_seed(6)
+    err = 0.0
+    with torch.no_grad():
+        for step in range(DECODE_STEPS):
+            batch = {"token": torch.randint(0, cfg.vocab, (DECODE_B, 1),
+                                            generator=g, dtype=torch.int32),
+                     "position": torch.full((DECODE_B,), step,
+                                            dtype=torch.int32)}
+            want, one = fn(params, one, batch)
+            with sh.use_mesh(mesh, "tp"):
+                got, mine = fn(p_mesh, mine, batch_to_mesh(batch, mesh))
+            err = max(err, float((_full(got) - want).abs().max())
+                      / float(want.abs().max()))
+    cache_err = max(float((_full(a).float() - b.float()).abs().max())
+                    for a, b in zip(_leaves(mine), _leaves(one)))
+    return {"logits": err, "caches": cache_err}
+
+
+def _decode_cases():
+    """(v) under ``launch/dryrun.py:card_dtensor`` (the dry run's DTensor
+    settings: the redistribution planner's memo, the all-to-all of a
+    Shard -> Shard move), as the dry run counts it."""
+    from repro_torch.launch.dryrun import card_dtensor
+    with card_dtensor():
+        return {arch: _decode_case(arch) for arch in DECODE_ARCHS}
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    return [x for k in sorted(tree) for x in (
+        _leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
 def eight_ranks(rank, d):
     """World 8: (iii), the reference's expert-parallel case on a 2 x 4
-    ("data", "model") mesh, against the dense dispatch."""
+    ("data", "model") mesh, against the dense dispatch; then (v)."""
     from repro_torch.models import moe
     from repro_torch.models.config import ArchConfig, MoECfg
     from repro_torch.parallel import sharding as sh
@@ -251,6 +321,7 @@ def eight_ranks(rank, d):
         "aux": float(aux.full_tensor()),
         "dense_dropped": dense_drops, "ep_dropped": ep_drops,
         "expert_placements": str(tuple(dp["wi"].placements)),
+        "decode": _decode_cases(),
     }
     if rank == 0:
         with open(os.path.join(d, "eight.json"), "w") as f:
