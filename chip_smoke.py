@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--serve-only | --sharded-only | --legacy-only |
                            --lm-only | --train-only | --mesh-only |
-                           --ci-only]
+                           --ci-only | --bench-only]
 
 ``--serve-only`` runs phases 1 and I alone (the job server in a fresh
 process), ``--sharded-only`` phases 1, J and K, ``--legacy-only`` phases 1
@@ -13,7 +13,8 @@ and L (without L (c)'s readings, which come from phases 4 and G),
 phases 1 and W (LM training on a mesh), ``--ci-only`` phase 1 and
 ``launch/ci_smoke.py`` on the card (the CI smoke suite: engine,
 resilience, serve, serve-chaos, kernel and docs smokes, each in a child
-process); none prints the result line.
+process), ``--bench-only`` phases 1 and Y (the benchmark drivers); none
+prints the result line.
 Needs one CUDA card and the CUDA toolkit (``nvcc``); exits nonzero,
 printing no result, without them.
 Phases (each raises on failure):
@@ -138,8 +139,8 @@ T. LM training through ``launch/train.py:train_lm`` on random weights and
    depth cut by ``train_depth`` to the most layers whose bf16 weights and
    gradients, f32 accumulation buffers and f32 AdamW moments (16 bytes a
    parameter) fit ``TRAIN_BUDGET_GIB``, B = 2 x S = 4,096 a microbatch,
-   accumulation 2, remat, 10 steps: the mean loss of the last 3 steps
-   below the first 3's, every loss and gradient norm finite, FA launches
+   accumulation 2, remat, ``TRAIN_STEPS`` steps: the mean loss of the
+   last 3 steps below the first 3's, every loss and gradient norm finite, FA launches
    a step exactly 2 forwards (all on the d = 128 tensor-core body) and 1
    backward (both passes, all on the backward's ``tc_k8`` body) per layer
    and microbatch; step time, tokens/s,
@@ -180,9 +181,9 @@ U. the SSD backward kernel (``ssd_chunks_bwd.cu``: bf16 on the tensor
    spilling;
 V. Mamba-2 and Zamba2 training through ``train_lm``: (a) mamba2-2.7b at
    full width, its depth by ``train_depth`` (all 64 layers fit), B = 2 x
-   S = 4,096 a microbatch, accumulation 2, remat, 10 steps: the mean loss
-   of the last 3 below the first 3's, every loss and gradient norm
-   finite, SSD launches a step exactly 2 forwards and 1 backward per
+   S = 4,096 a microbatch, accumulation 2, remat, ``TRAIN_STEPS`` steps:
+   the mean loss of the last 3 below the first 3's, every loss and
+   gradient norm finite, SSD launches a step exactly 2 forwards and 1 backward per
    layer and microbatch, all ``"tc"``, FA none; step time, tokens/s, peak
    memory; (b) mamba2 at 2 layers and zamba2 at 6 (one shared-block
    call), B = 1 x S = 1,024, f32 and bf16: the loss and every leaf's
@@ -207,9 +208,9 @@ W. the LM zoo on a mesh of two ranks (NCCL with a card each when there
    ``MESH_EP_BAR``.  Each case's one-rank step (the same parameters,
    global batch and seed; cases that share them share it) runs first,
    all of them in one process of their own, then the ranks run every
-   case through ``launch/train.py:train_lm_on_mesh`` for its steps (5 for
-   (a), else 3): loss and gradient norm of
-   steps 1-2 within ``MESH_LOSS_BAR`` / ``MESH_GNORM_BAR`` of the one
+   case through ``launch/train.py:train_lm_on_mesh`` for its 2 steps
+   (3, and 5 for (a), until the time limit cut them): loss and gradient
+   norm of steps 1-2 within ``MESH_LOSS_BAR`` / ``MESH_GNORM_BAR`` of the one
    rank's (W(d), at the config's own capacity factor, where the paths
    drop different tokens: ``MESH_EP_*``), each rank's FA and SSD
    launches a step equal to the one rank's and to ``train_launches``
@@ -405,9 +406,22 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
    phase 4: its bounds must read ``MAIN_PATH_BOUNDS``) and at the fitted
    spec (taken in phase G); (d) the dry run's MD cells through
    ``launch/dryrun.py:run_all`` (md_small and md_large on fake 256- and
-   512-rank worlds, host only, started at the phase's beginning in the
-   background) and ``report.dryrun_main``'s tables; one ``{"legacy":
-   ...}`` line;
+   512-rank worlds, host only, started in the background at phase S in
+   the whole run, beside phases S to V, which time nothing on the host,
+   at the phase's beginning with ``--legacy-only``) and
+   ``report.dryrun_main``'s tables; one ``{"legacy": ...}`` line;
+Y. the benchmark drivers: ``launch/bench_run.py --strict`` on the card,
+   each driver in a child process at its card size
+   (``kernel_rows`` B20 32^3 = 262,144 atoms or the largest whose autograd
+   row fits, ``ablation`` 16^3, ``throughput --kernel`` 8-48^3 up to
+   884,736 atoms until one runs out of memory, ``scaling`` 1 NCCL rank
+   and 2 / 4 gloo ranks sharing the card, ``accuracy``, ``ensemble_rate``,
+   ``serve_rate``, ``md_loop``); the whole run, cut for the time limit,
+   runs ``BENCH_WHOLE_RUN`` alone (the drivers whose rows launch kernels).
+   ``kernel_rows`` and ``throughput --kernel`` fail on the card if a
+   kernel of their rows launched no time; one ``{"bench": ...}`` line
+   with each driver's own JSON and the launches by body of those two
+   (the kernel rows' K1, K2, FA and SSD, ``throughput``'s K1 and K2);
 10. the card's name and power limit, one ``{"kernels": [...]}`` line with
     all six kernels (SSD's backward with phase V(a)'s launches a step and
     V(c)'s as ``launches_zamba2``, phase U's errors, and its time, plain
@@ -443,8 +457,11 @@ L. the legacy per-evaluation domain paths on one NCCL rank: (a)
     followed by the case's name); K1 and K2 with phase X's
     ``launches_kernel_smoke`` and the smoke's whole evaluation (gather,
     K1, K2) timed as ``eval_ms_kernel_smoke`` beside the plain versions'
-    ``plain_eval_ms_kernel_smoke``; the script's wall seconds, then ``{"ok":
-    true, "device": ...}``.  Every bound is ``launch/roofline.py``'s.
+    ``plain_eval_ms_kernel_smoke``; K1, K2, FA and SSD with phase Y's
+    ``launches_bench_kernel_rows`` and K1 and K2 with
+    ``launches_bench_throughput``, by body; the script's wall seconds,
+    then ``{"ok": true, "device": ...}``.  Every bound is
+    ``launch/roofline.py``'s.
 """
 from __future__ import annotations
 
@@ -460,6 +477,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 KERNELS = {
     "nep_atom_pass": dict(
         source="src/repro_torch/kernels/nep/csrc/nep_atom_pass.cu",
@@ -532,7 +550,8 @@ PARITY_B, PARITY_S = 2, 256          # two SSD chunks
 
 
 def log(*args):
-    print(*args, flush=True)
+    """Print a line stamped with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *args, flush=True)
 
 
 def rel_err(got, want) -> float:
@@ -1427,7 +1446,8 @@ PTXAS_FA_BWD = {
                   "dq": ("flash_attention_bwd", "dq_kernelI13__nv_bf")}}
 TRAIN_ARCH = "qwen2-7b"
 TRAIN_BUDGET_GIB = 60.0   # bf16 weights + gradients, f32 buffer and moments
-TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_STEPS = 2, 4096, 2, 10
+# T(a) / V(a) ran 10 steps until the script's time limit cut them to 6
+TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_STEPS = 2, 4096, 2, 6
 TRAIN_LR = 3e-4
 # T(b): (arch, dtype) at 2 layers, B=1 x S=1024: the f32 CUDA-core body,
 # and the bf16 tensor-core bodies tc_k8 (d 128) and tc_k12 (d 192/128)
@@ -2668,8 +2688,10 @@ REP_KERNEL_CELLS = (8, 8, 8)   # (b): phase 2's 4,096-atom lattice
 # phase F's depth, cut for the time limit (the autograd Heisenberg-DMI
 # evaluation loops over the replicas: ~80 ms a step for 8 films); the
 # protocol keeps its shape (its knots scale with the step count)
-NUCLEATION_STEPS = 500     # of nucleation_ensemble()'s 2,000
-SWEEP_STEPS = 100          # of nucleation_ensemble_smoke()'s 300
+NUCLEATION_STEPS = 300     # of nucleation_ensemble()'s 2,000 (500 until
+                           # the script's time limit cut it)
+SWEEP_STEPS = 50           # of nucleation_ensemble_smoke()'s 300 (100
+                           # until the script's time limit cut it)
 TEMPERING_CHUNKS = 8       # of 10 steps, on nucleation_ensemble()'s film
 
 
@@ -4780,6 +4802,8 @@ DRY_LM_CELLS = (("qwen2-7b", "train_4k", False),
                 ("moonshot-v1-16b-a3b", "train_4k", False),
                 ("zamba2-2.7b", "decode_32k", True))
 DRY_LM_DIR = SURFACE_DIR / "dryrun_lm"
+# outside SURFACE_DIR, which phase A wipes after L (d) has started
+DRY_MD_DIR = ROOT / "build" / "chip_smoke_dryrun_md"
 DRY_LM_TIMEOUT = 900
 
 
@@ -4795,11 +4819,22 @@ def start_dryrun(cells, out_dir):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
+def start_md_dryrun():
+    """Phase L (d)'s MD dry run, in the background (host work with no
+    card): the whole run starts it at phase S, beside phases S to V, which
+    time nothing on the host (CUDA events, card-bound training steps)."""
+    import shutil
+    shutil.rmtree(DRY_MD_DIR, ignore_errors=True)
+    return start_dryrun(DRY_MD_CELLS, DRY_MD_DIR)
+
+
+def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports,
+                 dry=None) -> dict:
     """Phase L: the legacy per-evaluation domain paths on one NCCL rank,
     the roofline module's bounds at the main path and the fitted spec
     (``reports``: phase 4's and phase G's ``nep_report``, or None), and the
-    MD dry run on fake worlds in a background process."""
+    MD dry run on fake worlds in a background process (``dry``, started by
+    :func:`start_md_dryrun`; started here, before (a)-(c), if None)."""
     import shutil
 
     import torch.distributed as dist
@@ -4807,11 +4842,11 @@ def phase_legacy(torch, dev, spec, lat, moments, kern, ref, reports) -> dict:
 
     from repro_torch.launch import report
     t_phase = time.perf_counter()
+    if dry is None:
+        dry = start_md_dryrun()
     shutil.rmtree(LEGACY_DIR, ignore_errors=True)
     LEGACY_DIR.mkdir(parents=True)
-    dry_dir = LEGACY_DIR / "dryrun"
-    # (d) starts first: host work with no card, beside (a)-(c)
-    dry = start_dryrun(DRY_MD_CELLS, dry_dir)
+    dry_dir = DRY_MD_DIR
     out = {}
     try:
         dist.init_process_group("nccl", init_method="file://" + str(
@@ -5037,17 +5072,18 @@ MESH_REF_STEPS = 2       # the one-rank step's losses and norms compared
 # (tag, arch, sharding, mesh, moe_impl, positions a row, steps); the depth
 # by train_depth at the per-rank budget, then cut to MESH_MAX_LAYERS (the
 # phase's time: every collective of gloo ranks sharing the card crosses
-# the host).  W(a) reads the median of steps 2-5, the rest of steps 2-3.
+# the host).  Each case reads its step 2 (they ran 3 steps, W(a) 5, until
+# the script's time limit cut them to 2).
 # fsdp at 512 positions: the reference's rules split the activations'
 # d_model too, so every projection and each loss chunk's logits are
 # all-reduced (~88 s a step at 4,096 positions on gloo ranks sharing
 # an H100: PERF.md §6)
-MESH_CASES = (("W(a)", "qwen2-7b", "dp", {"data": 2}, None, 4096, 5),
-              ("W(b)", "qwen2-7b", "tp", {"model": 2}, None, 4096, 3),
-              ("W(b)", "qwen2-7b", "fsdp", {"model": 2}, None, 512, 3),
-              ("W(c)", "mamba2-2.7b", "tp", {"model": 2}, None, 4096, 3),
+MESH_CASES = (("W(a)", "qwen2-7b", "dp", {"data": 2}, None, 4096, 2),
+              ("W(b)", "qwen2-7b", "tp", {"model": 2}, None, 4096, 2),
+              ("W(b)", "qwen2-7b", "fsdp", {"model": 2}, None, 512, 2),
+              ("W(c)", "mamba2-2.7b", "tp", {"model": 2}, None, 4096, 2),
               ("W(d)", "moonshot-v1-16b-a3b", "tp", {"data": 1, "model": 2},
-               "ep", 4096, 3))
+               "ep", 4096, 2))
 MESH_MAX_LAYERS = {"qwen2-7b": 2, "mamba2-2.7b": 2,
                    "moonshot-v1-16b-a3b": 2}
 # bf16 against the one-rank step at the same tp: T(b) found two bf16
@@ -5449,6 +5485,51 @@ def phase_ci(torch, dev, dry) -> dict:
     return out
 
 
+BENCH_DIR = SURFACE_DIR / "bench"
+# the whole run's phase Y, cut for the script's time limit to the drivers
+# whose rows launch kernels; the others drive paths that earlier phases
+# drive at card scale (scaling: J, K; accuracy: G; ensemble: F; serve: I;
+# md_loop: D; ablation: the autograd evaluation of phase 4's geometry)
+# and run with --bench-only
+BENCH_WHOLE_RUN = ("kernels", "throughput")
+
+
+def phase_bench(torch, names=None) -> dict:
+    """Phase Y: ``launch/bench_run.py`` on the card, each driver of
+    ``names`` (default: the whole registry) in a child process (on the
+    card ``kernel_rows`` and ``throughput --kernel`` fail if a kernel of
+    their rows launched no time); returns each driver's own JSON, its CSV
+    rows left out (the drivers print them), and the kernels' launches by
+    body in those two."""
+    import shutil
+
+    from repro_torch.launch import bench_run
+    names = list(names or bench_run.REGISTRY)
+    log(f"phase Y: launch/bench_run.py --strict on the card: {names}")
+    t0 = time.perf_counter()
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res = bench_run.main(["--device", "cuda", "--strict", "--out",
+                          str(BENCH_DIR), "--only", ",".join(names)])
+    if not res["ok"]:
+        raise AssertionError(f"benchmark drivers failed: {res['failed']}")
+    out = {"drivers": res["drivers"]}
+    for name in names:
+        out[name] = json.loads(bench_run.result_path(BENCH_DIR, name)
+                               .read_text())
+        out[name].pop("rows", None)
+    out["launches"] = {"kernel_rows": out["kernels"]["launches"],
+                       "throughput": out["throughput"]["kernel"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    for name, d in res["drivers"].items():
+        log(f"  {name}: {d['seconds']:.1f} s")
+    log(f"  launches: {out['launches']}; throughput --kernel bodies "
+        f"{out['throughput']['kernel']['bodies']}, largest N "
+        f"{out['throughput']['kernel']['largest_n']}")
+    log(f"phase Y: {out['phase_s']:.1f} s")
+    return out
+
+
 def _flat(tree, prefix="") -> dict:
     out = {}
     for k, v in tree.items():
@@ -5462,10 +5543,10 @@ def _flat(tree, prefix="") -> dict:
 def main(argv) -> int:
     if argv not in ([], ["--serve-only"], ["--sharded-only"],
                     ["--legacy-only"], ["--lm-only"], ["--train-only"],
-                    ["--mesh-only"], ["--ci-only"]):
+                    ["--mesh-only"], ["--ci-only"], ["--bench-only"]):
         print("usage: chip_smoke.py [--serve-only | --sharded-only | "
               "--legacy-only | --lm-only | --train-only | --mesh-only | "
-              "--ci-only]", file=sys.stderr)
+              "--ci-only | --bench-only]", file=sys.stderr)
         return 2
     t_script = time.perf_counter()
     import torch
@@ -5557,6 +5638,10 @@ def main(argv) -> int:
         print(json.dumps({"ci_smoke": res}), flush=True)
         print(card, flush=True)
         return 0 if res["ok"] else 1
+    if argv == ["--bench-only"]:
+        print(json.dumps({"bench": phase_bench(torch)}), flush=True)
+        print(card, flush=True)
+        return 0
     if argv == ["--train-only"]:
         fa_row = {"name": "flash_attention_fwd"}
         lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, fa_row)
@@ -5570,7 +5655,7 @@ def main(argv) -> int:
                                       ssd_bwd_row]}), flush=True)
         return 0
 
-    # phase X (c) runs on the host beside everything that follows
+    # phase X (c) runs on the host beside everything up to phase X
     import atexit
     import shutil
     shutil.rmtree(DRY_LM_DIR, ignore_errors=True)
@@ -5790,6 +5875,8 @@ def main(argv) -> int:
     print(json.dumps({"lm_zoo": lm_zoo_phases(torch, dev, ptxas, rows[-1])}),
           flush=True)
     torch.cuda.empty_cache()
+    dry_md = start_md_dryrun()         # phase L (d), beside phases S to V
+    atexit.register(_stop, dry_md)
     lm_train, bwd_row = lm_train_phases(torch, dev, ptxas, rows[-1])
     rows.append(bwd_row)
     print(json.dumps({"lm_train": lm_train}), flush=True)
@@ -5899,7 +5986,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     legacy = phase_legacy(torch, dev, spec, lat, moments, kern, ref,
                           {"main path": main_report,
-                           "fitted spec": training["roofline"]})
+                           "fitted spec": training["roofline"]}, dry_md)
     for row in rows:
         name = row["name"]
         if name in ("nep_atom_pass", "nep_force_pass"):
@@ -5912,6 +5999,13 @@ def main(argv) -> int:
             row["bound_by_fitted"] = fitted["bound_by"]
             row["ms_fitted"] = fitted["ms"]
     print(json.dumps({"legacy": legacy}), flush=True)
+    torch.cuda.empty_cache()
+    bench = phase_bench(torch, BENCH_WHOLE_RUN)
+    for row in rows:
+        for driver, launches in bench["launches"].items():
+            if row["name"] in launches:
+                row[f"launches_bench_{driver}"] = launches[row["name"]]
+    print(json.dumps({"bench": bench}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,7 +2,8 @@
 held-out FeGe spin-lattice validation set labeled by the synthetic
 constrained-DFT oracle (port of ``benchmarks/accuracy.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.accuracy [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.accuracy [--steps 150]
+        [--device cuda|cpu] [--out DIR]
 
 Models compared:
   nepspin        the spin-aware NEP (the paper's model)
@@ -14,27 +15,25 @@ Models compared:
                  "DFT-parameterized spin Hamiltonian" baseline
 
 One CSV row per model: name, us_per_call (the fit's seconds x 1e6),
-E/F/H RMSEs.
+E/F/H RMSEs.  With ``--out`` the numbers also go to ``accuracy.json``
+there.  The fit is the measurement, so the smoke switch cuts nothing
+here (the reference's driver fits its 150 steps under it too).
 """
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.launch import bench_common as bc
 from repro_torch.utils.device import resolve_device
 
 # the oracle of benchmarks/accuracy.py
 ORACLE = dict(r0=2.45, morse_de=0.4, morse_alpha=1.6, d0=0.005, kpd=0.001)
 SPEC = dict(l_max=2, n_ang=2, n_rad=4, n_spin=3, basis_size=6)
-
-
-def row(name: str, us_per_call: float, derived: str = "") -> str:
-    line = f"{name},{us_per_call:.1f},{derived}"
-    print(line, flush=True)
-    return line
 
 
 def datasets(device, dtype=torch.float32, n_train: int = 24,
@@ -88,6 +87,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=150)
+    ap.add_argument("--out", default=None,
+                    help="write accuracy.json to this directory")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     train, val = datasets(dev)
@@ -101,7 +102,7 @@ def main(argv=None) -> dict:
         dt = time.perf_counter() - t0
         m = rmse_metrics(spec, params, val)
         out[name] = dict(m, fit_s=dt, params=params, spec=spec, loss=hist)
-        row(f"accuracy/{name}", dt * 1e6,
+        bc.row(f"accuracy/{name}", dt * 1e6,
             f"E={m['e_rmse_per_atom'] * 1e3:.3f}meV/atom|"
             f"F={m['f_rmse'] * 1e3:.2f}meV/A|"
             f"H={m['h_rmse'] * 1e3:.2f}meV/muB")
@@ -109,11 +110,17 @@ def main(argv=None) -> dict:
     c = classical_fit(val)
     c["fit_s"] = time.perf_counter() - t0
     out["classical-fit"] = c
-    row("accuracy/classical-fit", c["fit_s"] * 1e6,
+    bc.row("accuracy/classical-fit", c["fit_s"] * 1e6,
         f"E={c['e_rmse_per_atom'] * 1e3:.3f}meV/atom|"
         f"F={c['f_rmse'] * 1e3:.2f}meV/A|"
         f"H={c['h_rmse'] * 1e3:.2f}meV/muB|J0={c['j0']:.4f}|"
         f"D0={c['d0']:.4f}")
+    if args.out is not None:
+        bc.write_json(Path(args.out) / "accuracy.json", {
+            "steps": args.steps, "device": str(dev),
+            "models": {k: {m: v for m, v in r.items()
+                           if isinstance(v, (int, float))}
+                       for k, r in out.items()}})
     out["train"], out["val"] = train, val
     return out
 

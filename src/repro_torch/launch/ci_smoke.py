@@ -2,14 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.ci_smoke [--device cpu]
 
-Runs the port's counterpart of each ``python scripts/*.py`` line of
-``ci.sh --smoke``, in its order, each in a child process, and stops at the
-first that exits nonzero: the 2-rank engine smoke, the resilience smoke,
-the serving smoke, the serve chaos smoke, the NEP kernel smoke (K1 and K2
-on the card) and the docs link check.  ``--device`` goes to every step but
-the docs check.  ``ci.sh``'s last line, ``benchmarks.run --smoke
---strict``, waits for the port's ``benchmark`` work, like the rest of
-``benchmarks/``.
+Runs the port's counterpart of each ``python`` line of ``ci.sh --smoke``,
+in its order, each in a child process, and stops at the first that exits
+nonzero: the 2-rank engine smoke, the resilience smoke, the serving smoke,
+the serve chaos smoke, the NEP kernel smoke (K1 and K2 on the card), the
+docs link check and, for ``ci.sh``'s last line (``benchmarks.run --smoke
+--strict``), the benchmark registry ``bench_run --smoke --strict``.
+``--device`` goes to every step but the docs check.
 
 ``main`` returns ``{"ok", "steps": [{"step", "script", "rc",
 "seconds"}]}``; run as a script it exits 1 unless every step passed.
@@ -35,7 +34,10 @@ STEPS = (
     ("scripts/serve_chaos_smoke.py", "serve_chaos_smoke", True),
     ("scripts/kernel_smoke.py", "kernel_smoke", True),
     ("scripts/check_docs.py", "check_docs", False),
+    ("benchmarks/run.py", "bench_run", True),
 )
+# the flags of ci.sh's line, passed on
+ARGS = {"bench_run": ("--smoke", "--strict")}
 
 
 def main(argv=None) -> dict:
@@ -46,7 +48,8 @@ def main(argv=None) -> dict:
            + os.environ.get("PYTHONPATH", "")}
     done = []
     for script, module, takes_device in STEPS:
-        cmd = [sys.executable, "-m", f"repro_torch.launch.{module}"]
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{module}",
+               *ARGS.get(module, ())]
         if takes_device:
             cmd += ["--device", args.device]
         t0 = time.perf_counter()

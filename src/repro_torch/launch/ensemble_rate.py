@@ -3,14 +3,17 @@
 of ``benchmarks/ensemble.py``).
 
     PYTHONPATH=src python3 -m repro_torch.launch.ensemble_rate
-        [--replicas 1,4,16] [--device cuda|cpu]
+        [--replicas 1,4,16] [--smoke] [--device cuda|cpu] [--out DIR]
 
 For each R: a :class:`~repro_torch.ensemble.replica.ReplicaEnsemble` of R
 copies of a 16x16x1 simple-cubic film (256 atoms each, Heisenberg-DMI, f32),
 one 50-step chunk under a temperature ramp (95 -> 20 K) in a 25 T field,
-timed as the median of 3 after a warm chunk, each ending in a synchronize.
-Prints one JSON line: per R the chunk time, atom-steps/s and the speed-up
-against R sequential chunks of the R = 1 run (R x its time over this one).
+timed as the median of 3 after a warm chunk (one chunk and no warm one
+under ``--smoke`` or ``BENCH_SMOKE=1``), each ending in a synchronize.
+Prints a CSV row per R (``ensemble/R=..``: us a chunk, atom-steps/s and the
+speed-up against R sequential chunks of the R = 1 run, R x its time over
+this one), then one JSON line, which also goes to ``ensemble_rate.json``
+under ``--out`` (default ``build/bench/``).
 The Heisenberg-DMI evaluation loops over the replicas in Python, so only
 the integrator, the table and the observables are batched.
 """
@@ -18,10 +21,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
+
+from repro_torch.launch import bench_common as bc
 
 CHUNK = 50
 CELLS = (16, 16, 1)
@@ -54,11 +58,6 @@ def measure(device="cuda", replicas=(1, 4, 16), iters: int = 3) -> dict:
     from repro_torch.ensemble.replica import spawn_generators
     from repro_torch.utils.device import resolve_device
     dev = resolve_device(device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     out, base = {}, None
     for r in replicas:
         ens, temp, field, n_atoms = _ensemble(r, dev)
@@ -73,31 +72,30 @@ def measure(device="cuda", replicas=(1, 4, 16), iters: int = 3) -> dict:
                 c, gens, eng._chunk_arg(targ, c, CHUNK, vec=False),
                 eng._chunk_arg(farg, c, CHUNK, vec=True), CHUNK, None)
 
-        chunk()
-        sync()
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            chunk()
-            sync()
-            times.append(time.perf_counter() - t0)
-        t = sorted(times)[len(times) // 2]
+        t = bc.timeit(chunk, device=dev, iters=iters)
         base = t if base is None else base
         out[r] = {"chunk_s": t, "atom_steps_per_s": r * n_atoms * CHUNK / t,
                   "speedup_vs_sequential": base * r / t}
+        bc.row(f"ensemble/R={r}", t * 1e6,
+               f"{out[r]['atom_steps_per_s']:.3e} atom-step/s|"
+               f"{out[r]['speedup_vs_sequential']:.2f}x vs sequential")
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(argv=None) -> dict:
+    ap = bc.add_args(argparse.ArgumentParser(
+        description=__doc__.splitlines()[0]))
     ap.add_argument("--replicas", default="1,4,16")
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    res = measure(args.device, tuple(int(x) for x in
-                                     args.replicas.split(",")))
+    args = bc.parse(ap, argv)
+    with bc.switches(args):
+        res = measure(args.device, tuple(int(x) for x in
+                                         args.replicas.split(",")))
     print(json.dumps({"ensemble_rate": res}))
-    return 0
+    bc.write_json(args.out / "ensemble_rate.json",
+                  {"device": args.device, "chunk": CHUNK, "cells": CELLS,
+                   "replicas": res})
+    return res
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

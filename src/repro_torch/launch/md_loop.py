@@ -3,7 +3,7 @@
 ``benchmarks/md_loop.py``).
 
     PYTHONPATH=src python3 -m repro_torch.launch.md_loop [--smoke]
-        [--strict] [--device cuda|cpu]
+        [--strict] [--device cuda|cpu] [--out DIR]
 
 Chunked stepping of a 16^3 simple-cubic lattice (4,096 atoms; 4^3 = 64
 with ``--smoke``), chunk 20, skin 0.2 A (half-skin 0.1 A: 500 K thermal
@@ -30,8 +30,9 @@ builds or library loads (:class:`~repro_torch.telemetry.CompileWatchdog`)
 during every timed run, the telemetry runs included; a telemetry overhead
 below 25 % (a warning above 5 %); with ``--strict``,
 ``nep_kernel.vs_autodiff >= 1.0``.  The run writes its JSON to
-``build/md_loop/md_loop.json`` and the last telemetry run's runlog beside
-it, stamped with a ``benchmark`` record.  K1 and K2 launches on the kernel
+``build/md_loop/md_loop.json`` (or ``--out``) and the last telemetry run's
+runlog beside it, stamped with a ``benchmark`` record, and prints a CSV row
+(``name,us_per_call,derived``, us a step) per timed path.  K1 and K2 launches on the kernel
 path are counted by body (on the card).
 """
 from __future__ import annotations
@@ -43,6 +44,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.launch import bench_common as bc
 
 ROOT = Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "build" / "md_loop"
@@ -213,10 +216,10 @@ def run_scenario(device="cuda", *, smoke: bool = False,
         for label in ("fused", "legacy"):
             if label in res:
                 r = res[label]
-                print(f"md_loop/{name}/{label}/N={res['n_atoms']}: "
-                      f"{r['steps_per_s']:.1f} steps/s, {r['rebuilds']} "
-                      f"rebuilds, {r['compiles_during_run']} builds+loads",
-                      flush=True)
+                bc.row(f"md_loop/{name}/{label}/N={res['n_atoms']}",
+                       1e6 / r["steps_per_s"],
+                       f"{r['steps_per_s']:.1f} steps/s|{r['rebuilds']} "
+                       f"rebuilds|{r['compiles_during_run']} builds+loads")
         if not smoke:
             fused = res["fused"]
             want = 1 if name == "nep_kernel" else 3
@@ -235,10 +238,11 @@ def run_scenario(device="cuda", *, smoke: bool = False,
     runlog = out_dir / "md_loop.jsonl"
     tel = bench_telemetry(sc, runlog)
     out["telemetry"] = tel
-    print(f"md_loop/heisenberg/fused+telemetry/N={out['n_atoms']}: "
-          f"{tel['steps_per_s']:.1f} steps/s, overhead "
-          f"{tel['overhead_vs_fused'] * 100:.1f}%, "
-          f"{tel['compiles_during_run']} builds+loads", flush=True)
+    bc.row(f"md_loop/heisenberg/fused+telemetry/N={out['n_atoms']}",
+           1e6 / tel["steps_per_s"],
+           f"{tel['steps_per_s']:.1f} steps/s|overhead "
+           f"{tel['overhead_vs_fused'] * 100:.1f}%|"
+           f"{tel['compiles_during_run']} builds+loads")
     if not smoke:
         if tel["compiles_during_run"]:
             raise AssertionError(f"kernel builds or loads during the "
@@ -264,18 +268,24 @@ def run_scenario(device="cuda", *, smoke: bool = False,
     return out
 
 
-def main() -> int:
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true",
-                    help="4^3 atoms and short runs; gates off")
+                    help="4^3 atoms and short runs; gates off "
+                         "(or BENCH_SMOKE=1)")
     ap.add_argument("--strict", action="store_true",
-                    help="gate nep_kernel.vs_autodiff >= 1.0")
+                    help="gate nep_kernel.vs_autodiff >= 1.0 "
+                         "(or BENCH_STRICT=1)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    out = run_scenario(args.device, smoke=args.smoke, strict=args.strict)
+    ap.add_argument("--out", default=None,
+                    help=f"directory of the JSON and runlog ({OUT_DIR})")
+    args = ap.parse_args(argv)
+    out = run_scenario(args.device, smoke=args.smoke or bc.smoke(),
+                       strict=args.strict or bc.strict(),
+                       out_dir=Path(args.out) if args.out else OUT_DIR)
     print(json.dumps({"md_loop": out}))
-    return 0
+    return out
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

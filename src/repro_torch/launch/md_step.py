@@ -172,7 +172,8 @@ def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,
                      check_flat: bool = False) -> dict:
     """Drive one warm chunk and ``steps`` timed steps of the Engine on the
     Sharded plan over the initialised world (or one rank without a process
-    group); returns {steps_per_s, rebuilds, migrated, halo ledger, ...}."""
+    group); returns {steps_per_s, rebuilds, migrated, halo ledger, kernel
+    builds and library loads during the timed steps, ...}."""
     import torch
 
     from repro_torch.configs.fege_spinlattice import config, smoke_config
@@ -184,6 +185,7 @@ def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,
     from repro_torch.md.lattice import simple_cubic
     from repro_torch.md.state import init_state
     from repro_torch.parallel.plan import Sharded
+    from repro_torch.telemetry import CompileWatchdog
     from repro_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -221,10 +223,13 @@ def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,
     eng.run(chunk, run_gen, chunk=chunk)                  # warm
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
+    dog = CompileWatchdog()
+    mark = dog.mark()
     t0 = time.perf_counter()
     eng.run(steps, run_gen, chunk=chunk)
     sync()
     wall = time.perf_counter() - t0
+    compiles = dog.since(mark)
     vs_flat = None
     if check_flat and rank == 0:
         flat = Engine(**kw)
@@ -238,7 +243,8 @@ def run_engine_chunk(cells=(8, 6, 6), steps: int = 40, chunk: int = 20,
         "cells": list(eng._rplan.dspec.cells),
         "cell_capacity": int(eng._rplan.dspec.capacity),
         "allgather": eng._rplan.allgather,
-        "steps_per_s": steps / wall, "rebuilds": eng.n_rebuilds,
+        "steps_per_s": steps / wall, "compiles_during_run": compiles,
+        "rebuilds": eng.n_rebuilds,
         "migrated": eng.n_migrated, "vs_flat": vs_flat,
         "charge": [float(q) for q in eng.trace.values["charge"]],
         "halo_counts": dict(ledger.counts), "halo_bytes": dict(ledger.bytes),

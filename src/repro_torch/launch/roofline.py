@@ -31,11 +31,12 @@ byte model with this card's peaks; :func:`atom_pass_work` /
 the cutoff and the bytes it must move (each input read once, each output
 written once), :func:`bound` turns them into the least time the card could
 take, and :func:`nep_measured` times the kernels with CUDA events at a
-geometry.  The flash-attention half: :func:`fa_pairs` counts the (query,
-key) pairs the masks keep, :func:`fa_fwd_work` / :func:`fa_bwd_work` one
-forward / backward call's bytes and product FLOPs; :func:`ssd_fwd_work` /
-:func:`ssd_bwd_work` the same for the SSD chunk step.  ``chip_smoke.py``
-reads every kernel bound from here.
+geometry (:func:`nep_stages` sets their calls up).  The flash-attention
+half: :func:`fa_pairs` counts the (query, key) pairs the masks keep,
+:func:`fa_fwd_work` / :func:`fa_bwd_work` one forward / backward call's
+bytes and product FLOPs; :func:`ssd_fwd_work` / :func:`ssd_bwd_work` the
+same for the SSD chunk step.  ``chip_smoke.py`` reads every kernel bound
+from here.
 """
 from __future__ import annotations
 
@@ -303,7 +304,9 @@ def bound(n_bytes: float, flops: float, dtype) -> dict:
             "flops": float(flops)}
 
 
-def _time_ms(fn, reps: int, warmup: int) -> float:
+def time_ms(fn, reps: int, warmup: int) -> float:
+    """CUDA-event ms of one ``fn()`` on the card, the mean of ``reps``
+    calls after ``warmup``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -318,17 +321,11 @@ def _time_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def nep_measured(spec, params, nbh, spin, types, reps: int = 20,
-                 warmup: int = 2) -> dict:
-    """K1 and K2 on the card at a geometry (``nbh`` a
+def nep_stages(spec, params, nbh, spin, types) -> tuple[dict, dict, int]:
+    """K1 and K2 at a geometry (``nbh`` a
     :class:`repro_torch.md.neighbor.Neighborhood` of this spin state):
-    CUDA-event ms of each (after ``warmup`` calls), the pairs inside the
-    cutoff, each kernel's bound, its share of the bound and its achieved
-    GFLOP/s and GB/s.  Raises on CPU tensors: host timings are not device
-    numbers."""
-    if spin.device.type != "cuda":
-        raise ValueError("nep_measured times the kernels on the card; the "
-                         f"tensors are on {spin.device}")
+    ``({name: call}, {name: (bytes, FLOPs)}, pairs inside the cutoff)``,
+    each kernel called once here to size its outputs."""
     from repro_torch.kernels.nep.kernel import nep_atom_pass, nep_force_pass
     sj = spin[nbh.idx.long()]
     blocks = (nbh.dr, nbh.mask, types, nbh.tj, spin, sj)
@@ -337,22 +334,33 @@ def nep_measured(spec, params, nbh, spin, types, reps: int = 20,
     k2_args = (spec, params, nbh.dr, nbh.mask, nbh.idx, types, nbh.tj, spin,
                sj, k1[2])
     k2 = nep_force_pass(*k2_args)
+    calls = {"nep_atom_pass": lambda: nep_atom_pass(spec, params, *blocks),
+             "nep_force_pass": lambda: nep_force_pass(*k2_args)}
     work = {"nep_atom_pass": atom_pass_work(spec, params, *blocks, k1,
                                             n_pairs),
             "nep_force_pass": force_pass_work(spec, params, *k2_args[2:],
                                               k2, n_pairs)}
-    ms = {"nep_atom_pass": _time_ms(
-              lambda: nep_atom_pass(spec, params, *blocks), reps, warmup),
-          "nep_force_pass": _time_ms(lambda: nep_force_pass(*k2_args), reps,
-                                     warmup)}
+    return calls, work, n_pairs
+
+
+def nep_measured(spec, params, nbh, spin, types, reps: int = 20,
+                 warmup: int = 2) -> dict:
+    """K1 and K2 on the card at a geometry (:func:`nep_stages`):
+    CUDA-event ms of each (after ``warmup`` calls), the pairs inside the
+    cutoff, each kernel's bound, its share of the bound and its achieved
+    GFLOP/s and GB/s.  Raises on CPU tensors: host timings are not device
+    numbers."""
+    if spin.device.type != "cuda":
+        raise ValueError("nep_measured times the kernels on the card; the "
+                         f"tensors are on {spin.device}")
+    calls, work, n_pairs = nep_stages(spec, params, nbh, spin, types)
     out = {"n_atoms": int(spin.shape[-2]), "m_cap": int(nbh.idx.shape[-1]),
            "n_pairs": n_pairs, "dtype": str(spin.dtype).split(".")[-1]}
     for name, (b, f) in work.items():
+        ms = time_ms(calls[name], reps, warmup)
         bd = bound(b, f, spin.dtype)
-        out[name] = {**bd, "ms": ms[name],
-                     "share_of_bound": bd["bound_ms"] / ms[name],
-                     "gflop_per_s": f / ms[name] / 1e6,
-                     "gb_per_s": b / ms[name] / 1e6}
+        out[name] = {**bd, "ms": ms, "share_of_bound": bd["bound_ms"] / ms,
+                     "gflop_per_s": f / ms / 1e6, "gb_per_s": b / ms / 1e6}
     return out
 
 

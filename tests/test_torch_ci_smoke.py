@@ -8,8 +8,9 @@ shape-only route for meta tensors, which the dry run's LM cells take.
   records vs the run-scoped ledger, no build after the first chunk, the
   report) and a bitwise checkpoint/resume (~25 s);
 * ``check_docs``: every path the docs name exists;
-* ``ci_smoke.STEPS``: the port's counterpart of each ``python
-  scripts/*.py`` line of ``scripts/ci.sh --smoke``, in its order;
+* ``ci_smoke.STEPS``: the port's counterpart of each ``python`` line of
+  ``scripts/ci.sh --smoke`` (the scripts and ``benchmarks.run``), in its
+  order, with the line's flags;
 * FA's and SSD's forward and backward on meta tensors: the plain
   versions' shapes and dtypes; a tensor on another device is refused.
 """
@@ -62,16 +63,27 @@ def test_check_docs_passes():
 
 
 def test_ci_smoke_steps_are_ci_sh_smoke_scripts():
+    """Every ``python`` line of ci.sh's ``--smoke`` block, the benchmark
+    registry's ``python -m benchmarks.run`` included, maps to a step, in
+    order, with the line's flags."""
     from repro_torch.launch import ci_smoke
     text = (ROOT / "scripts" / "ci.sh").read_text()
     block = text[text.index('if [[ "${1:-}" == "--smoke" ]]'):]
     block = block[:block.index("\nfi\n")]
-    scripts = re.findall(r"python (scripts/\w+\.py)", block)
-    assert [s for s, _, _ in ci_smoke.STEPS] == scripts
-    for script, module, _ in ci_smoke.STEPS:
+    lines = re.findall(r"python (scripts/\w+\.py|-m benchmarks\.\w+)"
+                       r"([^\n\\]*)", block)
+    refs = [ref if ref.startswith("scripts/")
+            else ref[3:].replace(".", "/") + ".py" for ref, _ in lines]
+    assert [s for s, _, _ in ci_smoke.STEPS] == refs
+    assert refs[-1] == "benchmarks/run.py"
+    for (script, module, _), (_, flags) in zip(ci_smoke.STEPS, lines):
         assert (ROOT / "src" / "repro_torch" / "launch"
                 / f"{module}.py").exists(), module
-        assert pathlib.Path(script).name == f"{module}.py"
+        name = pathlib.Path(script).name
+        assert name == f"{module}.py" or (
+            script.startswith("benchmarks/")
+            and f"bench_{name}" == f"{module}.py"), (script, module)
+        assert tuple(flags.split()) == ci_smoke.ARGS.get(module, ()), module
     assert [m for _, m, dev in ci_smoke.STEPS if not dev] == ["check_docs"]
 
 
