@@ -40,6 +40,7 @@ from repro_torch.core.descriptor import NEPSpinSpec
 from repro_torch.core.potential import NEPSpinParams
 from repro_torch.kernels.nep.layout import acc_width
 from repro_torch.kernels.nep.ref import atom_pass_plain, force_pass_plain
+from repro_torch.telemetry.profiling import host_sync
 
 # compile-time maxima of csrc/nep_common.cuh
 SPEC_BOUNDS = {"n_types": 4, "n_rad": 8, "n_ang": 8, "n_spin": 8,
@@ -230,8 +231,11 @@ def nep_force_pass(spec: NEPSpinSpec, params: NEPSpinParams, dr, mask, idx,
     n_src = max(abar.shape[-2], n) if abar.dim() >= 2 else n
     _check("abar", abar, lead + (n_src, acc_width(spec)), dr.dtype,
            dr.device)
-    if n_src > n and n * m and int(idx.max()) >= n_src:
-        raise ValueError(f"idx points past abar's {n_src} rows")
+    if n_src > n and n * m:
+        with host_sync():
+            past = int(idx.max()) >= n_src
+        if past:
+            raise ValueError(f"idx points past abar's {n_src} rows")
     f = torch.empty(lead + (n, 3), dtype=dr.dtype, device=dr.device)
     h2 = torch.empty(lead + (n, 3), dtype=dr.dtype, device=dr.device)
     if f.numel() == 0:

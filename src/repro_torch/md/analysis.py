@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch.telemetry.profiling import host_sync
+
 
 def magnetization(spin: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -232,7 +234,9 @@ def charge_from_grid(acc: torch.Tensor,
     nrm = torch.linalg.norm(acc, dim=-1, keepdim=True)
     full = nrm > 1e-12
     s = acc / torch.where(full, nrm, torch.ones_like(nrm))
-    zhat = torch.tensor([0.0, 0.0, 1.0], dtype=acc.dtype, device=acc.device)
+    with host_sync():    # a blocking copy to the card
+        zhat = torch.tensor([0.0, 0.0, 1.0], dtype=acc.dtype,
+                            device=acc.device)
     s = torch.where(full, s, zhat)
     return topological_charge_grid(s.reshape(grid[0], grid[1], 3))
 

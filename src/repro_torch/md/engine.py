@@ -36,8 +36,18 @@ Host syncs: the reference runs the rebuild test inside its compiled scan
 behind a ``lax.cond``.  Here the test runs on the device every step and is
 read back with one ``.item()`` - one host sync per step; capturing a chunk
 as a CUDA graph with a device-side rebuild flag would remove it.  A
-rebuild adds one more (the cell-overflow check, and the table's transpose
-for potentials that sum pair reactions), and a chunk end one readback.
+rebuild adds two more (the linked-cell binning's index and its overflow
+check; a third, the table's transpose, for potentials that sum pair
+reactions), and a chunk end one readback.  Each sync runs in a counted
+``repro.sync`` range (:func:`repro_torch.telemetry.profiling.host_sync`);
+the runlog's chunk records carry the count as ``host_syncs``.
+
+Profiler ranges, by layer: ``repro.run`` (one :meth:`Engine.run`),
+``repro.chunk`` (one chunk with its readback, health gate, runlog,
+checkpoint and callback), ``repro.step`` (one step), ``repro.skin_test``,
+``repro.rebuild``, ``repro.integrate`` with ``repro.refresh`` (the ``dr``
+refresh after the drift) and ``repro.force`` inside it,
+``repro.observe`` and ``repro.readback``.
 
 The ``Replicated`` plan runs R replicas of one crystal as one batch on one
 card (``state`` (R, N, ...), or a flat state tiled R times): one shared
@@ -128,8 +138,8 @@ from repro_torch.parallel.domain import (DomainNbh, build_local_table,
 from repro_torch.parallel.halo import HaloTrace
 from repro_torch.parallel.plan import Replicated, Sharded, as_plan
 from repro_torch.telemetry import (HealthError, TelemetrySession,
-                                   as_telemetry, check_chunk, maybe_trace,
-                                   phase)
+                                   as_telemetry, check_chunk, host_sync,
+                                   maybe_trace, phase)
 from repro_torch.telemetry.monitor import (nonfinite_count,
                                            occupancy_fraction, slot_signals,
                                            spin_norm_dev)
@@ -283,6 +293,14 @@ def make_domain_observe(names, masses, magnetic, diag_grid, pitch_axis,
         with phase("observe"):
             return observe(state, ff)
 
+    return scoped
+
+
+def _in_phase(name: str, fn: Callable) -> Callable:
+    """``fn`` run inside the ``repro.<name>`` range."""
+    def scoped(*args, **kw):
+        with phase(name):
+            return fn(*args, **kw)
     return scoped
 
 
@@ -498,8 +516,12 @@ class Engine:
         r = self.replicas if self._batch else 0
         own = slice(self._rep0, self._rep0 + self._batch)
         if vec:
-            v = torch.as_tensor(rows, dtype=self.state.pos.dtype,
-                                device=self.device)
+            dt = self.state.pos.dtype
+            if isinstance(rows, torch.Tensor) and rows.device == self.device:
+                v = rows.to(dt)
+            else:
+                with host_sync():    # a blocking copy to the card
+                    v = torch.as_tensor(rows, dtype=dt, device=self.device)
             if r:
                 v = v.reshape(lead + (-1, 3)).expand(
                     lead + (r, 3))[..., own, :].contiguous()
@@ -550,7 +572,8 @@ class Engine:
         self._reverse = bool(getattr(self.potential, "pair_scatter", True))
         box0 = self.state.box
         self._step = make_fused_step(
-            gather=lambda pos, nbh: refresh_dr(nbh, pos, box0),
+            gather=_in_phase("refresh",
+                             lambda pos, nbh: refresh_dr(nbh, pos, box0)),
             compute=self._compute_ff, cfg=self.cfg, masses=self.masses,
             magnetic=self.magnetic)
         self._observe = make_flat_observe(
@@ -642,7 +665,8 @@ class Engine:
         self._reverse = bool(getattr(self.potential, "pair_scatter", True))
         box0 = self._box0
         self._step = make_fused_step(
-            gather=lambda pos, nbh: refresh_dr(nbh, pos, box0),
+            gather=_in_phase("refresh",
+                             lambda pos, nbh: refresh_dr(nbh, pos, box0)),
             compute=self._replica_eval, cfg=self.cfg, masses=self.masses,
             magnetic=self.magnetic)
         self._observe = make_flat_observe(
@@ -701,10 +725,12 @@ class Engine:
         st = c.states
         steps = self._rep_all(torch.as_tensor(np.asarray(st.step),
                                               device=self.device))
+        with host_sync():
+            steps = steps.cpu().numpy()
         return (SpinLatticeState(
             *(self._rep_all(getattr(st, k))
               for k in ("pos", "vel", "spin", "types", "box")),
-            step=steps.cpu().numpy()),
+            step=steps),
             ForceField(*(self._rep_all(x) for x in c.ffs)))
 
     # -- the replica axis split over ranks ------------------------------
@@ -891,20 +917,27 @@ class Engine:
         box0 = self._box0
         rows = []
         for i in range(n):
-            temp, field = _arg_at(targ, i), _arg_at(farg, i)
-            # any replica past half the skin rebuilds the shared table
-            if self._rep_reduce(needs_rebuild(
-                    carry.table, carry.states.pos, box0,
-                    self.skin).to(torch.int32), "max").item():
-                table, nbh, ffs = self._replica_rebuild(carry.states, field)
-                carry = ReplicaCarry(carry.states, ffs, table, nbh,
-                                     carry.n_rebuilds + 1)
-            with phase("integrate"):
-                st, ffs, nbh = self._step(carry.states, carry.ffs, carry.nbh,
-                                          generator, temp, field)
-            carry = carry._replace(states=st, ffs=ffs, nbh=nbh)
-            if emit is not None and i in emit:
-                rows.append(self._replica_observe(st, ffs))
+            with phase("step"):
+                temp, field = _arg_at(targ, i), _arg_at(farg, i)
+                # any replica past half the skin rebuilds the shared table
+                with phase("skin_test"):
+                    trip = self._rep_reduce(needs_rebuild(
+                        carry.table, carry.states.pos, box0,
+                        self.skin).to(torch.int32), "max")
+                    with host_sync():
+                        trip = trip.item()
+                if trip:
+                    table, nbh, ffs = self._replica_rebuild(carry.states,
+                                                            field)
+                    carry = ReplicaCarry(carry.states, ffs, table, nbh,
+                                         carry.n_rebuilds + 1)
+                with phase("integrate"):
+                    st, ffs, nbh = self._step(carry.states, carry.ffs,
+                                              carry.nbh, generator, temp,
+                                              field)
+                carry = carry._replace(states=st, ffs=ffs, nbh=nbh)
+                if emit is not None and i in emit:
+                    rows.append(self._replica_observe(st, ffs))
         if emit is None:
             rows.append(self._replica_observe(carry.states, carry.ffs))
         if rows:
@@ -1020,10 +1053,11 @@ class Engine:
                 allgather=ag)
         self._domain_refresh, self._domain_compute = refresh, compute
         self._step = make_fused_step(
-            gather=(lambda pos, nbh, spin: refresh(pos, nbh, spin,
-                                                   tag="drift-pos"))
-            if sig else (lambda pos, nbh: refresh(pos, nbh,
-                                                  tag="drift-pos")),
+            gather=_in_phase("refresh", (
+                lambda pos, nbh, spin: refresh(pos, nbh, spin,
+                                               tag="drift-pos"))
+                if sig else (lambda pos, nbh: refresh(pos, nbh,
+                                                      tag="drift-pos"))),
             compute=self._domain_ff, cfg=self.cfg, masses=self.masses,
             magnetic=self.magnetic, atom_mask="from_types",
             spin_aware_gather=sig)
@@ -1147,7 +1181,9 @@ class Engine:
                           device=moved.device)
         vec[0] = moved
         vec[1 + rp.rank] = dropped
-        vec = self._reduce_sum(vec).cpu().numpy()
+        vec = self._reduce_sum(vec)
+        with host_sync():
+            vec = vec.cpu().numpy()
         return int(vec[0]), vec[1:]
 
     def _trip_local(self, state, r0) -> torch.Tensor:
@@ -1192,18 +1228,37 @@ class Engine:
             self._domain_kinetic(carry.state))
         rows = []
         for i in range(n):
-            temp, field = _arg_at(targ, i), _arg_at(farg, i)
-            if carry.trip:
-                st, ff, nbh, aid, moved, dropped = self._domain_rebuild(
-                    carry.state, carry.aid, field)
-                moved, dropped = self._count_rebuild(moved, dropped)
-                carry = DomainCarry(st, ff, nbh, aid, st.pos, False,
-                                    carry.n_rebuilds + 1,
-                                    carry.n_migrated + moved,
-                                    carry.n_dropped + dropped)
-            with phase("integrate"):
-                st, ff, nbh = self._step(carry.state, carry.ff, carry.nbh,
-                                         generator, temp, field)
+            with phase("step"):
+                carry = self._domain_step(carry, generator,
+                                          _arg_at(targ, i), _arg_at(farg, i))
+                if emit is not None and i in emit:
+                    rows.append(self._domain_observe(carry.state, carry.ff))
+        if emit is None:
+            rows.append(self._domain_observe(carry.state, carry.ff))
+        if rows:
+            obs = {k: torch.stack([r[k] for r in rows])
+                   for k in self.observables}
+        else:
+            obs = {k: v[None][:0] for k, v in
+                   self._domain_observe(carry.state, carry.ff).items()}
+        return carry, obs, self._domain_health(carry, etot0)
+
+    def _domain_step(self, carry: DomainCarry, generator, temp,
+                     field) -> DomainCarry:
+        """One step of this rank's slab: the rebuild the last step's skin
+        test asked for, the step, and the next skin test."""
+        if carry.trip:
+            st, ff, nbh, aid, moved, dropped = self._domain_rebuild(
+                carry.state, carry.aid, field)
+            moved, dropped = self._count_rebuild(moved, dropped)
+            carry = DomainCarry(st, ff, nbh, aid, st.pos, False,
+                                carry.n_rebuilds + 1,
+                                carry.n_migrated + moved,
+                                carry.n_dropped + dropped)
+        with phase("integrate"):
+            st, ff, nbh = self._step(carry.state, carry.ff, carry.nbh,
+                                     generator, temp, field)
+        with phase("skin_test"):
             e = ff.energy
             trip = self._trip_local(st, carry.r0).to(e.dtype)
             if not self._batch:
@@ -1219,19 +1274,10 @@ class Engine:
                 energy, trip = vec[:-1], vec[-1]
                 if self._rplan.rep_in_mesh():
                     trip = self._reduce_max(trip)
-            carry = carry._replace(state=st, ff=ff._replace(energy=energy),
-                                   nbh=nbh, trip=bool(trip > 0))
-            if emit is not None and i in emit:
-                rows.append(self._domain_observe(st, carry.ff))
-        if emit is None:
-            rows.append(self._domain_observe(carry.state, carry.ff))
-        if rows:
-            obs = {k: torch.stack([r[k] for r in rows])
-                   for k in self.observables}
-        else:
-            obs = {k: v[None][:0] for k, v in
-                   self._domain_observe(carry.state, carry.ff).items()}
-        return carry, obs, self._domain_health(carry, etot0)
+            with host_sync():
+                trip = bool(trip > 0)
+        return carry._replace(state=st, ff=ff._replace(energy=energy),
+                              nbh=nbh, trip=trip)
 
     def _domain_health(self, c: DomainCarry, etot0) -> dict:
         """The health signals, global over the mesh (plus ``cell_occ``, the
@@ -1324,7 +1370,8 @@ class Engine:
         """The rows of a gathered (slots, 17) buffer in original atom order
         (its column 16 holds the atom id, -1 for an empty slot)."""
         aid = torch.round(buf[:, 16]).long()
-        sel = torch.nonzero(aid >= 0).reshape(-1)
+        with host_sync():
+            sel = torch.nonzero(aid >= 0).reshape(-1)
         order = torch.empty(self._n_atoms, dtype=torch.int64,
                             device=buf.device)
         order[aid[sel]] = sel
@@ -1452,20 +1499,27 @@ class Engine:
         box0 = carry.state.box
         rows = []
         for i in range(n):
-            temp, field = _arg_at(targ, i), _arg_at(farg, i)
-            # the half-skin test, read back once per step (module docstring)
-            if needs_rebuild(carry.table, carry.state.pos, box0,
-                             self.skin).item():
-                st, ff, tab, nbh, perm = self._rebuild(carry.state,
-                                                       carry.perm, field)
-                carry = FusedCarry(st, ff, tab, nbh, perm,
-                                   carry.n_rebuilds + 1)
-            with phase("integrate"):
-                st, ff, nbh = self._step(carry.state, carry.ff, carry.nbh,
-                                         generator, temp, field)
-            carry = carry._replace(state=st, ff=ff, nbh=nbh)
-            if emit is not None and i in emit:
-                rows.append(self._observe(st, ff))
+            with phase("step"):
+                temp, field = _arg_at(targ, i), _arg_at(farg, i)
+                # the half-skin test, read back once per step (module
+                # docstring)
+                with phase("skin_test"):
+                    trip = needs_rebuild(carry.table, carry.state.pos, box0,
+                                         self.skin)
+                    with host_sync():
+                        trip = trip.item()
+                if trip:
+                    st, ff, tab, nbh, perm = self._rebuild(
+                        carry.state, carry.perm, field)
+                    carry = FusedCarry(st, ff, tab, nbh, perm,
+                                       carry.n_rebuilds + 1)
+                with phase("integrate"):
+                    st, ff, nbh = self._step(carry.state, carry.ff,
+                                             carry.nbh, generator, temp,
+                                             field)
+                carry = carry._replace(state=st, ff=ff, nbh=nbh)
+                if emit is not None and i in emit:
+                    rows.append(self._observe(st, ff))
         if emit is None:
             rows.append(self._observe(carry.state, carry.ff))
         if rows:
@@ -1484,7 +1538,9 @@ class Engine:
                 health.items()):
             layout.append((k, tuple(v.shape), v.dtype))
             parts.append(v.reshape(-1).to(torch.float64))
-        flat = torch.cat(parts).cpu().numpy()
+        flat = torch.cat(parts)
+        with host_sync():
+            flat = flat.cpu().numpy()
         out, at = {}, 0
         for k, shape, dtype in layout:
             size = int(np.prod(shape))
@@ -1525,51 +1581,53 @@ class Engine:
         :class:`HealthError` before the failing chunk is checkpointed) and
         optionally dumps a profiler trace.
         """
-        tel = as_telemetry(telemetry)
-        targ = self._norm_arg(self.temperature if temperature is _UNSET
-                              else temperature, vec=False)
-        farg = self._norm_arg(self.field if field is _UNSET else field,
-                              vec=True)
-        if self.obs_every is not None and chunk % self.obs_every:
-            raise ValueError(f"chunk ({chunk}) must be a multiple of "
-                             f"obs_every ({self.obs_every})")
-        if resume:
-            if checkpoint_dir is None:
-                raise ValueError("resume=True needs checkpoint_dir")
-            if latest_step(checkpoint_dir) is not None:
-                generator = self.restore(checkpoint_dir)
-        if ((targ is not None or self.cfg.temperature > 0.0)
-                and generator is None):
-            raise ValueError("a thermostatted run needs a torch.Generator"
-                             + (" per replica" if self._batch else ""))
-        if self._batch and generator is not None:
-            generator = list(generator)
-            if len(generator) != self._batch:
-                raise ValueError(f"the replica plan takes one generator per "
-                                 f"replica of this process: {self._batch}, "
-                                 f"got {len(generator)}")
-        self._restart(farg)
-        session = None
-        # on the Sharded plan rank 0 alone writes the runlog and the trace
-        # (the health signals are global, so every rank gates alike)
-        rank0 = not self._sharded or self._rplan.rank == 0
-        if tel is not None and rank0:
-            session = TelemetrySession(
-                tel, run_info=self._run_info(n_steps, chunk),
-                ledger=self._halo if self._sharded else None)
-        try:
-            with maybe_trace(tel.profile_dir if tel is not None and rank0
-                             else None):
-                self._run_loop(n_steps, generator, chunk, targ, farg,
-                               callback, checkpoint_dir, checkpoint_every,
-                               checkpoint_keep, tel, session)
-        except BaseException as exc:
+        with phase("run"):
+            tel = as_telemetry(telemetry)
+            targ = self._norm_arg(self.temperature if temperature is _UNSET
+                                  else temperature, vec=False)
+            farg = self._norm_arg(self.field if field is _UNSET else field,
+                                  vec=True)
+            if self.obs_every is not None and chunk % self.obs_every:
+                raise ValueError(f"chunk ({chunk}) must be a multiple of "
+                                 f"obs_every ({self.obs_every})")
+            if resume:
+                if checkpoint_dir is None:
+                    raise ValueError("resume=True needs checkpoint_dir")
+                if latest_step(checkpoint_dir) is not None:
+                    generator = self.restore(checkpoint_dir)
+            if ((targ is not None or self.cfg.temperature > 0.0)
+                    and generator is None):
+                raise ValueError("a thermostatted run needs a torch.Generator"
+                                 + (" per replica" if self._batch else ""))
+            if self._batch and generator is not None:
+                generator = list(generator)
+                if len(generator) != self._batch:
+                    raise ValueError(
+                        f"the replica plan takes one generator per replica "
+                        f"of this process: {self._batch}, got "
+                        f"{len(generator)}")
+            self._restart(farg)
+            session = None
+            # on the Sharded plan rank 0 alone writes the runlog and the trace
+            # (the health signals are global, so every rank gates alike)
+            rank0 = not self._sharded or self._rplan.rank == 0
+            if tel is not None and rank0:
+                session = TelemetrySession(
+                    tel, run_info=self._run_info(n_steps, chunk),
+                    ledger=self._halo if self._sharded else None)
+            try:
+                with maybe_trace(tel.profile_dir if tel is not None and rank0
+                                 else None):
+                    self._run_loop(n_steps, generator, chunk, targ, farg,
+                                   callback, checkpoint_dir, checkpoint_every,
+                                   checkpoint_keep, tel, session)
+            except BaseException as exc:
+                if session is not None:
+                    session.finish(status="failed", error=str(exc))
+                raise
             if session is not None:
-                session.finish(status="failed", error=str(exc))
-            raise
-        if session is not None:
-            session.finish(status="ok")
-        return self.state
+                session.finish(status="ok")
+            return self.state
 
     def _restart(self, farg):
         """Honor a caller-swapped ``engine.state`` on the flat and replica
@@ -1608,70 +1666,75 @@ class Engine:
         reb_prev = carry.n_rebuilds
         mig_prev = carry.n_migrated if self._sharded else 0
         while done < n_steps:
-            n = min(chunk, n_steps - done)
-            emit = self._emit_for(n)
-            if self._fault_injector is not None:
-                # resilience hook (repro_torch.resilience.faults): carry
-                # corruption at the chunk boundary, kept in self._carry
-                carry = self._fault_injector(self, carry, n)
+            with phase("chunk"):
+                n = min(chunk, n_steps - done)
+                emit = self._emit_for(n)
+                if self._fault_injector is not None:
+                    # resilience hook (repro_torch.resilience.faults): carry
+                    # corruption at the chunk boundary, kept in self._carry
+                    carry = self._fault_injector(self, carry, n)
+                    self._carry = carry
+                targ_c = self._chunk_arg(targ, carry, n, vec=False)
+                farg_c = self._chunk_arg(farg, carry, n, vec=True)
+                t_chunk = time.perf_counter()
+                guard = RangeGuard()
+                halo = (self._halo if self._sharded
+                        else contextlib.nullcontext())
+                with halo, guard:
+                    carry, obs, health = chunk_fn(carry, generator, targ_c,
+                                                  farg_c, n, emit)
+                if guard.bound is not None:
+                    health = {**health, _RANGE: guard.bound}
+                with phase("readback"):
+                    obs, h_host = self._readback(obs, health)
+                if guard.bound is not None:
+                    guard.check(h_host.pop(_RANGE))
+                wall = time.perf_counter() - t_chunk   # the readback synced
+                times.extend(t0 + (done + i + 1) * dt for i in (
+                    [n - 1] if emit is None else sorted(emit)))
+                rows.append(obs)
+                hrows.append(h_host)
+                done += n
+                chunks_done += 1
                 self._carry = carry
-            targ_c = self._chunk_arg(targ, carry, n, vec=False)
-            farg_c = self._chunk_arg(farg, carry, n, vec=True)
-            t_chunk = time.perf_counter()
-            guard = RangeGuard()
-            with (self._halo if self._sharded else contextlib.nullcontext(),
-                  guard):
-                carry, obs, health = chunk_fn(carry, generator, targ_c,
-                                              farg_c, n, emit)
-            if guard.bound is not None:
-                health = {**health, _RANGE: guard.bound}
-            obs, h_host = self._readback(obs, health)
-            if guard.bound is not None:
-                guard.check(h_host.pop(_RANGE))
-            wall = time.perf_counter() - t_chunk   # the readback synced
-            times.extend(t0 + (done + i + 1) * dt
-                         for i in ([n - 1] if emit is None else sorted(emit)))
-            rows.append(obs)
-            hrows.append(h_host)
-            done += n
-            chunks_done += 1
-            self._carry = carry
 
-            # health gate BEFORE checkpointing: a failing chunk must not
-            # become the newest checkpoint
-            verdict, err = "ok", None
-            try:
-                if self._sharded:
-                    self._check_dropped(chunk_index=chunks_done - 1)
-                if tel is not None and tel.health is not None:
-                    verdict = check_chunk(
-                        h_host, tel.health, step=self._step_now(),
-                        chunk_index=chunks_done - 1,
-                        checkpoint_path=self._last_ckpt)
-            except HealthError as e:
-                verdict, err = "fail", e
-            if session is not None:
-                counters = {"rebuilds": carry.n_rebuilds - reb_prev}
-                if self._sharded:
-                    counters["migrations"] = carry.n_migrated - mig_prev
-                    mig_prev = carry.n_migrated
-                session.chunk(
-                    steps=n, step=self._step_now(), time_ps=t0 + done * dt,
-                    wall_s=wall, health=h_host, verdict=verdict,
-                    counters=counters,
-                    error=None if err is None else str(err))
-                reb_prev = carry.n_rebuilds
-            if err is not None:
-                self._fold_trace(rows, times, hrows)
-                raise err
-            if checkpoint_dir is not None and (
-                    chunks_done % checkpoint_every == 0 or done >= n_steps):
-                self.save(checkpoint_dir, generator, keep=checkpoint_keep)
-            if callback is not None:
-                self._sync_observation()
-                callback(self)
-                self._restart(farg)   # the callback may swap the state
-                carry = self._carry
+                # health gate BEFORE checkpointing: a failing chunk must not
+                # become the newest checkpoint
+                verdict, err = "ok", None
+                try:
+                    if self._sharded:
+                        self._check_dropped(chunk_index=chunks_done - 1)
+                    if tel is not None and tel.health is not None:
+                        verdict = check_chunk(
+                            h_host, tel.health, step=self._step_now(),
+                            chunk_index=chunks_done - 1,
+                            checkpoint_path=self._last_ckpt)
+                except HealthError as e:
+                    verdict, err = "fail", e
+                if session is not None:
+                    counters = {"rebuilds": carry.n_rebuilds - reb_prev}
+                    if self._sharded:
+                        counters["migrations"] = carry.n_migrated - mig_prev
+                        mig_prev = carry.n_migrated
+                    session.chunk(
+                        steps=n, step=self._step_now(),
+                        time_ps=t0 + done * dt, wall_s=wall, health=h_host,
+                        verdict=verdict,
+                        counters=counters,
+                        error=None if err is None else str(err))
+                    reb_prev = carry.n_rebuilds
+                if err is not None:
+                    self._fold_trace(rows, times, hrows)
+                    raise err
+                if checkpoint_dir is not None and (
+                        chunks_done % checkpoint_every == 0
+                        or done >= n_steps):
+                    self.save(checkpoint_dir, generator, keep=checkpoint_keep)
+                if callback is not None:
+                    self._sync_observation()
+                    callback(self)
+                    self._restart(farg)   # the callback may swap the state
+                    carry = self._carry
         self._carry = carry
         self._sync_observation()
         self._fold_trace(rows, times, hrows)

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.md.state import SpinLatticeState
+from repro_torch.telemetry.profiling import host_sync
 from repro_torch.utils import units
 
 
@@ -74,8 +75,10 @@ def _scale(temp, fn, like: torch.Tensor, ndim: int):
     scalar operand would be."""
     if not isinstance(temp, list):
         return fn(temp)
-    return torch.tensor([fn(t) for t in temp], dtype=like.dtype,
-                        device=like.device).reshape((-1,) + (1,) * ndim)
+    with host_sync():    # a blocking copy to the card
+        scale = torch.tensor([fn(t) for t in temp], dtype=like.dtype,
+                             device=like.device)
+    return scale.reshape((-1,) + (1,) * ndim)
 
 
 def _rodrigues(s: torch.Tensor, omega: torch.Tensor, dt: float) -> torch.Tensor:

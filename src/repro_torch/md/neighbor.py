@@ -41,6 +41,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.telemetry.profiling import host_sync
+
 
 class NeighborTable(NamedTuple):
     idx: torch.Tensor    # (N, M) int32 neighbor indices (self-padded)
@@ -147,8 +149,10 @@ def reverse_index(idx: torch.Tensor, n_rows: int | None = None
     counts = torch.bincount(flat, minlength=n)
     start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n_slots, device=idx.device) - start[target]
-    rev = torch.full((n, max(int(counts.max()), 1)), n_slots,
-                     dtype=torch.int64, device=idx.device)
+    with host_sync():
+        width = max(int(counts.max()), 1)
+    rev = torch.full((n, width), n_slots, dtype=torch.int64,
+                     device=idx.device)
     rev[target, rank] = order
     return rev
 
@@ -342,7 +346,8 @@ def bin_atoms(pos: torch.Tensor, box: torch.Tensor,
 
     Returns (cell_idx int32 atom ids or -1, cell_mask, overflow 0-d bool).
     Atom order inside a cell is arrival order; atoms past ``capacity`` are
-    left out of the grid and flagged.
+    left out of the grid and flagged.  The atoms kept are found once (one
+    host sync).
     """
     cx, cy, cz = n_cells
     *_, flat = _cell_coords(pos, box, n_cells)
@@ -353,10 +358,11 @@ def bin_atoms(pos: torch.Tensor, box: torch.Tensor,
     idx_in_run = ar - torch.searchsorted(sorted_flat, sorted_flat, side="left")
     slot = torch.empty_like(idx_in_run).scatter_(0, order, idx_in_run)
     overflow = torch.any(slot >= capacity)
-    keep = slot < capacity
+    with host_sync():
+        kept = torch.nonzero(slot < capacity).reshape(-1)
     grid = torch.full((cx * cy * cz * capacity,), -1, dtype=torch.int32,
                       device=pos.device)
-    grid[flat[keep] * capacity + slot[keep]] = ar[keep].to(torch.int32)
+    grid[flat[kept] * capacity + slot[kept]] = kept.to(torch.int32)
     grid = grid.reshape(cx, cy, cz, capacity)
     return grid, grid >= 0, overflow
 
@@ -386,14 +392,17 @@ def cell_neighbor_table(pos: torch.Tensor, box: torch.Tensor, cutoff: float,
     rc = cutoff + skin
     cx, cy, cz = n_cells
     grid, _, overflow = bin_atoms(pos, box, n_cells, cell_capacity)
-    if bool(overflow):
+    with host_sync():
+        overflow = bool(overflow)
+    if overflow:
         raise RuntimeError(
             f"linked-cell overflow: a cell of the {n_cells} grid holds more "
             f"than cell_capacity={cell_capacity} atoms; raise cell_capacity")
     n = pos.shape[0]
     dev = pos.device
     ci, cj, ck, _ = _cell_coords(pos, box, n_cells)
-    offs = torch.tensor(_STENCIL, dtype=torch.int64, device=dev)   # (27, 3)
+    with host_sync():    # a blocking copy to the card
+        offs = torch.tensor(_STENCIL, dtype=torch.int64, device=dev)  # (27, 3)
     sci = (ci[:, None] + offs[None, :, 0]) % cx
     scj = (cj[:, None] + offs[None, :, 1]) % cy
     sck = (ck[:, None] + offs[None, :, 2]) % cz

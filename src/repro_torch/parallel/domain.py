@@ -44,6 +44,7 @@ from repro_torch.parallel.halo import (cell_dims, exchange_halo,
                                        exchange_halo_multi, fold_halo,
                                        fold_halo_multi, local_wrap)
 from repro_torch.parallel.overlap import shell_slabs
+from repro_torch.telemetry.profiling import host_sync
 from repro_torch.utils import units
 
 
@@ -504,7 +505,8 @@ def make_domain_refresh(dspec: DomainSpec, axes, local_shape,
         fields = {"pos": pos}
         if spin_in_gather and spin is not None:
             fields["spin"] = spin
-        box = torch.as_tensor(boxt, dtype=pos.dtype, device=pos.device)
+        with host_sync():    # a blocking copy to the card
+            box = torch.as_tensor(boxt, dtype=pos.dtype, device=pos.device)
         pending = exchange_halo_multi(fields, axes, tag=tag,
                                       allgather=allgather, async_op=True,
                                       lead=lead)

@@ -30,15 +30,21 @@ tensors, so a ppermute-mode exchange of CUDA tensors under gloo raises.
 Instrumentation: every exchange and fold records its tag and per-rank
 message bytes into every active :class:`HaloTrace` (a context manager; the
 Engine opens one per run) at each CALL, so ``counts[tag]`` over a run of n
-steps is n times the exchanges a step makes.
+steps is n times the exchanges a step makes.  A tagged exchange or fold
+also runs in a ``repro.halo.<tag>`` profiler range; an asynchronous
+exchange opens it twice, once to issue its messages and once in ``wait()``,
+so a trace names the exchange a rank waits at.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.telemetry.profiling import annotate
 
 # Per-step steady-state exchange tags: one occurrence each makes the
 # per-step wire estimate (rebuild and migration tags run on rebuilds only)
@@ -235,24 +241,38 @@ def exchange_halo(x: torch.Tensor, axes, dims=(0, 1, 2), width: int = 1,
     ``async_op`` returns a :class:`PendingHalo`: the first communicating
     axis's messages are issued before it returns and the axes after it run
     in ``wait()`` - the caller computes what needs no ghost in between."""
-    if tag is not None:
-        record(tag, _message_bytes(x, dims, axes, width, allgather))
-    todo = list(zip(dims, axes))
-    while todo and not _communicates(todo[0][1]):
+    with _span(tag):
+        if tag is not None:
+            record(tag, _message_bytes(x, dims, axes, width, allgather))
+        todo = list(zip(dims, axes))
+        while todo and not _communicates(todo[0][1]):
+            d, ax = todo.pop(0)
+            x = exchange_axis(x, d, ax, width)
+        if not todo:
+            return PendingHalo(lambda: x, False) if async_op else x
         d, ax = todo.pop(0)
-        x = exchange_axis(x, d, ax, width)
-    if not todo:
-        return PendingHalo(lambda: x, False) if async_op else x
-    d, ax = todo.pop(0)
-    pending = _start_axis(x, d, ax, width, allgather)
+        pending = _start_axis(x, d, ax, width, allgather)
 
-    def finish():
-        y = pending()
-        for d2, ax2 in todo:
-            y = exchange_axis(y, d2, ax2, width, allgather)
-        return y
+        def finish():
+            y = pending()
+            for d2, ax2 in todo:
+                y = exchange_axis(y, d2, ax2, width, allgather)
+            return y
 
-    return PendingHalo(finish, True) if async_op else finish()
+        if not async_op:
+            return finish()
+
+    def wait():
+        with _span(tag):
+            return finish()
+
+    return PendingHalo(wait, True)
+
+
+def _span(tag: str | None):
+    """The ``repro.halo.<tag>`` range of a tagged exchange or fold."""
+    return (annotate(f"repro.halo.{tag}") if tag is not None
+            else contextlib.nullcontext())
 
 
 def local_wrap(x: torch.Tensor, dims=(0, 1, 2), width: int = 1
@@ -380,11 +400,12 @@ def fold_halo(x: torch.Tensor, axes, dims=(0, 1, 2), width: int = 1,
     owners, returning the core (cx, cy, cz, ...) block; axes fold in the
     reverse of the exchange order, so edge and corner contributions travel
     the way their ghosts came."""
-    if tag is not None:
-        record(tag, _message_bytes(x, dims, axes, width, allgather))
-    for d, ax in reversed(list(zip(dims, axes))):
-        x = fold_axis(x, d, ax, width, allgather)
-    return x
+    with _span(tag):
+        if tag is not None:
+            record(tag, _message_bytes(x, dims, axes, width, allgather))
+        for d, ax in reversed(list(zip(dims, axes))):
+            x = fold_axis(x, d, ax, width, allgather)
+        return x
 
 
 def fold_halo_multi(fields: Mapping[str, torch.Tensor], axes,

@@ -1,12 +1,12 @@
 """Run-scoped observability for the port's MD engine (port of
 ``repro.telemetry``).
 
-* :mod:`.metrics` - :class:`RunMetrics` and the :class:`CompileWatchdog`
-  (kernel builds and library loads);
+* :mod:`.metrics` - :class:`RunMetrics`, the :class:`CompileWatchdog`
+  (kernel builds and library loads) and the :class:`HostSyncCounter`;
 * :mod:`.monitor` - health signals, chunk-boundary thresholds and the
   structured :class:`HealthError` naming the last-good checkpoint;
-* :mod:`.profiling` - ``repro.<phase>`` profiler / NVTX ranges and an
-  opt-in Chrome trace;
+* :mod:`.profiling` - ``repro.<phase>`` profiler / NVTX ranges, the
+  counted ``repro.sync`` scope and an opt-in Chrome trace;
 * :mod:`.runlog` - the per-chunk JSONL event stream.
 
 Entry point::
@@ -23,17 +23,19 @@ import dataclasses
 import os
 import time
 
-from repro_torch.telemetry.metrics import (CompileWatchdog, RunMetrics,
-                                           peak_device_memory)
+from repro_torch.telemetry.metrics import (CompileWatchdog, HostSyncCounter,
+                                           RunMetrics, peak_device_memory)
 from repro_torch.telemetry.monitor import (HealthConfig, HealthError,
                                            check_chunk, nonfinite_count,
                                            occupancy_fraction, spin_norm_dev)
-from repro_torch.telemetry.profiling import annotate, maybe_trace, phase
+from repro_torch.telemetry.profiling import (annotate, host_sync,
+                                             maybe_trace, phase)
 from repro_torch.telemetry.runlog import (RunLog, append_event, read_runlog,
                                           repair_tail)
 
 __all__ = [
     "Telemetry", "TelemetrySession", "RunMetrics", "CompileWatchdog",
+    "HostSyncCounter", "host_sync",
     "HealthConfig", "HealthError", "RunLog", "read_runlog", "append_event",
     "repair_tail", "check_chunk", "nonfinite_count", "occupancy_fraction",
     "spin_norm_dev", "phase", "annotate", "maybe_trace",
@@ -73,7 +75,8 @@ def _halo_totals(ledger) -> dict:
 
 
 class TelemetrySession:
-    """One run's telemetry: wall clocks, compile deltas, runlog records.
+    """One run's telemetry: wall clocks, compile and host-sync deltas,
+    runlog records.
     The engine calls :meth:`chunk` at every chunk boundary and
     :meth:`finish` once."""
 
@@ -86,6 +89,8 @@ class TelemetrySession:
         self.metrics = tel.metrics
         self.watchdog = CompileWatchdog()
         self._compile_mark = self.watchdog.mark()
+        self.syncs = HostSyncCounter()
+        self._sync_start = self._sync_mark = self.syncs.mark()
         self._t0 = time.perf_counter()
         self._steps = 0
         self._chunks = 0
@@ -100,12 +105,15 @@ class TelemetrySession:
         """Record one chunk boundary; returns the runlog record."""
         compiles = self.watchdog.since(self._compile_mark)
         self._compile_mark = self.watchdog.mark()
+        host_syncs = self.syncs.since(self._sync_mark)
+        self._sync_mark = self.syncs.mark()
         self._steps += steps
         self._chunks += 1
         steps_per_s = steps / wall_s if wall_s > 0 else float("inf")
         self.metrics.inc("steps", steps)
         self.metrics.inc("chunks")
         self.metrics.inc("compiles", compiles)
+        self.metrics.inc("host_syncs", host_syncs)
         self.metrics.inc("wall_s", wall_s)
         for name, value in (counters or {}).items():
             self.metrics.inc(name, value)
@@ -113,7 +121,8 @@ class TelemetrySession:
         record = {
             "chunk": self._chunks - 1, "steps": steps, "step": step,
             "time_ps": time_ps, "wall_s": wall_s, "steps_per_s": steps_per_s,
-            "compiles": compiles, "health": health, "verdict": verdict,
+            "compiles": compiles, "host_syncs": host_syncs,
+            "health": health, "verdict": verdict,
             **(counters or {}),
         }
         if self.ledger is not None:
@@ -139,6 +148,7 @@ class TelemetrySession:
             record = self.runlog.write(
                 "run_end", status=status, total_steps=self._steps,
                 total_chunks=self._chunks, total_wall_s=wall,
+                host_syncs=self.syncs.since(self._sync_start),
                 steps_per_s=(self._steps / wall if wall > 0 else None),
                 peak_memory_bytes=peak, metrics=self.metrics.snapshot(),
                 **extra)

@@ -10,6 +10,10 @@ libraries compiled by ``nvcc`` and loaded by :mod:`repro_torch._build`.
 The port captures no CUDA graphs and calls no ``torch.compile``, so there
 is nothing else to count.  Run-scoped accounting uses marks: ``mark()``,
 then ``since(mark)``.  A steady-state run reads 0 after its first chunk.
+
+:class:`HostSyncCounter` reads the host syncs that
+:func:`repro_torch.telemetry.profiling.host_sync` counts (each one a
+``repro.sync`` range), by the same marks.
 """
 from __future__ import annotations
 
@@ -26,6 +30,23 @@ class CompileWatchdog:
     def count(self) -> int:
         from repro_torch import _build
         return _build.EVENTS["builds"] + _build.EVENTS["loads"]
+
+    def mark(self) -> int:
+        """Take a mark; pass it to :meth:`since` for a run-scoped delta."""
+        return self.count
+
+    def since(self, mark: int) -> int:
+        return self.count - mark
+
+
+class HostSyncCounter:
+    """Process-wide count of the host reads that block on the card, with
+    run-scoped delta reads."""
+
+    @property
+    def count(self) -> int:
+        from repro_torch.telemetry.profiling import HOST_SYNCS
+        return HOST_SYNCS.count
 
     def mark(self) -> int:
         """Take a mark; pass it to :meth:`since` for a run-scoped delta."""

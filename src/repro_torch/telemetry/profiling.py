@@ -7,8 +7,16 @@ of ``repro.telemetry.profiling``).
   so ``torch.profiler`` traces and NVTX-aware tools attribute the kernels
   launched inside it.  Outside a profiler the cost is a few microseconds
   on the host per scope.
-* :func:`annotate` is the same for host-side regions (chunk dispatch,
-  checkpoint writes).
+* :func:`annotate` is the same for host-side regions: the engine's
+  ``repro.run``, ``repro.chunk``, ``repro.step``, ``repro.skin_test``,
+  ``repro.refresh`` and ``repro.readback``, and ``repro.halo.<tag>``
+  around each halo exchange of the Sharded plan.
+* :func:`host_sync` marks one host read that blocks on the card (an
+  ``.item()``, a ``.cpu()``, a boolean-mask index, a blocking copy to the
+  card): a ``repro.sync`` range, and one count of the process-wide
+  :data:`HOST_SYNCS`, which :class:`repro_torch.telemetry.metrics.
+  HostSyncCounter` reads by mark and delta.  The count and the ranges are
+  one thing, counted here.
 * :func:`maybe_trace` wraps a run in ``torch.profiler.profile`` when given
   a directory and writes a Chrome trace (``trace.json``) there; a
   profiler that cannot start raises, since the trace was asked for.
@@ -16,15 +24,22 @@ of ``repro.telemetry.profiling``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import torch
 
 
+@functools.cache
+def _nvtx() -> bool:
+    """Whether NVTX ranges are pushed: a card is present (read once)."""
+    return torch.cuda.is_available()
+
+
 @contextlib.contextmanager
 def annotate(name: str):
     """Profiler range ``name`` (and an NVTX range on a card)."""
-    nvtx = torch.cuda.is_available()
+    nvtx = _nvtx()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
@@ -38,6 +53,30 @@ def annotate(name: str):
 def phase(name: str):
     """Scope of one step phase, named ``repro.<name>``."""
     return annotate(f"repro.{name}")
+
+
+class _HostSyncs:
+    """The process's host syncs: ``count`` scopes opened so far, ``open``
+    scopes open now."""
+
+    count = 0
+    open = 0
+
+
+HOST_SYNCS = _HostSyncs()
+
+
+@contextlib.contextmanager
+def host_sync():
+    """Scope of one host read that blocks on the card: a ``repro.sync``
+    range, counted in :data:`HOST_SYNCS`."""
+    HOST_SYNCS.count += 1
+    HOST_SYNCS.open += 1
+    try:
+        with annotate("repro.sync"):
+            yield
+    finally:
+        HOST_SYNCS.open -= 1
 
 
 @contextlib.contextmanager
